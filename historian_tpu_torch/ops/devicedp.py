@@ -1,0 +1,255 @@
+"""The merge bridge: profiles -> resident fill planes -> traces.
+
+Port of the resident, factored, vector-mask route of
+historian_tpu/ops/devicedp.py (`col_forward_device` ->
+`col_forward_cells(keep=True)` -> `_oneshot_vecmask_pallas`, and
+`DeviceTraceFill`):
+
+1. the host builds the y in-edge tables, the x vectors with the chain
+   lp folded in, the emission factors and the envelope's O(L) vectors
+   (`fill_arrays`, exact sizes: no shape buckets);
+2. on the device, the emission is log(ey @ ex.T) + shifts, the band mask
+   is rebuilt from the vectors, and kernel K1 fills the five planes
+   (`fill_planes`);
+3. `TorchTraceFill` keeps the planes resident and answers lp_end and the
+   trace walks there; only the visited cells come back to the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from historian_tpu_torch import convert
+from historian_tpu_torch.ops.colforward import col_forward_planes
+from historian_tpu_torch.ops.tracedp import end_lp, pair_trace
+
+NEG = -1e30
+#: values below this are the semiring zero; the host reads them as -inf
+NEG_CUTOFF = -1e25
+
+
+def _clamp(a, dtype=np.float64) -> np.ndarray:
+    """Finite NEG in place of -inf (the kernels' semiring zero)."""
+    return np.where(np.isfinite(a), a, NEG).astype(dtype, copy=False)
+
+
+def pack_transitions(hmm) -> np.ndarray:
+    """A PairHMM in the kernels' [23] layout (historian_tpu/ops/
+    pairforward.py::pack_transitions)."""
+    return np.array([
+        hmm.imm_imm, hmm.imm_imd, hmm.imm_idm, hmm.imm_imi, hmm.imm_iiw, hmm.imm_eee,
+        hmm.imd_imm, hmm.imd_imd, hmm.imd_idm, hmm.imd_eee,
+        hmm.idm_imm, hmm.idm_imd, hmm.idm_idm, hmm.idm_eee,
+        hmm.imi_imm, hmm.imi_imd, hmm.imi_imi, hmm.imi_iiw, hmm.imi_eee,
+        hmm.iiw_imm, hmm.iiw_idm, hmm.iiw_iiw, hmm.iiw_eee,
+    ])
+
+
+def profile_in_edges(profile, n: int):
+    """y in-edge tables [n, K] (src int32, lp with NEG pads), K = the
+    largest in-degree among the first n states; memoized on the profile."""
+    cached = profile.__dict__.get("_torch_in_edges")
+    if cached is not None:
+        return cached
+    K = max(1, max((len(profile.states[s].in_trans) for s in range(n)), default=1))
+    src = np.zeros((n, K), dtype=np.int32)
+    lp = np.full((n, K), NEG)
+    for s in range(n):
+        for k, t in enumerate(profile.states[s].in_trans):
+            src[s, k] = profile.trans[t].src
+            lp[s, k] = _clamp(profile.trans[t].lp)
+    profile.__dict__["_torch_in_edges"] = (src, lp)
+    return src, lp
+
+
+def sorted_walk_edges(src: np.ndarray, lp: np.ndarray):
+    """Per-row copies of the in-edge tables sorted by source with the
+    padding last: the walker's candidate order is the host's sorted
+    cell order (historian_tpu/ops/devicedp.py::_sorted_walk_edges)."""
+    pad = lp <= NEG / 2
+    order = np.argsort(np.where(pad, np.iinfo(np.int32).max, src), axis=1, kind="stable")
+    rows = np.arange(src.shape[0])[:, None]
+    return src[rows, order], lp[rows, order]
+
+
+def fill_arrays(dp) -> dict:
+    """Host inputs of the one-program fill for a chain-x DPMatrix, the
+    arrays the JAX bridge passes to `_oneshot_vecmask_pallas`, at exact
+    sizes SX = nx, SY = ny."""
+    ex = dp.x.as_chain()
+    nx, ny = dp.x_size - 1, dp.y_size - 1
+    tx = ex[:nx]  # transition lp into x state i (tx[0] = 0 for START)
+    rsx = _clamp(dp.rootsubx[:nx] + tx)
+    isx = _clamp(dp.insx[:nx] + tx)
+    y_src, y_lp = profile_in_edges(dp.y, ny)
+    y_flags = np.stack([
+        dp.y_null[:ny], (dp.y_ready | dp.y_empty)[:ny],
+        _clamp(dp.rootsuby[:ny]), _clamp(dp.insy[:ny]),
+    ], axis=1).astype(np.float64)
+    xvec = np.stack([
+        rsx, isx,
+        np.where((dp.x_ready | dp.x_empty)[:nx], 0.0, NEG),
+        np.where(dp.x_emit_or_start[:nx], 0.0, NEG),
+    ])
+    fx, sxs, fy, sys_ = dp.absorb_factors
+    ev = dp.env_vectors
+    if ev is None:  # no envelope: every cell is in the band
+        m1, m2, dist = np.zeros(nx, np.int64), np.zeros(ny, np.int64), 0
+    else:
+        m1, m2, dist = ev[0][:nx], ev[1][:ny], ev[2]
+    return dict(
+        y_src=y_src, y_lp=y_lp, y_flags=y_flags,
+        ey_e=fy[:ny], ex_e=fx[:nx], shift_y=sys_[:ny], shift_x=sxs[:nx] + tx,
+        m2=np.asarray(m2, np.int64), m1=np.asarray(m1, np.int64), dist=dist,
+        yne=dp.y_near_end[:ny], xns=dp.x_near_start[:nx], ny=ny, nx=nx,
+        xvec=xvec, trans=_clamp(pack_transitions(dp.hmm)),
+    )
+
+
+def fill_planes(t: dict) -> torch.Tensor:
+    """The one-program fill on the tensors' device: emission matmul, band
+    mask from the envelope vectors, and K1.  Returns [5, SY, SX]."""
+    dense = torch.matmul(t["ey_e"], t["ex_e"].T)
+    torch.log_(dense)
+    dense += t["shift_y"][:, None]
+    dense += t["shift_x"][None, :]
+    mask = torch.abs(t["m2"][:, None] - t["m1"][None, :]) <= t["dist"]
+    mask |= t["yne"][:, None]
+    mask |= t["xns"][None, :]
+    absorb = torch.where(mask, torch.clamp_min(dense, NEG), NEG)
+    del dense
+    maskg = torch.zeros_like(absorb).masked_fill_(~mask, NEG)
+    del mask
+    return col_forward_planes(
+        t["y_src"], t["y_lp"], t["y_flags"], absorb, maskg, t["xvec"], t["trans"]
+    )
+
+
+def walk_arrays(dp) -> dict:
+    """Host inputs of the walker for a chain-x DPMatrix (the JAX
+    `DeviceTraceFill._walk_args`, at exact sizes)."""
+    nx, ny = dp.x_size - 1, dp.y_size - 1
+    src, lp = profile_in_edges(dp.y, ny)
+    y_src, y_lp = sorted_walk_edges(src, lp)
+    x_end = dp.x.end
+    if len(x_end.in_trans) != 1:
+        raise ValueError("a chain x has exactly one END in-edge")
+    xt = dp.x.trans[x_end.in_trans[0]]
+    ye = sorted((dp.y.trans[t].src, dp.y.trans[t].lp) for t in dp.y.end.in_trans)
+    return dict(
+        y_src=y_src, y_lp=y_lp, y_null=dp.y_null[:ny],
+        tx=_clamp(dp.x.as_chain()[:nx]), t6=_clamp(dp.hmm.trans_table),
+        xe_src=xt.src, xe_lp=_clamp(xt.lp),
+        ye_src=np.array([s for s, _ in ye], np.int32),
+        ye_lp=_clamp(np.array([v for _, v in ye])),
+    )
+
+
+def _check_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype) -> None:
+    """Raise when the merge cannot stay resident: the planes plus the
+    fill's transients (emission, mask, gate) must fit the free memory."""
+    if device.type != "cuda":
+        return
+    item = torch.finfo(dtype).bits // 8
+    need = SY * SX * (8 * item + 1)
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise MemoryError(
+            f"merge {SX}x{SY} needs {need / 1e9:.2f} GB of device memory, "
+            f"{free / 1e9:.2f} GB free"
+        )
+
+
+def col_forward_device(dp, device: torch.device, dtype: torch.dtype) -> "TorchTraceFill":
+    """Fill a chain-x merge on `device` and keep the planes there."""
+    arrays = fill_arrays(dp)
+    _check_budget(device, arrays["ny"], arrays["nx"], dtype)
+    planes = fill_planes(convert.fill_tensors(arrays, device, dtype))
+    return TorchTraceFill(dp, planes, walk_arrays(dp))
+
+
+class TorchTraceFill:
+    """Device-resident fill handle with the interface engine/forward.py
+    calls on the JAX package's DeviceTraceFill: dispatch_lp_end, lp_end,
+    dispatch_traces, collect_traces, lp_end_and_traces, readback."""
+
+    def __init__(self, dp, planes: torch.Tensor, walk: dict):
+        self.dp = dp
+        self.planes = planes  # [5, SY, SX] on the device
+        self.ny, self.nx = planes.shape[1], planes.shape[2]
+        self.walk = convert.walk_tensors(walk, planes.device, planes.dtype)
+        self.n_steps_max = self.nx + self.ny
+        self._lp_end = None
+        self._lp_end_dev = None
+        self._cells_np = None
+
+    def dispatch_lp_end(self) -> None:
+        """Enqueue the end gather without waiting for it."""
+        if self._lp_end is None and self._lp_end_dev is None:
+            w = self.walk
+            self._lp_end_dev = end_lp(
+                self.planes, w["t6"], w["xe_src"], w["xe_lp"], w["ye_src"], w["ye_lp"]
+            )
+
+    @property
+    def lp_end(self) -> float:
+        if self._lp_end is None:
+            self.dispatch_lp_end()
+            v = float(self._lp_end_dev)
+            self._lp_end_dev = None
+            self._lp_end = -np.inf if v < NEG_CUTOFF else v
+        return self._lp_end
+
+    def dispatch_traces(self, n_samples: int, include_best: bool, seed: int):
+        """Enqueue include_best + n_samples walks in one launch; the
+        sampled walks draw their uniforms from a torch.Generator seeded
+        with the merge's single mt19937 draw."""
+        dev, dtype = self.planes.device, self.planes.dtype
+        T = max(n_samples + (1 if include_best else 0), 1)
+        if n_samples:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+            u = torch.rand((T, self.n_steps_max), generator=gen, device=dev, dtype=dtype)
+        else:
+            u = torch.zeros((T, self.n_steps_max), device=dev, dtype=dtype)
+        best = torch.zeros(T, dtype=torch.bool, device=dev)
+        best[0] = include_best
+        w = self.walk
+        return pair_trace(
+            self.planes, w["y_src"], w["y_lp"], w["y_null"], w["tx"], w["t6"],
+            w["xe_src"], w["xe_lp"], w["ye_src"], w["ye_lp"], u, best,
+            self.n_steps_max,
+        )
+
+    def collect_traces(self, raw, n_samples: int, include_best: bool):
+        """Read a dispatch_traces result back: a list of (cells, vals)
+        start->end (END excluded), best first when include_best."""
+        T = n_samples + (1 if include_best else 0)
+        pi, pj, ps, vals, n_steps, lp = (x.cpu().numpy() for x in raw)
+        vals = vals.astype(np.float64)
+        vals[vals < NEG_CUTOFF] = -np.inf
+        lp = float(lp)
+        if self._lp_end is None:
+            self._lp_end = -np.inf if lp < NEG_CUTOFF else lp
+        traces = []
+        for t in range(T):
+            n = int(n_steps[t])
+            cells = [(int(pi[t, k]), int(pj[t, k]), int(ps[t, k])) for k in range(n)]
+            cells.reverse()  # the walker emits end->start
+            traces.append((cells, vals[t, :n][::-1]))
+        return traces
+
+    def lp_end_and_traces(self, n_samples: int, include_best: bool, seed: int):
+        raw = self.dispatch_traces(n_samples, include_best, seed)
+        traces = self.collect_traces(raw, n_samples, include_best)
+        return self.lp_end, traces
+
+    def readback(self) -> np.ndarray:
+        """The whole cell tensor [nx, ny, 5] on the host, -inf outside the
+        band and at unreachable cells."""
+        if self._cells_np is None:
+            cells = self.planes.permute(2, 1, 0).cpu().numpy().astype(np.float64)
+            cells[cells < NEG_CUTOFF] = -np.inf
+            self._cells_np = cells
+        return self._cells_np
