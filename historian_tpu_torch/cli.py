@@ -3,9 +3,9 @@
 Same flags as historian_tpu/cli.py for the reconstruction subset, the
 same `-fast` alias, plus `-platform gpu|cpu`: `gpu`, the default, needs
 CUDA and fails without it; `cpu` runs the kernels' plain PyTorch
-versions and is only ever chosen explicitly.  Flags of paths that are
-not ported yet are accepted where the JAX CLI accepts them and raise
-NotImplementedError when the run reaches them.
+versions and is only ever chosen explicitly.  The guide and tree flags
+have their JAX meaning; flags of paths that are not ported yet raise
+NotImplementedError naming their ROADMAP item, none is dropped silently.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from historian_tpu_torch.recon import (
 
 PROG = "historian-tpu-torch"
 
+CAREFUL_ALIAS = ["-allspan", "-kmatchoff", "-band", "40", "-profminpost", ".001",
+                 "-profmaxmem", "5", "-refine"]
 FAST_ALIAS = ["-rndspan", "-kmatchn", "3", "-band", "10", "-profmaxstates", "1", "-jc", "-norefine"]
 
 HELP = f"""{PROG}: historian-tpu's `recon` on PyTorch and CUDA
@@ -34,9 +36,17 @@ HELP = f"""{PROG}: historian-tpu's `recon` on PyTorch and CUDA
 Usage: {PROG} recon [options] [files]
 
   -platform gpu|cpu  device (default gpu; cpu must be given explicitly)
-  -seqs <file>       unaligned FASTA (needs -tree and -noband)
-  -guide <file>      gapped FASTA guide alignment (needs -tree)
-  -tree <file>       Newick tree      -reroot <node>
+  -seqs <file>       unaligned FASTA (guide stage, unless -noband with -tree)
+  -guide <file>      gapped FASTA guide alignment
+  -nexus <file>      Nexus guide alignment and tree
+  -stockholm <file>  Stockholm guide alignment (with its tree if it has one)
+  -tree <file>       Newick tree (default: built from the guide)  -reroot <node>
+  -saveguide <file>  append the guide alignment and tree to <file>
+  -rndspan | -allspan  random sparse (default) or all-pairs guide graph
+  -kmatch <k> -kmatchn <n> -kmatchband <w> -kmatchmb <MB> -kmatchmax -kmatchoff
+                     k-mer envelope of the guide alignments
+  -upgma | -nj       tree from distances by UPGMA (default) or neighbour joining
+  -jc                Jukes-Cantor distances (default: ML)
   -model <file>      rate-model JSON  -preset <name>  -codon  -normalize
   -insrate/-delrate/-insextprob/-delextprob/-gaprate/-gapextprob <x>
   -inslen/-dellen/-gaplen <L>  -subscale/-indelscale/-scale <x>
@@ -44,24 +54,32 @@ Usage: {PROG} recon [options] [files]
   -band <n> | -noband  -profmaxstates <n>  -profsamples <n>
   -output fasta|nexus|stockholm|json  -noancs  -seed <n>
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
+  -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
+             -refine; not ported: -profminpost needs the BackwardMatrix)
 """
 
 #: flags of the JAX CLI whose paths are not ported yet
 _NOT_PORTED = {
-    "-profminpost": "sampled-profile and DAG x DAG merges",
+    "-profminpost": "full-readback/BackwardMatrix",
     "-profmaxmem": "sampled-profile and DAG x DAG merges",
     "-keepgapsopen": "sampled-profile and DAG x DAG merges",
     "-nobest": "sampled-profile and DAG x DAG merges",
     "-ancseq": "counts/fit/-ancseq", "-ancprob": "counts/fit/-ancseq",
     "-refine": "MCMC/refiner", "-mcmc": "MCMC/refiner",
+    "-profminlen": "sampled-profile and DAG x DAG merges",
+    "-profmaxlen": "sampled-profile and DAG x DAG merges",
     "-savedot": "full-readback/BackwardMatrix",
-    "-nexus": "guide stage", "-stockholm": "guide stage", "-saveguide": "guide stage",
-    "-mesh": "multi-GPU", "-careful": "guide stage",
+    "-dotpost": "full-readback/BackwardMatrix",
+    "-dotgapsopen": "full-readback/BackwardMatrix",
+    "-dotsubpost": "full-readback/BackwardMatrix",
+    **{flag: "counts/fit/-ancseq" for flag in (
+        "-recon", "-nexusrecon", "-stockrecon", "-counts", "-mininc", "-maxiter",
+        "-nolaplace", "-fixsubrates", "-fixgaprates", "-rootlen")},
+    **{flag: "MCMC/refiner" for flag in (
+        "-samples", "-trace", "-checkpoint", "-ckptevery", "-fixtree", "-fixalign",
+        "-fixguide")},
+    "-mesh": "multi-GPU",
 }
-#: guide-stage tuning flags: accepted (the guide stage never runs here)
-_GUIDE_FLAGS = {"-rndspan": 0, "-allspan": 0, "-upgma": 0, "-nj": 0, "-jc": 0,
-                "-kmatchoff": 0, "-kmatchmax": 0, "-norefine": 0,
-                "-kmatchn": 1, "-kmatch": 1, "-kmatchband": 1, "-kmatchmb": 1}
 _MODEL_PARAMS = ("-insrate", "-delrate", "-insextprob", "-delextprob", "-inslen",
                  "-dellen", "-gaprate", "-gapextprob", "-gaplen", "-subscale",
                  "-indelscale", "-scale")
@@ -80,11 +98,32 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
 
         if arg in _NOT_PORTED:
             raise not_ported(f"option {arg}", _NOT_PORTED[arg])
-        if arg in _GUIDE_FLAGS:
-            for _ in range(_GUIDE_FLAGS[arg]):
-                take()
+        env = recon.diag_env_params
+        if arg == "-norefine":
+            pass  # -refine is not ported, so the merge never refines
+        elif arg in ("-rndspan", "-allspan"):
+            recon.guide_align_try_all_pairs = arg == "-allspan"
+        elif arg in ("-upgma", "-nj"):
+            recon.use_upgma = arg == "-upgma"
+        elif arg == "-jc":
+            recon.jukes_cantor_distance_matrix = True
+        elif arg == "-kmatchn":
+            env.kmer_threshold = int(take())
+        elif arg == "-kmatch":
+            env.kmer_len = int(take())
+        elif arg == "-kmatchband":
+            env.band_size = int(take())
+        elif arg == "-kmatchmb":
+            env.max_size = int(take()) << 20
+            env.kmer_threshold = -1
+        elif arg == "-kmatchmax":
+            env.kmer_threshold = -1
+        elif arg == "-kmatchoff":
+            env.sparse = False
         elif arg == "-fast":
             argvec.extendleft(reversed(FAST_ALIAS))
+        elif arg == "-careful":  # its -profminpost raises, naming its item
+            argvec.extendleft(reversed(CAREFUL_ALIAS))
         elif arg == "-model":
             recon.model_filename = take()
         elif arg == "-preset":
@@ -107,6 +146,12 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.seq_filenames.append(take())
         elif arg == "-guide":
             recon.fasta_guide_filenames.append(take())
+        elif arg == "-nexus":
+            recon.nexus_guide_filenames.append(take())
+        elif arg == "-stockholm":
+            recon.stockholm_guide_filenames.append(take())
+        elif arg == "-saveguide":
+            recon.guide_save_filename = take()
         elif arg == "-tree":
             recon.tree_filename = take()
         elif arg in ("-root", "-reroot"):

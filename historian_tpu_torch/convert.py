@@ -1,10 +1,12 @@
-"""numpy -> port tensors for the merge fill and the trace walk.
+"""numpy -> port tensors for the merge fill, the trace walk and the guide.
 
 The bridge (ops/devicedp.py) builds the same host arrays the JAX bridge
-hands to `_oneshot_vecmask_pallas` and to the walker
-(historian_tpu/ops/devicedp.py col_forward_cells / DeviceTraceFill),
-at exact sizes; these functions move them to a device and dtype.  The
-tests use them to feed the two packages identical inputs.
+hands to `_oneshot_vecmask_pallas`, to the fused kernel and to the
+walker (historian_tpu/ops/devicedp.py col_forward_cells /
+DeviceTraceFill), at exact sizes; the guide stage
+(engine/quickalign.py) builds the guide kernel's.  These functions move
+them to a device and dtype.  The tests use them to feed the two
+packages identical inputs.
 """
 
 from __future__ import annotations
@@ -23,6 +25,14 @@ WALK_FLOAT = ("y_lp", "tx", "t6", "xe_lp", "ye_lp")
 WALK_INT = ("y_src", "ye_src")
 WALK_BOOL = ("y_null",)
 WALK_SCALAR = ("xe_src",)
+
+#: the guide kernel's inputs, by kind
+GUIDE_FLOAT = ("submat", "trans", "sg", "end_x", "end_y")
+GUIDE_INT = ("x_tok", "y_tok", "x_len", "y_len")
+GUIDE_BOOL = ("lut",)
+
+#: K2's inputs (the fused route), by kind
+FUSED_FLOAT = ("y_lp", "y_flags", "ey", "ex_t", "xvec", "params")
 
 
 def _to(arrays: dict, floats, ints, bools, scalars, device, dtype) -> dict:
@@ -48,3 +58,39 @@ def fill_tensors(arrays: dict, device, dtype) -> dict:
 def walk_tensors(arrays: dict, device, dtype) -> dict:
     """The walker's numpy inputs as tensors on `device`."""
     return _to(arrays, WALK_FLOAT, WALK_INT, WALK_BOOL, WALK_SCALAR, device, dtype)
+
+
+def guide_tensors(arrays: dict, device, dtype) -> dict:
+    """The guide kernel's numpy inputs (engine/quickalign.py
+    `QuickAligner.guide_arrays`) as tensors on `device`."""
+    return _to(arrays, GUIDE_FLOAT, GUIDE_INT, GUIDE_BOOL, (), device, dtype)
+
+
+def fused_tensors(arrays: dict, device, dtype) -> dict:
+    """K2's inputs packed from the one-program fill's numpy inputs
+    (ops/devicedp.py `fill_arrays`), as historian_tpu/ops/devicedp.py
+    packs them for `pallas_col_forward_cells_fused` at exact sizes:
+    y_flags [SY, 8] (null, ready, rootsub_y, ins_y, m2, y_near_end,
+    shift_y, 0), ey [SY, CA], ex_t [CA, SX], xvec [8, SX] (rootsub_x,
+    ins_x, x_gate, x_eos, shift_x, m1, x_near_start, x_in_range) and
+    params [32] (23 transitions, band distance, ny)."""
+    ny, nx = arrays["ny"], arrays["nx"]
+    y_flags = np.zeros((ny, 8))
+    y_flags[:, :4] = arrays["y_flags"]
+    y_flags[:, 4] = arrays["m2"]
+    y_flags[:, 5] = arrays["yne"]
+    y_flags[:, 6] = arrays["shift_y"]
+    xvec = np.zeros((8, nx))
+    xvec[:4] = arrays["xvec"]
+    xvec[4] = arrays["shift_x"]
+    xvec[5] = arrays["m1"]
+    xvec[6] = arrays["xns"]
+    xvec[7] = 1.0
+    params = np.zeros(32)
+    params[:23] = arrays["trans"]
+    params[23] = arrays["dist"]
+    params[24] = ny
+    packed = dict(y_src=arrays["y_src"], y_lp=arrays["y_lp"], y_flags=y_flags,
+                  ey=arrays["ey_e"], ex_t=np.asarray(arrays["ex_e"]).T, xvec=xvec,
+                  params=params)
+    return _to(packed, FUSED_FLOAT, ("y_src",), (), (), device, dtype)

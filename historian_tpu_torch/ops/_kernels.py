@@ -1,9 +1,11 @@
 """Build and bind the hand-written CUDA kernels (`csrc/*.cu`).
 
-All sources compile in one `nvcc` call into a shared library with a plain
+Each source compiles in its own `nvcc` process, all started together,
+and one more `nvcc` links the objects into a shared library with a plain
 C interface, loaded with ctypes.  The build runs at first use, never at
 import, into `build/historian_tpu_torch/` beside the package, keyed by a
-hash of the sources and flags so an edited kernel always rebuilds.  The
+hash of the sources, headers and flags so an edited kernel always
+rebuilds.  The
 C functions return the launch's `cudaGetLastError()`; `check` turns a
 non-zero code into an exception.
 """
@@ -22,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "historian_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +37,12 @@ _SIGNATURES = {
     # n_steps, stream
     "pairtrace": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                   _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # y_src, y_lp, y_flags, ey, ex_t, xvec, params, out, SY, SX, KY, CA, stream
+    "colforward_fused": [_P] * 8 + [_I] * 4 + [_P],
+    # x_tok, y_tok, lut, x_len, y_len, submat, A, trans, sg, end_x, end_y,
+    # PX, PY, bp, bp_off, col, steps, n_steps, x_end, y_end, lead_i,
+    # lead_j, score, B, stream
+    "guidealign": [_P] * 6 + [_I] + [_P] * 4 + [_I, _I] + [_P] * 10 + [_I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -49,24 +57,36 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the first failure's errors."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err}")
+
+
 def build() -> str:
     """Compile every csrc/*.cu into one library if it is not built yet;
     returns its path."""
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
-    lib = os.path.join(BUILD_DIR, f"libhistorian_kernels_{h.hexdigest()[:16]}.so")
+    key = h.hexdigest()[:16]
+    lib = os.path.join(BUILD_DIR, f"libhistorian_kernels_{key}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{key}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)])
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, lib)
     return lib
 

@@ -18,6 +18,14 @@ NEG = -1e30 is the finite semiring zero.
 step per y column, IMD/IIW as Hillis-Steele affine log-sum-exp scans
 over x).  `col_forward_planes` is the wrapper: the plain version for a
 CPU tensor, the CUDA kernel (csrc/colforward.cu) for a CUDA tensor.
+
+Kernel K2, `col_forward_planes_fused`, ports
+historian_tpu/ops/pallas_colforward.py::pallas_col_forward_cells_fused:
+the same fill, with the emission log(ey @ ex_t) + shifts and the band
+mask built inside the kernel (csrc/colforward_fused.cu) from O(L)
+vectors, in that kernel's layout (see `col_forward_planes_fused_plain`).
+Its plain version builds `absorb` and `maskg` with `emission_planes`,
+as the K1 route of ops/devicedp.py does, then runs K1's plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ import torch
 NEG = -1e30
 #: kernel launches made by `col_forward_planes` (never by the plain path)
 LAUNCHES = 0
+#: K2 launches made by `col_forward_planes_fused` (never by the plain path)
+FUSED_LAUNCHES = 0
+#: the largest emission width CA that K2 takes
+FUSED_MAX_CA = 256
 
 
 def _lse(a, b):
@@ -171,4 +183,96 @@ def col_forward_planes(y_src, y_lp, y_flags, absorb, maskg, xvec, trans):
                   trans.data_ptr(), out.data_ptr(), SY, SX, y_src.shape[1], stream)
     _kernels.check(code, "colforward")
     LAUNCHES += 1
+    return out
+
+
+def emission_planes(ey, ex_t, shift_y, shift_x, in_band):
+    """(absorb, maskg) [SY, SX]: the match emission
+    max(log(ey @ ex_t) + shift_y + shift_x, NEG) inside the band and NEG
+    outside, and the gate (0 inside, NEG outside)."""
+    dense = torch.matmul(ey, ex_t)
+    torch.log_(dense)
+    dense += shift_y[:, None]
+    dense += shift_x[None, :]
+    absorb = torch.where(in_band, torch.clamp_min(dense, NEG), NEG)
+    del dense
+    maskg = torch.zeros_like(absorb).masked_fill_(~in_band, NEG)
+    return absorb, maskg
+
+
+def col_forward_planes_fused_plain(y_src, y_lp, y_flags, ey, ex_t, xvec, params):
+    """Plain PyTorch version of K2.  y_flags [SY, 8]: null, ready,
+    rootsub_y, ins_y, m2, y_near_end, shift_y, -; ey [SY, CA]; ex_t
+    [CA, SX]; xvec [8, SX]: rootsub_x, ins_x, x_gate, x_eos, shift_x, m1,
+    x_near_start, x_in_range; params [32]: 23 transitions, the band
+    distance, ny.  A cell is in the band when |m2 - m1| <= distance or it
+    is near the start of x or the end of y, and it lies in the real
+    region (x_in_range, row < ny)."""
+    SY = y_flags.shape[0]
+    dist, ny = params[23], params[24]
+    in_band = torch.abs(y_flags[:, 4, None] - xvec[5][None, :]) <= dist
+    in_band |= (xvec[6] > 0.5)[None, :]
+    in_band |= (y_flags[:, 5] > 0.5)[:, None]
+    in_band &= (xvec[7] > 0.5)[None, :]
+    in_band &= (torch.arange(SY, device=ey.device) < ny)[:, None]
+    absorb, maskg = emission_planes(ey, ex_t, y_flags[:, 6], xvec[4], in_band)
+    return col_forward_planes_plain(
+        y_src, y_lp, y_flags[:, :4].contiguous(), absorb, maskg,
+        xvec[:4].contiguous(), params[:23].contiguous(),
+    )
+
+
+def _check_fused_inputs(y_src, y_lp, y_flags, ey, ex_t, xvec, params):
+    dt = ey.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"K2 takes float32 or float64, got {dt}")
+    if y_src.dtype != torch.int32:
+        raise TypeError(f"y_src must be int32, got {y_src.dtype}")
+    SY, CA = ey.shape
+    SX = ex_t.shape[1]
+    KY = y_src.shape[1]
+    if not 1 <= CA <= FUSED_MAX_CA:
+        raise ValueError(f"K2 takes 1 to {FUSED_MAX_CA} emission factors, got {CA}")
+    want = {
+        "y_src": (y_src, (SY, KY)), "y_lp": (y_lp, (SY, KY)), "y_flags": (y_flags, (SY, 8)),
+        "ey": (ey, (SY, CA)), "ex_t": (ex_t, (CA, SX)), "xvec": (xvec, (8, SX)),
+        "params": (params, (32,)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.device != ey.device:
+            raise ValueError(f"{name} is on {t.device}, ey on {ey.device}")
+        if name != "y_src" and t.dtype != dt:
+            raise TypeError(f"{name} is {t.dtype}, ey is {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if SY < 1 or SX < 1:
+        raise ValueError(f"empty grid {SY}x{SX}")
+
+
+def col_forward_planes_fused(y_src, y_lp, y_flags, ey, ex_t, xvec, params):
+    """K2: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (float32 or float64).  Any other device raises."""
+    global FUSED_LAUNCHES
+    _check_fused_inputs(y_src, y_lp, y_flags, ey, ex_t, xvec, params)
+    dev = ey.device
+    if dev.type == "cpu":
+        return col_forward_planes_fused_plain(y_src, y_lp, y_flags, ey, ex_t, xvec, params)
+    if dev.type != "cuda":
+        raise RuntimeError(f"K2 has no kernel for device {dev}")
+    from historian_tpu_torch.ops import _kernels
+
+    SY, CA = ey.shape
+    SX = ex_t.shape[1]
+    out = torch.empty((5, SY, SX), dtype=ey.dtype, device=dev)
+    fn = _kernels.lib().colforward_fused_f32 if ey.dtype == torch.float32 \
+        else _kernels.lib().colforward_fused_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(y_src.data_ptr(), y_lp.data_ptr(), y_flags.data_ptr(), ey.data_ptr(),
+                  ex_t.data_ptr(), xvec.data_ptr(), params.data_ptr(), out.data_ptr(),
+                  SY, SX, y_src.shape[1], CA, stream)
+    _kernels.check(code, "colforward_fused")
+    FUSED_LAUNCHES += 1
     return out

@@ -10,18 +10,27 @@ historian_tpu/ops/devicedp.py (`col_forward_device` ->
    (`fill_arrays`, exact sizes: no shape buckets);
 2. on the device, the emission is log(ey @ ex.T) + shifts, the band mask
    is rebuilt from the vectors, and kernel K1 fills the five planes
-   (`fill_planes`);
+   (`fill_planes`); under HISTORIAN_PALLAS_FUSED=1, the JAX package's
+   switch, kernel K2 builds the emission and the mask itself from the
+   packed O(L) vectors and fills the planes (`fill_planes_fused`), so
+   no [SY, SX] emission or mask plane exists;
 3. `TorchTraceFill` keeps the planes resident and answers lp_end and the
    trace walks there; only the visited cells come back to the host.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from historian_tpu_torch import convert
-from historian_tpu_torch.ops.colforward import col_forward_planes
+from historian_tpu_torch.ops.colforward import (
+    col_forward_planes,
+    col_forward_planes_fused,
+    emission_planes,
+)
 from historian_tpu_torch.ops.tracedp import end_lp, pair_trace
 
 NEG = -1e30
@@ -110,19 +119,26 @@ def fill_arrays(dp) -> dict:
 def fill_planes(t: dict) -> torch.Tensor:
     """The one-program fill on the tensors' device: emission matmul, band
     mask from the envelope vectors, and K1.  Returns [5, SY, SX]."""
-    dense = torch.matmul(t["ey_e"], t["ex_e"].T)
-    torch.log_(dense)
-    dense += t["shift_y"][:, None]
-    dense += t["shift_x"][None, :]
     mask = torch.abs(t["m2"][:, None] - t["m1"][None, :]) <= t["dist"]
     mask |= t["yne"][:, None]
     mask |= t["xns"][None, :]
-    absorb = torch.where(mask, torch.clamp_min(dense, NEG), NEG)
-    del dense
-    maskg = torch.zeros_like(absorb).masked_fill_(~mask, NEG)
+    absorb, maskg = emission_planes(t["ey_e"], t["ex_e"].T, t["shift_y"], t["shift_x"], mask)
     del mask
     return col_forward_planes(
         t["y_src"], t["y_lp"], t["y_flags"], absorb, maskg, t["xvec"], t["trans"]
+    )
+
+
+def fused_enabled() -> bool:
+    """HISTORIAN_PALLAS_FUSED=1 routes every merge through K2."""
+    return os.environ.get("HISTORIAN_PALLAS_FUSED", "0") == "1"
+
+
+def fill_planes_fused(t: dict) -> torch.Tensor:
+    """The fused fill: K2 on the packed tensors of convert.fused_tensors.
+    Returns [5, SY, SX]."""
+    return col_forward_planes_fused(
+        t["y_src"], t["y_lp"], t["y_flags"], t["ey"], t["ex_t"], t["xvec"], t["params"]
     )
 
 
@@ -146,13 +162,15 @@ def walk_arrays(dp) -> dict:
     )
 
 
-def _check_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype) -> None:
-    """Raise when the merge cannot stay resident: the planes plus the
-    fill's transients (emission, mask, gate) must fit the free memory."""
+def _check_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype,
+                  fused: bool) -> None:
+    """Raise when the merge cannot stay resident: the planes plus, on the
+    K1 route, the fill's transients (emission, mask, gate) must fit the
+    free memory."""
     if device.type != "cuda":
         return
     item = torch.finfo(dtype).bits // 8
-    need = SY * SX * (8 * item + 1)
+    need = SY * SX * (5 * item if fused else 8 * item + 1)
     free, _ = torch.cuda.mem_get_info(device)
     if need > free:
         raise MemoryError(
@@ -164,8 +182,12 @@ def _check_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype) ->
 def col_forward_device(dp, device: torch.device, dtype: torch.dtype) -> "TorchTraceFill":
     """Fill a chain-x merge on `device` and keep the planes there."""
     arrays = fill_arrays(dp)
-    _check_budget(device, arrays["ny"], arrays["nx"], dtype)
-    planes = fill_planes(convert.fill_tensors(arrays, device, dtype))
+    fused = fused_enabled()
+    _check_budget(device, arrays["ny"], arrays["nx"], dtype, fused)
+    if fused:
+        planes = fill_planes_fused(convert.fused_tensors(arrays, device, dtype))
+    else:
+        planes = fill_planes(convert.fill_tensors(arrays, device, dtype))
     return TorchTraceFill(dp, planes, walk_arrays(dp))
 
 

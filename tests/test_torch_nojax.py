@@ -1,14 +1,21 @@
 """The port's `recon` slice never imports jax: with every import of
-`jax` and `jaxlib` refused, the CLI still reconstructs small4 on the CPU.
+`jax` and `jaxlib` refused, the CLI still reconstructs small4 on the CPU
+with a supplied tree, and small6 through the guide stage and the distance
+tree: neighbour joining on Jukes-Cantor distances, the fused route (K2's
+plain version), and ML distances (`-fast` without its `-jc`).
 
 The imports are refused by a meta-path finder rather than by setting
 sys.modules["jax"] = None: scipy's array-API helpers look the name up in
 sys.modules and fail on a None entry, whoever imports them."""
 
+import os
 import subprocess
 import sys
 
+import pytest
+
 from tests.test_torch_recon import REPO, rows_and_lp, write_small4
+from tests.test_torch_span import write_small6
 
 BLOCKED = """
 import sys
@@ -37,3 +44,19 @@ def test_recon_without_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     rows, lp = rows_and_lp(out.stdout)
     assert len(rows) == 7 and lp < 0
+
+
+@pytest.mark.parametrize("flags, env", [
+    (["-fast", "-nj"], {}),
+    (["-fast"], {"HISTORIAN_PALLAS_FUSED": "1"}),
+    (["-rndspan", "-kmatchn", "3", "-band", "10", "-profmaxstates", "1", "-norefine"], {}),
+], ids=["nj", "fused", "ml"])
+def test_guide_recon_without_jax(tmp_path, flags, env):
+    fa = write_small6(tmp_path)
+    out = subprocess.run(
+        [sys.executable, "-c", BLOCKED, "recon", "-platform", "cpu", *flags, fa],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env={**os.environ, **env},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows, lp = rows_and_lp(out.stdout)
+    assert len(rows) == 11 and lp < 0 and "#=GF NH" in out.stdout

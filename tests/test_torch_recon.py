@@ -87,8 +87,8 @@ def test_unported_paths_raise(small4):
     from historian_tpu_torch import cli
 
     args, _ = small4
-    banded = [a for a in args if a != "-noband"]
     for argv, item in ((args + ["-profmaxstates", "5"], "sampled-profile"),
-                       (args + ["-ancseq"], "ancseq"), (banded, "guide stage")):
+                       (args + ["-ancseq"], "ancseq"),
+                       (["-careful", *args[1:]], "BackwardMatrix")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["recon", "-platform", "cpu", *argv])
