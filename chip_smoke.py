@@ -30,9 +30,26 @@ Phases, each fatal on failure (nothing is caught):
       card, default and fused (HISTORIAN_PALLAS_FUSED=1) routes, each
       byte-identical to the CPU float64 run; then `recon -fast` on
       tests/data/long12.fa with no tree in float32 on the fused route,
-      whose kernel launches are counted (K2 and the guide kernel, no K1).
+      whose kernel launches are counted (K2 and the guide kernel, no K1);
+  (i) the batched pair-Forward kernels K3 and K4: first the port's bench
+      path (historian_tpu_torch/bench.py), whose launches are counted:
+      bench.py's headline workload (lg, 128 pairs of 384 x 384) and its
+      codon workload (ECMrest, 32 pairs of 192 x 192) through K3, and 6
+      pairs of long12 cut to 3000 x 3000 through K4; then K3 and K4
+      against their plain version on the card at those three shapes
+      (the headline in float32 and float64, the others in float32, K4
+      always with x_tile below X).
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.
+
+Each kernel's `bound_ms` is the least time an H100 SXM could take for
+the same work at the shape its `ms` was taken: the larger of the bytes
+it must move (each input read once, each output written once) over
+3.35 TB/s and its operations over 67 TFLOP/s (float32, outside the
+tensor cores) or 34 TFLOP/s (float64).  Operations are counted from the
+kernel's recurrence: each add, maximum or compare one operation, each
+log-sum-exp five (maximum, difference, exp, log1p, add).  No PyTorch
+call computes these recurrences, so `library_ms` is null.
 """
 
 from __future__ import annotations
@@ -57,6 +74,32 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 F32_RTOL, F32_ATOL = 2e-5, 1e-3
 #: float64: the kernel and the plain version differ only in summation order
 F64_TOL = 1e-9
+#: K3/K4 float32 tolerance on lp_end, relative to |lp|: tests/test_pallas.py
+#: holds the Pallas kernel to abs 1e-3 at an lp near 1e3.  The kernels and
+#: their plain version differ in the association order of the row scans
+#: (warp blocks, then warp totals, then tiles, against Hillis-Steele), which
+#: moves a float32 lp_end by ~3e-7 relative at the headline shape.
+PF_F32_RTOL = 1e-6
+
+#: an H100 SXM's peaks: device memory bytes/s, and operations/s outside the
+#: tensor cores by dtype (from NVIDIA's H100 data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+#: operations per cell of each recurrence (see the module docstring)
+K1_OPS_PER_CELL = 156  # chain y: 61 adds and maxima, 19 log-sum-exps
+PF_OPS_PER_CELL = 91  # K3/K4: 26 adds, maxima and compares, 13 log-sum-exps
+GUIDE_OPS_PER_CELL = 20  # three-state Viterbi step with its back-pointer choice
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes: int, ops: float, dtype) -> dict:
+    """bound_ms and bound_by of work that moves n_bytes and does `ops`."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def read_fasta(path: str) -> list:
@@ -157,8 +200,10 @@ def phase_k1(colforward) -> dict:
             times[(name, dtype)] = (k_ms, p_ms)
             if dtype == torch.float64:
                 planes64[name] = (got, args)
+            if (name, dtype) == ("long12", torch.float32):
+                bnd = bound(nbytes(*args, got), K1_OPS_PER_CELL * sx * sy, dtype)
     k_ms, p_ms = times[("long12", torch.float32)]
-    return dict(err=err, ms=k_ms, plain_ms=p_ms, planes64=planes64)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, planes64=planes64, **bnd)
 
 
 def phase_walker(tracedp, name: str, planes, args, T: int) -> dict:
@@ -195,12 +240,17 @@ def phase_walker(tracedp, name: str, planes, args, T: int) -> dict:
         if not torch.equal(a, b):
             raise AssertionError(f"walker {name} {what} differs from the plain walker")
     lp_err = abs(float(got[5]) - float(ref[5]))
+    # what the walks need: per step the three candidate cells' five values
+    # and one uniform read, one path entry (i, j, s, value) written
+    steps = int(got[4].sum())
+    item = planes.element_size()
+    bnd = bound(steps * (15 * item + item + 12 + item), steps * 3 * 5 * 2, planes.dtype)
     if not lp_err <= F64_TOL:
         raise AssertionError(f"walker {name} lp_end differs by {lp_err}")
     print(f"(d) walker {name} SX={SX} SY={SY} f64, 1 best + {T - 1} sampled, steps "
           f"{got[4].tolist()}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
           f"paths identical, lp_end err {lp_err:.3e}", flush=True)
-    return dict(err=lp_err, ms=k_ms, plain_ms=p_ms)
+    return dict(err=lp_err, ms=k_ms, plain_ms=p_ms, **bnd)
 
 
 def run_cli(cli, args: list, dtype: str) -> str:
@@ -331,8 +381,11 @@ def phase_k2(colforward) -> dict:
                   f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, max abs err {e:.3e}, "
                   f"{live[0].mean():.4f} of cells live", flush=True)
             times[(name, dtype)] = (k_ms, p_ms)
+            if (name, dtype) == ("long12", torch.float32):
+                ca = args[3].shape[1]  # the emission as 2 CA operations, log, two shifts, band test
+                bnd = bound(nbytes(*args, got), (K1_OPS_PER_CELL + 2 * ca + 6) * sx * sy, dtype)
     k_ms, p_ms = times[("long12", torch.float32)]
-    return dict(err=err, ms=k_ms, plain_ms=p_ms)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, **bnd)
 
 
 GUIDE_ORDER = ("x_tok", "y_tok", "lut", "x_len", "y_len", "submat", "trans", "sg",
@@ -376,8 +429,22 @@ def phase_guide(guidedp) -> dict:
               f"{got[1].tolist()}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, outputs identical",
               flush=True)
         times[dtype] = (k_ms, p_ms)
+        if dtype == torch.float32:
+            bnd = bound(nbytes(*args, *got), GUIDE_OPS_PER_CELL * envelope_cells(args), dtype)
     k_ms, p_ms = times[torch.float32]
-    return dict(err=err, ms=k_ms, plain_ms=p_ms)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, **bnd)
+
+
+def envelope_cells(args) -> int:
+    """Cells (i, j), 1 <= i <= X, 1 <= j <= Y, on the envelopes' diagonals."""
+    lut, x_len, y_len = args[2].cpu().numpy(), args[3].cpu().numpy(), args[4].cpu().numpy()
+    py = args[1].shape[1]
+    n = 0
+    for b in range(lut.shape[0]):
+        d = np.nonzero(lut[b])[0] - py  # d = i - j
+        X, Y = int(x_len[b]), int(y_len[b])
+        n += int(np.clip(np.minimum(X, Y + d) - np.maximum(1, 1 + d) + 1, 0, None).sum())
+    return n
 
 
 def write_small6(d: str) -> str:
@@ -434,9 +501,58 @@ def phase_guide_e2e(cli, colforward, tracedp, guidedp) -> dict:
     return launches
 
 
+PF_CASES = (("headline", torch.float32), ("headline", torch.float64),
+            ("codon", torch.float32), ("long", torch.float32))
+
+
+def phase_pairforward(pairforward, bench, dev) -> dict:
+    """K3 and K4: the port's bench path with its launches counted, then
+    each kernel against the plain version at the three shapes.  Returns
+    the launches, the largest lp_end errors, and the times and bounds
+    of K3 at the headline shape and K4 at the long shape, in float32."""
+    pairforward.LAUNCHES = pairforward.TILED_LAUNCHES = 0
+    for name in ("headline", "codon", "long"):
+        r = bench.run(name, dev, reps=5)
+        print(f"(i) bench {r['workload']} via {r['kernel']}: {r['ms']:.3f} ms, "
+              f"{r['state_cells_per_s']:.4g} state-cells/s, mean lp {r['lp_mean']:.4f}", flush=True)
+    launches = dict(pairforward_lp=pairforward.LAUNCHES,
+                    pairforward_lp_tiled=pairforward.TILED_LAUNCHES)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"pair-Forward bench launches {launches}")
+
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    out = dict(launches=launches, err={"K3": 0.0, "K4": 0.0})
+    for name, dtype in PF_CASES:
+        args = bench.build(name, dev, dtype)
+        B, X1, Y1 = args[0].shape
+        ref, p_ms = host_ms(lambda: pairforward.pair_forward_lp_plain(*args))
+        ref = ref.double()
+        rows = pairforward.k4_rows(Y1, args[0].element_size(), 512, smem)
+        if rows >= X1 - 1:
+            raise AssertionError(f"K4 {name}: one tile of {rows} rows covers X")
+        tol = PF_F32_RTOL if dtype == torch.float32 else F64_TOL
+        for kname, fn in (("K3", lambda: pairforward.pair_forward_lp(*args)),
+                          ("K4", lambda: pairforward.pair_forward_lp_tiled(*args, x_tile=512))):
+            got = fn().double()
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            if not (torch.isfinite(ref).all() and rel <= tol):
+                raise AssertionError(f"{kname} {name} {dtype}: lp_end rel err {rel:.3e} > {tol}")
+            k_ms = cuda_ms(fn, reps=5)
+            rate = bench.state_cells(args) / (k_ms / 1e3)
+            print(f"(i) {kname} {name} B={B} X={X1 - 1} Y={Y1 - 1} {str(dtype)[6:]}"
+                  f"{f' x_tile {rows}' if kname == 'K4' else ''}: kernel {k_ms:.3f} ms, "
+                  f"plain {p_ms:.1f} ms, max lp err {float((got - ref).abs().max()):.3e} "
+                  f"({rel:.3e} of |lp|), {rate:.4g} state-cells/s", flush=True)
+            out["err"][kname] = max(out["err"][kname], float((got - ref).abs().max()))
+            if dtype == torch.float32 and (kname, name) in (("K3", "headline"), ("K4", "long")):
+                ops = PF_OPS_PER_CELL * B * X1 * Y1
+                out[kname] = dict(ms=k_ms, plain_ms=p_ms, **bound(nbytes(*args) + B * 4, ops, dtype))
+    return out
+
+
 def main() -> int:
-    from historian_tpu_torch import cli
-    from historian_tpu_torch.ops import _kernels, colforward, guidedp, tracedp
+    from historian_tpu_torch import bench, cli
+    from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -460,26 +576,37 @@ def main() -> int:
     k2 = phase_k2(colforward)
     guide = phase_guide(guidedp)
     launches_h = phase_guide_e2e(cli, colforward, tracedp, guidedp)
+    pf = phase_pairforward(pairforward, bench, torch.device("cuda"))
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
              replaces="historian_tpu/ops/pallas_colforward.py:364",
              launches=launches["colforward"], max_abs_err=k1["err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
         dict(name="pairtrace", route="cuda", source="historian_tpu_torch/csrc/tracedp.cu",
              replaces="historian_tpu/ops/tracedp.py:85",
              launches=launches["pairtrace"], max_abs_err=max(dag_err, walker["err"]),
-             ms=walker["ms"], plain_ms=walker["plain_ms"]),
+             ms=walker["ms"], plain_ms=walker["plain_ms"], bound_ms=walker["bound_ms"],
+             bound_by=walker["bound_by"], library_ms=None),
         dict(name="colforward_fused", route="cuda",
              source="historian_tpu_torch/csrc/colforward_fused.cu",
              replaces="historian_tpu/ops/pallas_colforward.py:318",
              launches=launches_h["colforward_fused"], max_abs_err=k2["err"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"]),
+             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None),
         dict(name="guidealign", route="cuda", source="historian_tpu_torch/csrc/guidealign.cu",
              replaces="historian_tpu/ops/guidedp.py:161",
              launches=launches_h["guidealign"], max_abs_err=guide["err"],
-             ms=guide["ms"], plain_ms=guide["plain_ms"]),
+             ms=guide["ms"], plain_ms=guide["plain_ms"], bound_ms=guide["bound_ms"],
+             bound_by=guide["bound_by"], library_ms=None),
     ]
+    for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
+        kernels.append(dict(
+            name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",
+            replaces=f"historian_tpu/ops/pallas_pairforward.py:{line}",
+            launches=pf["launches"][name], max_abs_err=pf["err"][kid], library_ms=None,
+            **pf[kid]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ from __future__ import annotations
 import sys
 from collections import deque
 
-from historian_tpu.utils.logging import logger
+from historian_tpu_torch.utils.logging import logger
 from historian_tpu_torch import __version__
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.recon import (

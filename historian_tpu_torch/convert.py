@@ -6,13 +6,34 @@ walker (historian_tpu/ops/devicedp.py col_forward_cells /
 DeviceTraceFill), at exact sizes; the guide stage
 (engine/quickalign.py) builds the guide kernel's.  These functions move
 them to a device and dtype.  The tests use them to feed the two
-packages identical inputs.
+packages identical inputs; `rate_model` carries a model of the JAX
+package across into the port's own RateModel as numpy arrays.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+def rate_model(model):
+    """The port's RateModel with the arrays of `model`, a RateModel of
+    either package: substitution rate matrices, component and root
+    (insertion) weights, indel parameters and the alphabet.  Reads the
+    attributes only, so the port never imports the JAX package."""
+    from historian_tpu_torch.models.ratemodel import RateModel
+
+    return RateModel(
+        str(model.alphabet.symbols),
+        ins_rate=float(model.ins_rate),
+        del_rate=float(model.del_rate),
+        ins_ext_prob=float(model.ins_ext_prob),
+        del_ext_prob=float(model.del_ext_prob),
+        cpt_weight=np.array(model.cpt_weight, dtype=np.float64),
+        ins_prob=np.array(model.ins_prob, dtype=np.float64),
+        sub_rate=np.array(model.sub_rate, dtype=np.float64),
+        wildcard=str(model.alphabet.wildcard),
+    )
+
 
 #: the one-program fill's inputs, by kind
 FILL_FLOAT = ("y_lp", "y_flags", "ey_e", "ex_e", "shift_y", "shift_x", "xvec", "trans")

@@ -27,10 +27,9 @@
 // - the lane-(i-1) reads of the recurrence (shift1) are warp shuffles plus
 //   one shared-memory word per warp, carried across tiles;
 // - IMD and IIW are inclusive affine log-sum-exp scans along x,
-//   u[i] = lse(a[i], u[i-1] + b[i]), with the combine
-//   (vl, wl) o (vr, wr) = (lse(vr, vl + wr), max(wl + wr, NEG)): warp
-//   shuffles, then a scan of the warp totals, then the carry of the
-//   previous tile;
+//   u[i] = lse(a[i], u[i-1] + b[i]): the block scan of logspace.cuh
+//   (warp shuffles, then a scan of the warp totals, then the carry of
+//   the previous tile), which the pair-Forward kernels share;
 // - __syncthreads() at the end of a column makes its plane rows visible
 //   to every later column of the block.
 
@@ -38,48 +37,19 @@
 
 #include <cuda_runtime.h>
 
+#include "logspace.cuh"
+
 namespace colfill {
 
-constexpr double kNeg = -1e30;
-
-__device__ __forceinline__ float dexp(float x) { return expf(x); }
-__device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dlog(float x) { return logf(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
-__device__ __forceinline__ float dlog1p(float x) { return log1pf(x); }
-__device__ __forceinline__ double dlog1p(double x) { return log1p(x); }
-
-template <typename T>
-__device__ __forceinline__ T lse(T a, T b) {
-  const T m = a > b ? a : b;
-  const T n = a > b ? b : a;
-  if (n == -INFINITY) return m;  // covers both -inf: no (-inf) - (-inf)
-  return m + dlog1p(dexp(n - m));
-}
-
-template <typename T>
-__device__ __forceinline__ T cmax(T a, T b) { return a > b ? a : b; }
+using namespace logspace;
 
 template <typename T, int NT>
 struct Smem {
   static constexpr int NW = NT / 32;
   T tr[23];
   T ex[3][2][NW];  // last lane of each warp: t5, pre-IMD, pre-IIW (by tile parity)
-  T sc[4][2][NW];  // warp totals of the two scans (by tile parity)
-  T carry[2][2];   // last lane's IMD, IIW of the previous tile (by parity)
+  ScanSmem<T, NT> scan;
 };
-
-// Value of `v` at lane i-1 of the column.  Lane 0 of the tile takes the
-// previous tile's last lane, lane 0 of the column takes NEG.
-template <typename T, int NT>
-__device__ __forceinline__ T prev_lane(T v, T (&buf)[2][NT / 32], int par,
-                                       int t, int lane, int warp, T neg) {
-  T up = __shfl_up_sync(0xffffffffu, v, 1);
-  if (lane == 31) buf[par][warp] = v;
-  __syncthreads();
-  if (lane == 0) up = warp > 0 ? buf[par][warp - 1] : (t > 0 ? buf[par ^ 1][NT / 32 - 1] : neg);
-  return up;
-}
 
 // The whole fill.  y_flags rows hold (null, ready, rootsub_y, ins_y, ...)
 // with `fstride` values a row; xvec rows 0-3 are rootsub_x, ins_x, x_gate,
@@ -182,64 +152,7 @@ __device__ __forceinline__ void column_fill(
       T w1 = cmax(imd_imd + rsx + mg, neg);
       T v2 = cmax(pb + isx + ygate + mg, neg);
       T w2 = cmax(iiw_iiw + isx + mg, neg);
-      for (int d = 1; d < 32; d <<= 1) {
-        const T ov1 = __shfl_up_sync(0xffffffffu, v1, d);
-        const T ow1 = __shfl_up_sync(0xffffffffu, w1, d);
-        const T ov2 = __shfl_up_sync(0xffffffffu, v2, d);
-        const T ow2 = __shfl_up_sync(0xffffffffu, w2, d);
-        if (lane >= d) {
-          v1 = lse(v1, ov1 + w1);
-          w1 = cmax(w1 + ow1, neg);
-          v2 = lse(v2, ov2 + w2);
-          w2 = cmax(w2 + ow2, neg);
-        }
-      }
-      if (lane == 31) {
-        sm.sc[0][par][warp] = v1;
-        sm.sc[1][par][warp] = w1;
-        sm.sc[2][par][warp] = v2;
-        sm.sc[3][par][warp] = w2;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        T sv1 = lane < NW ? sm.sc[0][par][lane] : neg;
-        T sw1 = lane < NW ? sm.sc[1][par][lane] : neg;
-        T sv2 = lane < NW ? sm.sc[2][par][lane] : neg;
-        T sw2 = lane < NW ? sm.sc[3][par][lane] : neg;
-        for (int d = 1; d < NW; d <<= 1) {
-          const T ov1 = __shfl_up_sync(0xffffffffu, sv1, d);
-          const T ow1 = __shfl_up_sync(0xffffffffu, sw1, d);
-          const T ov2 = __shfl_up_sync(0xffffffffu, sv2, d);
-          const T ow2 = __shfl_up_sync(0xffffffffu, sw2, d);
-          if (lane >= d) {
-            sv1 = lse(sv1, ov1 + sw1);
-            sw1 = cmax(sw1 + ow1, neg);
-            sv2 = lse(sv2, ov2 + sw2);
-            sw2 = cmax(sw2 + ow2, neg);
-          }
-        }
-        if (lane < NW) {
-          sm.sc[0][par][lane] = sv1;
-          sm.sc[1][par][lane] = sw1;
-          sm.sc[2][par][lane] = sv2;
-          sm.sc[3][par][lane] = sw2;
-        }
-      }
-      __syncthreads();
-      if (warp > 0) {  // prefix of the earlier warps of this tile
-        v1 = lse(v1, sm.sc[0][par][warp - 1] + w1);
-        w1 = cmax(w1 + sm.sc[1][par][warp - 1], neg);
-        v2 = lse(v2, sm.sc[2][par][warp - 1] + w2);
-        w2 = cmax(w2 + sm.sc[3][par][warp - 1], neg);
-      }
-      if (t > 0) {  // u at the previous tile's last lane
-        v1 = lse(v1, sm.carry[par ^ 1][0] + w1);
-        v2 = lse(v2, sm.carry[par ^ 1][1] + w2);
-      }
-      if (tid == NT - 1) {
-        sm.carry[par][0] = v1;
-        sm.carry[par][1] = v2;
-      }
+      block_affine_scan2<T, NT>(v1, w1, v2, w2, sm.scan, par, t, tid, lane, warp, neg);
       if (live) {
         out[at] = imm;
         out[plane + at] = v1;

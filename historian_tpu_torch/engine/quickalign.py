@@ -20,10 +20,10 @@ import math
 import numpy as np
 import torch
 
-from historian_tpu.core.alignpath import AlignPath
-from historian_tpu.core.seqs import FastSeq
-from historian_tpu.engine.diagenv import DiagonalEnvelope
-from historian_tpu.models.ratemodel import ProbModel, RateModel
+from historian_tpu_torch.core.alignpath import AlignPath
+from historian_tpu_torch.core.seqs import FastSeq
+from historian_tpu_torch.engine.diagenv import DiagonalEnvelope
+from historian_tpu_torch.models.ratemodel import ProbModel, RateModel
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.ops.guidedp import guide_align
 from historian_tpu_torch.ops.pairdp import NEG_INF
@@ -192,8 +192,8 @@ def pair_guide_tensors(pairs: "list[tuple[str, str]]", preset: str, kmer_thresho
     on `device` for `pairs` of residue strings, scored by the named preset
     model at `time`, each pair in its sparse envelope of k-mer matches
     (`-kmatchn kmer_threshold`)."""
-    from historian_tpu.engine.diagenv import DiagEnvParams
-    from historian_tpu.models.presets import named_model
+    from historian_tpu_torch.engine.diagenv import DiagEnvParams
+    from historian_tpu_torch.models.presets import named_model
     from historian_tpu_torch import convert
 
     model = named_model(preset)

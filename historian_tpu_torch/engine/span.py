@@ -16,12 +16,12 @@ import math
 
 import numpy as np
 
-from historian_tpu.core.alignpath import AlignPath, Alignment, align_path_merge
-from historian_tpu.core.seqs import FastSeq
-from historian_tpu.engine.diagenv import DiagEnvParams, DiagonalEnvelope
+from historian_tpu_torch.core.alignpath import AlignPath, Alignment, align_path_merge
+from historian_tpu_torch.core.seqs import FastSeq
+from historian_tpu_torch.engine.diagenv import DiagEnvParams, DiagonalEnvelope
 from historian_tpu_torch.engine.quickalign import QuickAligner
-from historian_tpu.utils.logging import ProgressLogger
-from historian_tpu.utils.rng import MT19937
+from historian_tpu_torch.utils.logging import ProgressLogger
+from historian_tpu_torch.utils.rng import MT19937
 
 
 class _Partition:

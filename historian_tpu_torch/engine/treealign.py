@@ -16,8 +16,8 @@ import math
 
 import numpy as np
 
-from historian_tpu.core.alignpath import Alignment
-from historian_tpu.models.ratemodel import ProbModel
+from historian_tpu_torch.core.alignpath import Alignment
+from historian_tpu_torch.models.ratemodel import ProbModel
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.engine.sumprod import SumProductEngine
 

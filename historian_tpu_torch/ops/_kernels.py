@@ -43,6 +43,10 @@ _SIGNATURES = {
     # PX, PY, bp, bp_off, col, steps, n_steps, x_end, y_end, lead_i,
     # lead_j, score, B, stream
     "guidealign": [_P] * 6 + [_I] + [_P] * 4 + [_I, _I] + [_P] * 10 + [_I, _P],
+    # absorb, rsx, rsy, ix, iy, trans, out, B, X1, Y1, stream
+    "pairforward_lp": [_P] * 7 + [_I] * 3 + [_P],
+    # absorb, rsx, rsy, ix, iy, trans, out, B, X1, Y1, rows, stream
+    "pairforward_lp_tiled": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -77,7 +77,7 @@ def batched_ml_distances(model, gapped_seqs, max_iterations: int, device: torch.
                          n_grid: int = 96, n_golden: int = 40) -> np.ndarray:
     """All-pairs distance matrix (historian_tpu/ops/distance.py
     batched_ml_distances); the grid and golden search run on `device`."""
-    from historian_tpu.models.eigen import EigenModel
+    from historian_tpu_torch.models.eigen import EigenModel
 
     n = len(gapped_seqs)
     counts = pair_count_matrices(model.alphabet, [s.seq for s in gapped_seqs])

@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from historian_tpu.core.alignpath import (
+from historian_tpu_torch.core.alignpath import (
     AlignPath,
     Alignment,
     GuideAlignmentEnvelope,
@@ -32,24 +32,23 @@ from historian_tpu.core.alignpath import (
     align_path_has_gaps,
     residues_in_row,
 )
-from historian_tpu.core.ctok import codon_tokenizer
-from historian_tpu.core.nexus import NexusData
-from historian_tpu.core.seqs import FastSeq, format_fasta, read_fasta
-from historian_tpu.core.stockholm import ID_TAG, LP_TAG, Stockholm
-from historian_tpu.core.tree import Tree
-from historian_tpu.engine.diagenv import DiagEnvParams
-from historian_tpu.engine.forward import COLLAPSE_CHAINS, INCLUDE_BEST_TRACE
-from historian_tpu.engine.pairhmm import PairHMM
-from historian_tpu.engine.profile import Profile
-from historian_tpu.models.gamma import make_discretized_gamma_model
-from historian_tpu.models.presets import DEFAULT_AMINO_MODEL, DEFAULT_CODON_MODEL, named_model
-from historian_tpu.models.ratemodel import ProbModel, RateModel
-from historian_tpu.utils.logging import log_this_at
-from historian_tpu.utils.memsize import physical_memory_bytes
-from historian_tpu.utils.rng import DEFAULT_SEED, MT19937
+from historian_tpu_torch.core.ctok import codon_tokenizer
+from historian_tpu_torch.core.nexus import NexusData
+from historian_tpu_torch.core.seqs import FastSeq, format_fasta, read_fasta
+from historian_tpu_torch.core.stockholm import ID_TAG, LP_TAG, Stockholm
+from historian_tpu_torch.core.tree import Tree
+from historian_tpu_torch.engine.diagenv import DiagEnvParams
+from historian_tpu_torch.engine.forward import COLLAPSE_CHAINS, INCLUDE_BEST_TRACE, ForwardMatrix
+from historian_tpu_torch.engine.pairhmm import PairHMM
+from historian_tpu_torch.engine.profile import Profile
+from historian_tpu_torch.models.gamma import make_discretized_gamma_model
+from historian_tpu_torch.models.presets import DEFAULT_AMINO_MODEL, DEFAULT_CODON_MODEL, named_model
+from historian_tpu_torch.models.ratemodel import ProbModel, RateModel
+from historian_tpu_torch.utils.logging import log_this_at
+from historian_tpu_torch.utils.memsize import physical_memory_bytes
+from historian_tpu_torch.utils.rng import DEFAULT_SEED, MT19937
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.engine import treealign
-from historian_tpu_torch.engine.forward import TorchForwardMatrix
 from historian_tpu_torch.engine.span import AlignGraph
 from historian_tpu_torch.ops.distance import distance_matrix
 
@@ -394,7 +393,7 @@ class Reconstructor:
         dataset.reconstruction = self.make_alignment(dataset, path, tree.root())
         dataset.gapped_recon = dataset.reconstruction.gapped()
 
-    def _merge_forward(self, dataset: Dataset, prof: dict, node: int) -> TorchForwardMatrix:
+    def _merge_forward(self, dataset: Dataset, prof: dict, node: int) -> ForwardMatrix:
         """One internal node's fill, doubling the band until the forward
         likelihood is non-zero (recon.cpp:954-975)."""
         tree, model = dataset.tree, self.model
@@ -417,7 +416,7 @@ class Reconstructor:
                     dataset.closest_leaf[r_child], max_dist,
                 )
             )
-            forward = TorchForwardMatrix(
+            forward = ForwardMatrix(
                 prof[l_child], prof[r_child], hmm, node, env, None, defer_cells=True
             )
             if forward.lp_end > -np.inf:

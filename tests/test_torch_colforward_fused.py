@@ -7,25 +7,24 @@
   liveness, rtol 2e-5, atol 1e-3, K1's tolerances.
 - Against the port's K1 route (`fill_planes`: emission matmul, band mask,
   K1) on the same merge in float64, within 1e-9: a leaf-by-leaf merge of
-  two long8 sequences banded by a guide envelope (distance 3)."""
+  two long8 sequences banded by a guide envelope (distance 3), built
+  from the port's own classes."""
 
 import jax.numpy as jnp
 import numpy as np
 import torch
 
-from historian_tpu.core.alignpath import GuideAlignmentEnvelope
-from historian_tpu.core.seqs import read_fasta
-from historian_tpu.engine.forward import DPMatrix
-from historian_tpu.engine.pairhmm import PairHMM
-from historian_tpu.engine.profile import Profile
-from historian_tpu.models.presets import named_model
-from historian_tpu.models.ratemodel import ProbModel
 from historian_tpu.ops.pallas_colforward import pallas_col_forward_cells_fused
 from historian_tpu_torch import convert
 from historian_tpu_torch import device as devmod
+from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
+from historian_tpu_torch.core.seqs import read_fasta
+from historian_tpu_torch.engine.forward import DPMatrix
+from historian_tpu_torch.engine.profile import Profile
 from historian_tpu_torch.engine.quickalign import QuickAligner
+from historian_tpu_torch.models.presets import named_model
 from historian_tpu_torch.ops import colforward, devicedp
-from tests.test_torch_span import DATA
+from tests.torch_twins import DATA, PORT, pair_hmm
 
 NEG = -1e30
 
@@ -104,8 +103,7 @@ def test_k2_plain_matches_k1_route_on_banded_merge():
     a, b = (Profile.from_sequence(model.components, model.alphabet, s, k)
             for k, s in enumerate((x, y)))
     env = GuideAlignmentEnvelope(guide, 0, 1, 3)
-    hmm = PairHMM(ProbModel(model, 0.3), ProbModel(model, 0.2), model.ins_prob)
-    dp = DPMatrix(a, b, hmm, env)
+    dp = DPMatrix(a, b, pair_hmm(PORT, model, 0.3, 0.2), env)
     arrays = devicedp.fill_arrays(dp)
     ref = devicedp.fill_planes(convert.fill_tensors(arrays, "cpu", torch.float64)).numpy()
     before = colforward.FUSED_LAUNCHES

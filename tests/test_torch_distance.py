@@ -12,46 +12,50 @@ Newick strings built from them, which must be identical.
   NLLs it compares differ by less than their rounding (~1e-13 of
   ~1e3), so the last steps of the two searches may choose differently:
   the distances agree to ~1e-7 relative, not to the last bit.
-- Two sequences take the host per-pair path in both: identical."""
+- Two sequences take the host per-pair path in both: identical.
+
+The guide rows come from the port's guide graph; each package computes
+on its own model and sequence objects."""
 
 import numpy as np
 import pytest
 import torch
 
-from historian_tpu.core.tree import Tree
-from historian_tpu.engine.diagenv import DiagEnvParams
-from historian_tpu.models.presets import named_model
-from historian_tpu.utils.rng import MT19937
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.engine.span import AlignGraph
 from historian_tpu_torch.ops.distance import distance_matrix
 from tests.test_torch_span import small6
+from tests.torch_twins import JAX, PORT
 
 
 @pytest.fixture(scope="module")
 def guide():
+    """(JAX model, port model, JAX rows, port rows) of small6's guide."""
     devmod.select("cpu")
-    model = named_model("lg")
-    graph = AlignGraph(small6(), model, 1.0, DiagEnvParams(kmer_threshold=3), rng=MT19937(5489))
-    return model, graph.mst_gapped()
+    model = PORT.presets.named_model("lg")
+    graph = AlignGraph(small6(), model, 1.0, PORT.diagenv.DiagEnvParams(kmer_threshold=3),
+                       rng=PORT.rng.MT19937(5489))
+    gapped = graph.mst_gapped()
+    jax_rows = [JAX.seqs.FastSeq(name=s.name, seq=s.seq) for s in gapped]
+    return JAX.presets.named_model("lg"), model, jax_rows, gapped
 
 
 @pytest.mark.parametrize("iterations,rtol", [(0, 1e-12), (100, 1e-6)], ids=["jc", "ml"])
 def test_distances_and_trees_match_jax(guide, iterations, rtol):
-    model, gapped = guide
-    ref = model.distance_matrix(gapped, iterations)
+    jax_model, model, jax_rows, gapped = guide
+    ref = jax_model.distance_matrix(jax_rows, iterations)
     got = distance_matrix(model, gapped, iterations, torch.device("cpu"))
     assert got.shape == (6, 6) and (got[np.triu_indices(6, 1)] > 0).all()
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=0)
     names = [s.name for s in gapped]
-    assert Tree.upgma(names, got).to_string() == Tree.upgma(names, ref).to_string()
-    assert (Tree.neighbor_joining(names, got).to_string()
-            == Tree.neighbor_joining(names, ref).to_string())
+    for build in ("upgma", "neighbor_joining"):
+        assert (getattr(PORT.tree.Tree, build)(names, got).to_string()
+                == getattr(JAX.tree.Tree, build)(names, ref).to_string())
 
 
 def test_two_sequences_take_the_host_path(guide):
-    model, gapped = guide
+    jax_model, model, jax_rows, gapped = guide
     for iterations in (0, 100):
-        ref = model.distance_matrix(gapped[:2], iterations)
+        ref = jax_model.distance_matrix(jax_rows[:2], iterations)
         got = distance_matrix(model, gapped[:2], iterations, torch.device("cpu"))
         np.testing.assert_array_equal(got, ref)

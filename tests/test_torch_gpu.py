@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from historian_tpu_torch.ops import colforward, guidedp, tracedp
+from historian_tpu_torch.ops import colforward, guidedp, pairforward, tracedp
 from historian_tpu_torch.ops.devicedp import sorted_walk_edges
 
 NEG = -1e30
@@ -175,3 +175,37 @@ def test_guide_kernel_matches_plain(cuda, dtype):
     for name, a, b in zip(("steps", "n_steps", "x_end", "y_end", "lead_i", "lead_j", "score"),
                           got, ref):
         assert torch.equal(a, b), name
+
+
+def _pf_args(B, X1, Y1, dtype, dev, seed=8):
+    """K3/K4 arguments: random emissions with the boundary row and column
+    at -inf, as float32 arrays of chain_pair_forward_arrays have them."""
+    rng = np.random.default_rng(seed)
+    absorb = rng.normal(-5, 1, (B, X1, Y1))
+    absorb[:, 0, :] = absorb[:, :, 0] = -np.inf
+    vx = rng.normal(-3, 1, (2, B, X1))
+    vy = rng.normal(-3, 1, (2, B, Y1))
+    vx[:, :, 0] = vy[:, :, 0] = -np.inf
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    return t(absorb), t(vx[0]), t(vy[0]), t(vx[1]), t(vy[1]), t(rng.normal(-1, 0.5, 23))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("B,X1,Y1", [(5, 70, 100), (3, 60, 1500), (2, 1, 40)])
+def test_pairforward_kernels_match_plain(cuda, B, X1, Y1, dtype, rtol):
+    """K3 and K4 (x_tile 16: several tiles, the last one partial) against
+    their plain version; 1500 lanes take several lane tiles a row."""
+    args = _pf_args(B, X1, Y1, dtype, cuda)
+    ref = pairforward.pair_forward_lp_plain(*args).cpu().double()
+    k3, k4 = pairforward.LAUNCHES, pairforward.TILED_LAUNCHES
+    got3 = pairforward.pair_forward_lp(*args)
+    got4 = pairforward.pair_forward_lp_tiled(*args, x_tile=16)
+    torch.cuda.synchronize()
+    assert (pairforward.LAUNCHES, pairforward.TILED_LAUNCHES) == (k3 + 1, k4 + 1)
+    assert torch.isfinite(ref).all()
+    for got in (got3, got4):
+        err = (got.cpu().double() - ref).abs()
+        assert bool((err <= rtol * ref.abs()).all()), (err.max().item(), ref.tolist())

@@ -9,21 +9,19 @@ envelopes, and the trivial and short pairs of tests/test_guidedp.py.
   cell, lead cell and end score identical.
 - Against the JAX host route (`_align_batch_host_backend`, `_finish`,
   `align_path`), which `recon` takes on the CPU: end score bits and
-  alignment path identical."""
+  alignment path identical.
+Each package aligns its own model, sequence and envelope objects."""
 
 import os
 
 import numpy as np
 import pytest
 
-from historian_tpu.core.seqs import FastSeq, read_fasta
-from historian_tpu.engine.diagenv import DiagEnvParams, DiagonalEnvelope
 from historian_tpu.engine.quickalign import QuickAligner as JaxAligner
-from historian_tpu.models.presets import named_model
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.engine.quickalign import QuickAligner
+from tests.torch_twins import DATA, JAX, PORT
 
-DATA = os.path.join(os.path.dirname(__file__), "data")
 CUTS = (200, 260, 310, 400, 230, 350, 280, 330)
 PAIRS = ((0, 1), (2, 3), (4, 5), (6, 7), (1, 4), (3, 6))
 
@@ -34,46 +32,47 @@ def cpu(monkeypatch):
     devmod.select("cpu")
 
 
-def long8_jobs(model, sparse: bool):
-    seqs = read_fasta(os.path.join(DATA, "long8.fa"))
+def long8_jobs(pkg, model, sparse: bool):
+    seqs = pkg.seqs.read_fasta(os.path.join(DATA, "long8.fa"))
     for s, n in zip(seqs, CUTS):
         s.seq = s.seq[:n]
     jobs = []
     for a, b in PAIRS:
         x, y = seqs[a], seqs[b]
-        env = DiagonalEnvelope(len(x.seq), len(y.seq))
+        env = pkg.diagenv.DiagonalEnvelope(len(x.seq), len(y.seq))
         if sparse:
             env.init_sparse(model.alphabet.tokenize(x.seq), model.alphabet.tokenize(y.seq),
-                            model.alphabet_size, DiagEnvParams(kmer_threshold=3))
+                            model.alphabet_size, pkg.diagenv.DiagEnvParams(kmer_threshold=3))
         else:
             env.init_full()
         jobs.append((x, y, env))
     return jobs
 
 
-def short_jobs():
+def short_jobs(pkg):
     jobs = []
     for xs, ys in (("", "ACDEF"), ("ACD", ""), ("A", "A"), ("ACDEFG", "ACDEG")):
-        env = DiagonalEnvelope(len(xs), len(ys)).init_full()
-        jobs.append((FastSeq(name="x", seq=xs), FastSeq(name="y", seq=ys), env))
+        env = pkg.diagenv.DiagonalEnvelope(len(xs), len(ys)).init_full()
+        jobs.append((pkg.seqs.FastSeq(name="x", seq=xs), pkg.seqs.FastSeq(name="y", seq=ys), env))
     return jobs
 
 
-def _cases():
-    model = named_model("lg")
+def _cases(pkg):
+    model = pkg.presets.named_model("lg")
     return {
-        "sparse": (model, 1.0, long8_jobs(model, True)),
-        "full": (model, 1.0, long8_jobs(model, False)),
-        "short": (model, 0.5, short_jobs()),
+        "sparse": (model, 1.0, long8_jobs(pkg, model, True)),
+        "full": (model, 1.0, long8_jobs(pkg, model, False)),
+        "short": (model, 0.5, short_jobs(pkg)),
     }
 
 
 @pytest.mark.parametrize("case", ["sparse", "full", "short"])
 def test_guide_matches_jax_device_route(case):
-    model, t, jobs = _cases()[case]
+    model, t, jobs = _cases(JAX)[case]
     if case == "sparse":  # the k-mer envelopes really are sparse
         assert all(len(e.diagonals) < len(x.seq) + len(y.seq) - 1 for x, y, e in jobs)
     ref = JaxAligner(model, t)._align_batch_device(jobs)
+    model, t, jobs = _cases(PORT)[case]
     got = QuickAligner(model, t).align_batch(jobs)
     for k, (r, g) in enumerate(zip(ref, got)):
         assert g.trivial == r.trivial, k
@@ -92,7 +91,7 @@ def test_pair_guide_tensors_matches_jax_device_route():
     from historian_tpu_torch.engine.quickalign import pair_guide_tensors
     from historian_tpu_torch.ops.guidedp import guide_align
 
-    model, t, jobs = _cases()["sparse"]
+    model, t, jobs = _cases(JAX)["sparse"]
     ref = JaxAligner(model, t)._align_batch_device(jobs)
     args = pair_guide_tensors([(x.seq, y.seq) for x, y, _ in jobs], "lg", 3, t,
                               torch.device("cpu"), torch.float64)
@@ -110,8 +109,9 @@ def test_pair_guide_tensors_matches_jax_device_route():
 
 @pytest.mark.parametrize("case", ["sparse", "full", "short"])
 def test_guide_matches_jax_host_route(case):
-    model, t, jobs = _cases()[case]
+    model, t, jobs = _cases(JAX)[case]
     ref = JaxAligner(model, t)._align_batch_host_backend(jobs, serial=True)
+    model, t, jobs = _cases(PORT)[case]
     got = QuickAligner(model, t).align_batch(jobs)
     for k, (r, g) in enumerate(zip(ref, got)):
         assert np.float64(g.end).tobytes() == np.float64(r.end).tobytes(), (k, g.end, r.end)

@@ -1,5 +1,7 @@
-"""The port's `recon` slice never imports jax: with every import of
-`jax` and `jaxlib` refused, the CLI still reconstructs small4 on the CPU
+"""The port's `recon` slice never imports jax or the JAX package: with
+every import of `jax`, `jaxlib` and `historian_tpu` refused (by the
+top-level name, so `historian_tpu_torch` still loads), the CLI still
+reconstructs small4 on the CPU
 with a supplied tree, and small6 through the guide stage and the distance
 tree: neighbour joining on Jukes-Cantor distances, the fused route (K2's
 plain version), and ML distances (`-fast` without its `-jc`).
@@ -22,14 +24,14 @@ import sys
 
 class NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "historian_tpu"):
             raise ImportError(f"{name} is blocked")
         return None
 
 sys.meta_path.insert(0, NoJax())
 from historian_tpu_torch.cli import main
 rc = main(sys.argv[1:])
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "historian_tpu") for m in sys.modules)
 sys.exit(rc)
 """
 

@@ -21,7 +21,7 @@ SMALL4_TREE = "((t1:0.12,t2:0.12):0.1,(t3:0.12,t4:0.12):0.1)root;\n"
 
 def write_small4(d) -> tuple:
     """small4 into directory d: returns (fasta path, tree path)."""
-    from historian_tpu.core.seqs import read_fasta
+    from historian_tpu_torch.core.seqs import read_fasta
 
     seqs = read_fasta(os.path.join(REPO, "tests", "data", "long8.fa"))[:4]
     fa, nh = os.path.join(d, "small4.fa"), os.path.join(d, "small4.nh")

@@ -1,16 +1,15 @@
 """The port's `#=GF LP` rescore (historian_tpu_torch/engine/treealign.py,
 Felsenstein up-pass in PyTorch) against the JAX package's
-engine/treealign.py::log_likelihood, float64 on the CPU, to 1e-9."""
+engine/treealign.py::log_likelihood, float64 on the CPU, to 1e-9, each
+on its own package's model, tree and rows."""
 
 import numpy as np
 import pytest
 
-from historian_tpu.core.seqs import FastSeq
-from historian_tpu.core.tree import Tree
 from historian_tpu.engine import treealign as jax_treealign
-from historian_tpu.models.presets import named_model
 from historian_tpu_torch import device
 from historian_tpu_torch.engine import treealign
+from tests.torch_twins import JAX, PORT
 
 TREES = [
     "((t1:0.12,t2:0.12):0.1,(t3:0.12,t4:0.12):0.1)root;",
@@ -18,12 +17,12 @@ TREES = [
 ]
 
 
-def _history(newick, model, L, seed):
-    """Random gapped rows for every node: residues (or the odd wildcard)
-    at leaves, '*' at ancestors, gaps anywhere; the root is gap-free so
-    no column is empty."""
+def _history(pkg, newick, model, L, seed):
+    """`pkg`'s tree and random gapped rows for every node: residues (or
+    the odd wildcard) at leaves, '*' at ancestors, gaps anywhere; the
+    root is gap-free so no column is empty."""
     rng = np.random.default_rng(seed)
-    tree = Tree(newick)
+    tree = pkg.tree.Tree(newick)
     syms = np.array(list(model.alphabet.symbols))
     rows = []
     for n in range(tree.n_nodes()):
@@ -34,7 +33,7 @@ def _history(newick, model, L, seed):
             row = np.full(L, "*", dtype=object)
         if n != tree.root():
             row[rng.random(L) < 0.2] = "-"
-        rows.append(FastSeq(name=tree.seq_name(n), seq="".join(row)))
+        rows.append(pkg.seqs.FastSeq(name=tree.seq_name(n), seq="".join(row)))
     return tree, rows
 
 
@@ -42,9 +41,9 @@ def _history(newick, model, L, seed):
 @pytest.mark.parametrize("preset", ["lg", "jc"])
 def test_rescore_matches_jax(newick, preset):
     device.select("cpu")
-    model = named_model(preset)
-    tree, rows = _history(newick, model, 150, 7)
-    got = treealign.log_likelihood(model, tree, rows)
-    ref = jax_treealign.log_likelihood(model, tree, rows)
+    model = PORT.presets.named_model(preset)
+    got = treealign.log_likelihood(model, *_history(PORT, newick, model, 150, 7))
+    model = JAX.presets.named_model(preset)
+    ref = jax_treealign.log_likelihood(model, *_history(JAX, newick, model, 150, 7))
     assert np.isfinite(got)
     assert abs(got - ref) < 1e-9 * max(1.0, abs(ref))
