@@ -30,15 +30,21 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # y_src, y_lp, y_flags, absorb, maskg, xvec, trans, out, SY, SX, KY, stream
-    "colforward": [_P] * 8 + [_I] * 3 + [_P],
+    # y_src, y_lp, y_flags, absorb, maskg, xvec, trans, lanes, progress, rec,
+    # out, SY, SX, KY, NS, stream
+    "colforward": [_P] * 11 + [_I] * 4 + [_P],
+    # strips of K1's width that can be resident at once
+    "colforward_capacity": [],
     # planes, SY, SX, y_src, y_lp, KY, y_null, tx, t6, xe_src, xe_lp,
     # ye_src, ye_lp, KE, uniforms, is_best, T, L, pi, pj, ps, vals,
     # n_steps, stream
     "pairtrace": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                   _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    # y_src, y_lp, y_flags, ey, ex_t, xvec, params, out, SY, SX, KY, CA, stream
-    "colforward_fused": [_P] * 8 + [_I] * 4 + [_P],
+    # y_src, y_lp, y_flags, ey, ex_t, xvec, params, lanes, progress, rec, out,
+    # SY, SX, KY, CA, NS, stream
+    "colforward_fused": [_P] * 11 + [_I] * 5 + [_P],
+    # NS, CA -> strips that can be resident at once
+    "colforward_fused_capacity": [_I, _I],
     # x_tok, y_tok, lut, x_len, y_len, submat, A, trans, sg, end_x, end_y,
     # PX, PY, bp, bp_off, col, steps, n_steps, x_end, y_end, lead_i,
     # lead_j, score, B, stream

@@ -27,6 +27,7 @@ import torch
 
 from historian_tpu_torch import convert
 from historian_tpu_torch.ops.colforward import (
+    band_lanes,
     col_forward_planes,
     col_forward_planes_fused,
     emission_planes,
@@ -118,14 +119,17 @@ def fill_arrays(dp) -> dict:
 
 def fill_planes(t: dict) -> torch.Tensor:
     """The one-program fill on the tensors' device: emission matmul, band
-    mask from the envelope vectors, and K1.  Returns [5, SY, SX]."""
+    mask from the envelope vectors, and K1, whose strips skip the columns
+    where the envelope's `band_lanes` give them no lane.  Returns
+    [5, SY, SX]."""
     mask = torch.abs(t["m2"][:, None] - t["m1"][None, :]) <= t["dist"]
     mask |= t["yne"][:, None]
     mask |= t["xns"][None, :]
     absorb, maskg = emission_planes(t["ey_e"], t["ex_e"].T, t["shift_y"], t["shift_x"], mask)
     del mask
+    lanes = band_lanes(t["m1"], t["m2"], t["dist"], t["xns"], t["yne"])
     return col_forward_planes(
-        t["y_src"], t["y_lp"], t["y_flags"], absorb, maskg, t["xvec"], t["trans"]
+        t["y_src"], t["y_lp"], t["y_flags"], absorb, maskg, t["xvec"], t["trans"], lanes
     )
 
 

@@ -1,0 +1,161 @@
+"""Wall time and device profile of `recon` on the card.
+
+    python -m historian_tpu_torch.profile_recon [--routes fused default]
+        [--cprofile] [--parent DIR] -- <recon arguments>
+
+For each route (`fused`: HISTORIAN_PALLAS_FUSED=1, every merge through
+K2; `default`: the emission matmul and K1), in float32: one warm-up run,
+one timed run (host clock around the CLI entry, ending in a
+synchronize), then one run under torch.profiler, which gives the device
+busy time (the union of the kernels' and copies' intervals), the idle
+share of the wall, and the kernels that take the most device time; with
+--cprofile, one more run under cProfile, which gives the port's functions
+with the most cumulative host time.  Prints the card's name and power
+limit, then one JSON line per route.
+
+With --parent DIR (a checkout of another commit, e.g. unpacked with
+`git archive` into build/parent), compares the two in one call: this
+file runs in a fresh process for each side, in the order parent, this
+checkout, this checkout, parent, with that side's root as its working
+directory, so that `historian_tpu_torch` and the recon arguments' paths
+resolve there (only this checkout's runs take --cprofile).  Prints each
+run's lines as it goes, tagged with its side and order, then one
+`{"compare": ...}` line: per route, each side's timed walls, device busy
+times and idle shares in run order.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import cProfile
+import io
+import json
+import os
+import pstats
+import subprocess
+import sys
+import time
+
+import torch
+
+#: kernels and host functions listed a run
+TOP = 6
+
+
+def run(cli, args: list) -> float:
+    """One `recon` run on the card; returns its wall in seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["recon", "-platform", "gpu", *args])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"recon {args} returned {rc}")
+    return time.perf_counter() - t0
+
+
+def union_us(spans: list) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def device_profile(cli, args: list) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run(cli, args)
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        calls, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    busy = union_us(spans) / 1e6
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
+                top=[dict(name=k[:90], calls=c, ms=us / 1e3) for k, (c, us) in ranked])
+
+
+def host_profile(cli, args: list) -> list:
+    pr = cProfile.Profile()
+    pr.enable()
+    run(cli, args)
+    pr.disable()
+    stats = pstats.Stats(pr)
+    rows = [(fn, ct) for fn, (_, _, _, ct, _) in stats.stats.items()
+            if "historian_tpu_torch" in fn[0]]
+    rows.sort(key=lambda r: -r[1])
+    return [dict(fn=f"{os.path.basename(f)}:{line} {name}", cum_s=ct)
+            for (f, line, name), ct in rows[:2 * TOP]]
+
+
+def compare(parent: str, routes: list, cprofile: bool, args: list) -> int:
+    """Parent, this checkout, this checkout, parent, each in a fresh
+    process run from its root; prints their lines and the comparison."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    me = os.path.abspath(__file__)
+    code = f"import runpy, sys; sys.argv[0] = {me!r}; runpy.run_path({me!r}, run_name='__main__')"
+    table = {r: {"parent": [], "change": []} for r in routes}
+    for order, side in enumerate(("parent", "change", "change", "parent")):
+        root = os.path.abspath(parent) if side == "parent" else here
+        flags = ["--routes", *routes] + (["--cprofile"] if cprofile and side == "change" else [])
+        proc = subprocess.run([sys.executable, "-c", code, *flags, "--", *args], cwd=root,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"profile_recon: the {side} run in {root} failed")
+        for line in proc.stdout.splitlines():
+            if not line.startswith("{"):
+                print(f"{side} {order}: {line}", flush=True)
+                continue
+            rec = json.loads(line)
+            print(json.dumps(dict(side=side, order=order, **rec)), flush=True)
+            prof = rec["profile"]
+            table[rec["route"]][side].append(dict(
+                timed_wall_s=rec["timed_wall_s"], device_busy_s=prof["device_busy_s"],
+                idle_share=prof["idle_share"]))
+    print(json.dumps({"compare": dict(args=args, parent=os.path.abspath(parent), routes=table)}),
+          flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--routes", nargs="+", default=["fused", "default"],
+                    choices=["fused", "default"])
+    ap.add_argument("--cprofile", action="store_true")
+    ap.add_argument("--parent", help="a checkout to compare with, run P, C, C, P")
+    ap.add_argument("recon_args", nargs=argparse.REMAINDER)
+    opts = ap.parse_args(argv)
+    args = [a for a in opts.recon_args if a != "--"]
+    if not torch.cuda.is_available():
+        print("profile_recon: no CUDA device", file=sys.stderr)
+        return 1
+    if opts.parent:
+        return compare(opts.parent, opts.routes, opts.cprofile, args)
+    from historian_tpu_torch import cli
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    os.environ["HISTORIAN_DEVICE_DTYPE"] = "f32"
+    for route in opts.routes:
+        os.environ["HISTORIAN_PALLAS_FUSED"] = "1" if route == "fused" else "0"
+        warm = run(cli, args)
+        out = dict(route=route, args=args, package=os.path.dirname(os.path.abspath(cli.__file__)),
+                   warmup_wall_s=warm, timed_wall_s=run(cli, args),
+                   profile=device_profile(cli, args))
+        if opts.cprofile:
+            out["host_top"] = host_profile(cli, args)
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

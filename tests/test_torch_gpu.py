@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from historian_tpu_torch.ops import colforward, guidedp, pairforward, tracedp
+from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
 from historian_tpu_torch.ops.devicedp import sorted_walk_edges
 
 NEG = -1e30
@@ -209,3 +209,177 @@ def test_pairforward_kernels_match_plain(cuda, B, X1, Y1, dtype, rtol):
     for got in (got3, got4):
         err = (got.cpu().double() - ref).abs()
         assert bool((err <= rtol * ref.abs()).all()), (err.max().item(), ref.tolist())
+
+
+def _k1_rect(SX, SY, KY, mask, dtype, dev, seed=11):
+    """K1 inputs on an SX x SY grid with the band `mask` [SY, SX] and its
+    lanes: y in-edges up to 6 columns back, nulls when KY > 1."""
+    rng = np.random.default_rng(seed)
+    y_src = np.clip(np.arange(SY)[:, None] - 1 - rng.integers(0, 6, (SY, KY)), 0, None)
+    y_src[:, 0] = np.maximum(np.arange(SY) - 1, 0)
+    y_lp = rng.normal(-1, 0.5, (SY, KY))
+    y_lp[:, 2:] = NEG
+    y_null = np.zeros(SY, bool)
+    if KY > 1:
+        y_null[rng.choice(np.arange(1, SY), SY // 16, replace=False)] = True
+    flags = np.stack([y_null, np.arange(SY) > 0, rng.normal(-2, 1, SY), rng.normal(-2, 1, SY)], 1)
+    x_ready = np.arange(SX) < SX - 1
+    xvec = np.stack([rng.normal(-2, 1, SX), rng.normal(-2, 1, SX),
+                     np.where(x_ready, 0.0, NEG), np.zeros(SX)])
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    args = (t(y_src, torch.int32), t(y_lp), t(flags.astype(float)),
+            t(np.where(mask, rng.normal(-5, 1, (SY, SX)), NEG)), t(np.where(mask, 0.0, NEG)),
+            t(xvec), t(rng.normal(-1, 0.5, 23)))
+    return args, colforward.lanes_from_mask(torch.as_tensor(mask, device=dev))
+
+
+def _band(SX, SY, starts, width):
+    """mask [SY, SX]: lanes [starts[j], starts[j] + width) of column j."""
+    lane = np.arange(SX)[None, :]
+    lo = np.asarray(starts)[:, None]
+    return (lane >= lo) & (lane < lo + width)
+
+
+def _check_repeated(fn, plain, rtol, atol, reps=4):
+    """The kernel `reps` times against its plain version: every run
+    identical to the first (a stale read across strips shows as a
+    difference now and then), the first one within tolerance with
+    identical liveness.  Returns the launch record of the last run."""
+    runs = [fn() for _ in range(reps)]
+    torch.cuda.synchronize()
+    launch = dict(colforward.LAST_LAUNCH, active_share=colforward.active_share(
+        colforward.LAST_LAUNCH))
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    g, r = runs[0].cpu().double().numpy(), plain().cpu().double().numpy()
+    live = r > -1e25
+    assert np.array_equal(g > -1e25, live)
+    np.testing.assert_allclose(g[live], r[live], rtol=rtol, atol=atol)
+    return launch
+
+
+TOLS = [(torch.float32, 2e-5, 1e-3), (torch.float64, 1e-9, 1e-9)]
+
+
+def _strip_cases(ns):
+    """(name, SX, SY, KY, band starts, band width) of the strip pipeline's
+    edge cases at strip width ns; width None: no lanes (every lane)."""
+    SY = 160
+    j = np.arange(SY)
+    return [
+        ("partial last strip", 3 * ns + 37, SY, 4, None, None),
+        ("one strip", ns // 2 + 5, SY, 4, None, None),
+        # the band steps by half a strip every 4 columns, so every other
+        # step starts it at a strip boundary: the halo lane's strip idles
+        # in that column but was in the band in the column before
+        ("band at a strip boundary", 6 * ns, SY, 1, np.minimum(j // 4, 9) * (ns // 2), ns // 2),
+        # the band jumps three strips between two columns
+        ("band jumps strips", 8 * ns, SY, 4, np.where(j < SY // 2, ns // 3, 4 * ns + ns // 3),
+         ns // 2),
+        ("diagonal band", 5 * ns + 11, SY, 4, j * (5 * ns) // SY, 24),
+    ]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+def test_k1_strip_edge_cases(cuda, dtype, rtol, atol):
+    ns = colforward.STRIP_WIDTH
+    for name, SX, SY, KY, starts, width in _strip_cases(ns):
+        mask = np.ones((SY, SX), bool) if starts is None else _band(SX, SY, starts, width)
+        args, lanes = _k1_rect(SX, SY, KY, mask, dtype, cuda)
+        use = None if starts is None else lanes
+        launch = _check_repeated(lambda: colforward.col_forward_planes(*args, lanes=use),
+                                 lambda: colforward.col_forward_planes_plain(*args), rtol, atol)
+        assert launch["ns"] == ns and launch["strips"] == -(-SX // ns), name
+        if starts is not None:
+            assert launch["active_share"] < 0.9, (name, launch)
+
+
+def _k2_rect(SX, SY, KY, dtype, dev, m1, dist=6, seed=12):
+    """K2's packed inputs on an SX x SY grid: m1 given, m2 = a sorted draw
+    over m1's range, x near start on lanes 0-1, y near end on the last 3
+    rows, nulls when KY > 1, x_in_range off on the last 5 lanes, ny = SY - 2."""
+    args, _ = _k1_rect(SX, SY, KY, np.ones((SY, SX), bool), torch.float64, "cpu", seed)
+    y_src, y_lp, flags, _, _, xvec4, trans = (a.numpy() for a in args)
+    rng = np.random.default_rng(seed)
+    y_flags = np.zeros((SY, 8))
+    y_flags[:, :4] = flags
+    y_flags[:, 4] = np.sort(rng.integers(int(m1.min()), int(m1.max()) + 1, SY))
+    y_flags[SY - 3:, 5] = 1.0
+    y_flags[:, 6] = rng.normal(-1, 0.5, SY)
+    xvec = np.zeros((8, SX))
+    xvec[:4] = xvec4
+    xvec[4] = rng.normal(-1, 0.5, SX)
+    xvec[5] = m1
+    xvec[6, :2] = 1.0
+    xvec[7, : SX - 5] = 1.0
+    params = np.zeros(32)
+    params[:23] = trans
+    params[23], params[24] = dist, SY - 2
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    return (t(y_src, torch.int32), t(y_lp), t(y_flags), t(rng.uniform(0.05, 1, (SY, 20))),
+            t(rng.uniform(0.05, 1, (20, SX))), t(xvec), t(params))
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+def test_k2_strip_edge_cases(cuda, dtype, rtol, atol):
+    """K2 with y-near-end rows, rows past ny, null columns (KY = 4), a
+    partial last strip, and a non-monotone m1 (every column full)."""
+    ns = colforward.STRIP_WIDTH
+    for monotone in (True, False):
+        SX, SY = 4 * ns + 21, 200
+        m1 = np.arange(SX) // 2
+        if not monotone:
+            m1[SX // 2], m1[SX // 2 + 1] = m1[SX // 2 + 1] + 1, m1[SX // 2]
+        args = _k2_rect(SX, SY, 4, dtype, cuda, m1)
+        before = colforward.nonmonotone_m1()
+        launch = _check_repeated(lambda: colforward.col_forward_planes_fused(*args),
+                                 lambda: colforward.col_forward_planes_fused_plain(*args),
+                                 rtol, atol)
+        assert launch["strips"] == -(-SX // ns) and launch["ns"] == ns
+        if monotone:
+            assert colforward.nonmonotone_m1() == before and launch["active_share"] < 0.9
+        else:
+            # every column full but the two past ny
+            assert colforward.nonmonotone_m1() > before
+            assert launch["active_share"] == pytest.approx((SY - 2) / SY)
+
+
+def test_strip_launch_raises_when_strips_cannot_be_resident(cuda):
+    """More strips than the card holds at once: the wrapper raises before
+    launching; the kernel library refuses a width it lacks."""
+    ns = colforward.STRIP_WIDTH
+    cap = colforward._capacity("colforward", torch.float32, ns, 0, torch.cuda.current_device())
+    assert cap > 0
+    SX = ns * cap + 1
+    args, _ = _k1_rect(SX, 2, 1, np.ones((2, SX), bool), torch.float32, cuda)
+    before = colforward.LAUNCHES
+    with pytest.raises(RuntimeError, match="holds"):
+        colforward.col_forward_planes(*args)
+    assert colforward.LAUNCHES == before
+    small, _ = _k1_rect(100, 2, 1, np.ones((2, 100), bool), torch.float32, cuda)
+    out = torch.empty((5, 2, 100), device=cuda)
+    buffers = (torch.zeros(1, dtype=torch.int32, device=cuda), torch.empty((1, 2, 4), device=cuda))
+    code = _kernels.lib().colforward_f32(
+        *(t.data_ptr() for t in small), 0, *(t.data_ptr() for t in buffers), out.data_ptr(),
+        2, 100, 1, ns // 2, torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+
+
+def test_k2_wide_emission_takes_a_narrower_strip(cuda):
+    """CA = 256 in float64: a [CA, NS] slice of ex_t fits shared memory only
+    at NS = 64, so the wrapper falls back to it, here over 5 strips, each
+    run 4 times; CA = 257 raises."""
+    args = _k2_args(300, 4, 256, torch.float64, cuda)
+    launch = _check_repeated(lambda: colforward.col_forward_planes_fused(*args),
+                             lambda: colforward.col_forward_planes_fused_plain(*args), 1e-9, 1e-9)
+    assert launch["ns"] == colforward.NARROW_STRIP_WIDTH == 64 and launch["strips"] == 5
+    assert launch["active_share"] < 0.9
+    wide = _k2_args(300, 4, 257, torch.float64, cuda)
+    with pytest.raises(ValueError, match="emission factors"):
+        colforward.col_forward_planes_fused(*wide)
