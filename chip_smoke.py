@@ -15,7 +15,9 @@ Phases, each fatal on failure (nothing is caught):
       share below 0.5) and with every lane; the full grid takes more than
       one strip;
   (d) the trace walker against its plain version on the float64 planes
-      of both cases of (c), best and sampled traces;
+      of both cases of (c), best and sampled traces, and a best-only walk
+      (T = 1, the recon path's) on long12's first-merge planes in float32
+      and float64; each prints us a step;
   (e) end to end through the CLI entry: `recon -fast -noband` on small4
       (4 x 300 aa from tests/data/long8.fa) in float64 on the card must
       be byte-identical to the CPU float64 run; then `recon -fast -noband`
@@ -29,7 +31,7 @@ Phases, each fatal on failure (nothing is caught):
   (g) the guide kernel against its plain version, float32 and float64, on
       8 pairs of long12's sequences cut to 3000 aa with the sparse
       `-kmatchn 3` envelopes: steps, ends, lead cells and scores
-      identical;
+      identical; prints each pair's kept diagonals ND and us a column;
   (h) end to end with the guide stage and the built tree: `recon -fast`
       on small6 (tests/data/long6.fa cut to 240-340 aa) in float64 on the
       card, default and fused (HISTORIAN_PALLAS_FUSED=1) routes, each
@@ -176,6 +178,22 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
+def cuda_ms_median(fn, reps: int = 5) -> float:
+    """Median of per-call event times: for a wrapper that reads the card
+    between its launches, where one slow host step would skew a mean."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
 def host_ms(fn) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -214,9 +232,10 @@ def phase_k1(colforward) -> dict:
     lanes (timed; fewer than half the strips work in a column) and with
     every lane (checked).  The full grid must take more than one strip.
     Returns the largest error, the full-grid long12 float32 times, and the
-    float64 planes of the first two cases for the walker."""
+    planes of the first two cases for the walker (float64, and float32 at
+    long12's shape)."""
     SX, SY = long12_first_merge()
-    err, times, planes64 = 0.0, {}, {}
+    err, times, walk_planes = 0.0, {}, {}
     for name, sx, sy, KY, banded in (("dag", 3072, 3072, 4, True),
                                      ("long12", SX, SY, 1, False),
                                      ("long12 band", SX, SY, 1, True)):
@@ -238,17 +257,19 @@ def phase_k1(colforward) -> dict:
                     raise AssertionError(f"K1 {name} {dtype}: {launch}")
                 if use is lanes:
                     times[(name, dtype)] = (k_ms, p_ms)
-                    if dtype == torch.float64 and name in ("dag", "long12"):
-                        planes64[name] = (got, args)
+                    if (name, dtype) in (("dag", torch.float64), ("long12", torch.float64),
+                                         ("long12", torch.float32)):
+                        walk_planes[(name, dtype)] = (got, args)
                     if (name, dtype) == ("long12", torch.float32):
                         bnd = bound(nbytes(*args, got), K1_OPS_PER_CELL * sx * sy, dtype)
     k_ms, p_ms = times[("long12", torch.float32)]
-    return dict(err=err, ms=k_ms, plain_ms=p_ms, planes64=planes64, times=times, **bnd)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, walk_planes=walk_planes, times=times, **bnd)
 
 
 def phase_walker(tracedp, name: str, planes, args, T: int) -> dict:
-    """The walker against its plain version on float64 planes of (c):
-    trace 0 best, the others sampled; paths must be identical."""
+    """The walker against its plain version on planes of (c): trace 0
+    best, the others sampled; paths must be identical.  Prints the kernel's
+    us a step (of the longest walk: the walks run side by side)."""
     y_src, y_lp = args[0].cpu().numpy(), args[1].cpu().numpy()
     pad = y_lp <= NEG / 2
     order = np.argsort(np.where(pad, np.iinfo(np.int32).max, y_src), axis=1, kind="stable")
@@ -287,9 +308,10 @@ def phase_walker(tracedp, name: str, planes, args, T: int) -> dict:
     bnd = bound(steps * (15 * item + item + 12 + item), steps * 3 * 5 * 2, planes.dtype)
     if not lp_err <= F64_TOL:
         raise AssertionError(f"walker {name} lp_end differs by {lp_err}")
-    print(f"(d) walker {name} SX={SX} SY={SY} f64, 1 best + {T - 1} sampled, steps "
-          f"{got[4].tolist()}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
-          f"paths identical, lp_end err {lp_err:.3e}", flush=True)
+    us_step = k_ms * 1e3 / int(got[4].max())
+    print(f"(d) walker {name} SX={SX} SY={SY} {str(dt)[6:]}, 1 best + {T - 1} sampled, steps "
+          f"{got[4].tolist()}: kernel {k_ms:.3f} ms ({us_step:.3f} us a step), plain "
+          f"{p_ms:.1f} ms, paths identical, lp_end err {lp_err:.3e}", flush=True)
     return dict(err=lp_err, ms=k_ms, plain_ms=p_ms, **bnd)
 
 
@@ -456,17 +478,21 @@ def phase_guide(guidedp) -> dict:
             raise AssertionError(f"guide envelopes are not sparse: {kept}")
         got = guidedp.guide_align(*args)
         ref, p_ms = host_ms(lambda: guidedp.guide_align_plain(*args))
-        k_ms = cuda_ms(lambda: guidedp.guide_align(*args))
+        # the wrapper reads each pair's kept diagonals to the host before it
+        # launches, so its calls are timed one by one
+        k_ms = cuda_ms_median(lambda: guidedp.guide_align(*args))
         for what, a, b in zip(("steps", "n_steps", "x_end", "y_end", "lead_i", "lead_j", "score"),
                               got, ref):
             if not torch.equal(a, b):
                 raise AssertionError(f"guide kernel {str(dtype)[6:]}: {what} differs from "
                                      "the plain version")
         err = max(err, float((got[6] - ref[6]).abs().max()))
+        nd = guidedp.diagonal_ranks(args[2], args[3], args[4], args[1].shape[1])["nd"]
+        us_col = k_ms * 1e3 / int(args[4].max())  # the pairs run side by side
         print(f"(g) guide kernel {len(GUIDE_PAIRS)} pairs of 3000 aa {str(dtype)[6:]}, "
-              f"envelopes keep {min(kept):.3f}-{max(kept):.3f} of the diagonals, steps "
-              f"{got[1].tolist()}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, outputs identical",
-              flush=True)
+              f"envelopes keep {min(kept):.3f}-{max(kept):.3f} of the diagonals (ND "
+              f"{nd.tolist()}), steps {got[1].tolist()}: kernel {k_ms:.3f} ms "
+              f"({us_col:.3f} us a column), plain {p_ms:.1f} ms, outputs identical", flush=True)
         times[dtype] = (k_ms, p_ms)
         if dtype == torch.float32:
             bnd = bound(nbytes(*args, *got), GUIDE_OPS_PER_CELL * envelope_cells(args), dtype)
@@ -617,9 +643,13 @@ def main() -> int:
     print(f"(b) kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
     k1 = phase_k1(colforward)
-    planes64 = k1.pop("planes64")
-    dag_err = phase_walker(tracedp, "dag", *planes64.pop("dag"), T=4)["err"]
-    walker = phase_walker(tracedp, "long12", *planes64.pop("long12"), T=2)
+    walk_planes = k1.pop("walk_planes")
+    f32, f64 = torch.float32, torch.float64
+    dag_err = phase_walker(tracedp, "dag", *walk_planes.pop(("dag", f64)), T=4)["err"]
+    for dt in (f32, f64):
+        phase_walker(tracedp, "long12 best only", *walk_planes[("long12", dt)], T=1)
+    del walk_planes[("long12", f32)]
+    walker = phase_walker(tracedp, "long12", *walk_planes.pop(("long12", f64)), T=2)
     launches = phase_e2e(cli, colforward, tracedp)
     k2 = phase_k2(colforward)
     guide = phase_guide(guidedp)

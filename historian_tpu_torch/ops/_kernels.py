@@ -45,10 +45,11 @@ _SIGNATURES = {
     "colforward_fused": [_P] * 11 + [_I] * 5 + [_P],
     # NS, CA -> strips that can be resident at once
     "colforward_fused_capacity": [_I, _I],
-    # x_tok, y_tok, lut, x_len, y_len, submat, A, trans, sg, end_x, end_y,
-    # PX, PY, bp, bp_off, col, steps, n_steps, x_end, y_end, lead_i,
-    # lead_j, score, B, stream
-    "guidealign": [_P] * 6 + [_I] + [_P] * 4 + [_I, _I] + [_P] * 10 + [_I, _P],
+    # x_tok, y_tok, diag, nd, rank_lo, rank_hi, NDP, x_len, y_len, submat,
+    # A, trans, sg, end_x, end_y, PX, PY, bp, bp_off, col, steps, n_steps,
+    # x_end, y_end, lead_i, lead_j, score, B, stream
+    "guidealign": [_P] * 6 + [_I] + [_P] * 3 + [_I] + [_P] * 4 + [_I, _I] + [_P] * 10
+                  + [_I, _P],
     # absorb, rsx, rsy, ix, iy, trans, out, B, X1, Y1, stream
     "pairforward_lp": [_P] * 7 + [_I] * 3 + [_P],
     # absorb, rsx, rsy, ix, iy, trans, out, B, X1, Y1, rows, stream

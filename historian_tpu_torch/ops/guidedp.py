@@ -24,7 +24,10 @@ ops/pairdp.py over the whole padded batch at once, then the host's
 end-cell argmax and traceback on each pair's planes copied back (historian_tpu/engine/quickalign.py `_finish` and
 `align_path`: candidates M, I, D, Start, strict > keeps the first
 maximum).  `guide_align` is the wrapper: the plain version for CPU
-tensors, the CUDA kernel (csrc/guidealign.cu) for CUDA tensors.
+tensors, the CUDA kernel (csrc/guidealign.cu) for CUDA tensors.  The
+kernel works in rank space: `diagonal_ranks` gives it each pair's kept
+diagonals in order and, per column, the range of ranks whose cells lie in
+the grid, and the bytes of each pair's back-pointers.
 """
 
 from __future__ import annotations
@@ -136,6 +139,36 @@ def _check_inputs(x_tok, y_tok, lut, x_len, y_len, submat, trans, sg, end_x, end
         raise ValueError("a pair is longer than its padded row")
 
 
+#: rank padding of `diagonal_ranks`' diag, above every diagonal
+DIAG_PAD = 1 << 30
+
+
+def diagonal_ranks(lut, x_len, y_len, PY: int) -> dict:
+    """The guide kernel's rank space, built on lut's device.
+
+    diag [B, NDP] int32: per pair the kept diagonals d = i - j that meet
+    its grid (1 - Y <= d <= X - 1), ascending, padded with DIAG_PAD; nd
+    [B] int32: their count; lo, hi [B, PY + 1] int32: per column j the
+    ranks [lo, hi) of the cells (j + d_r, j) with 1 <= i <= X (columns past
+    Y are not used).  Lane r of column j is the cell (j + d_r, j).  One
+    host read of nd and y_len gives NDP = max(nd, 1) and bp_bytes, a list
+    of each pair's back-pointer bytes, [Y + 1, ND]."""
+    B, W = lut.shape
+    dev = lut.device
+    d = torch.arange(W, dtype=torch.int32, device=dev) - PY
+    keep = lut & (d[None] >= 1 - y_len[:, None]) & (d[None] <= x_len[:, None] - 1)
+    nd = keep.sum(1).to(torch.int32)
+    nd_h, y_h = torch.stack([nd, y_len.to(torch.int32)]).tolist()
+    NDP = max(max(nd_h), 1)
+    diag = torch.where(keep, d[None], DIAG_PAD).sort(dim=1).values[:, :NDP].contiguous()
+    j = torch.arange(PY + 1, dtype=torch.int32, device=dev)
+    lo = torch.searchsorted(diag, (1 - j)[None].expand(B, -1).contiguous(), out_int32=True)
+    hi = torch.searchsorted(diag, (x_len[:, None] - j[None]).contiguous(), right=True,
+                            out_int32=True)
+    return dict(diag=diag, nd=nd, lo=lo, hi=hi,
+                bp_bytes=[(y + 1) * n for n, y in zip(nd_h, y_h)])
+
+
 def _chunks(cells: list[int], budget: int) -> list[tuple[int, int]]:
     """Consecutive [lo, hi) ranges of pairs whose back-pointer bytes fit
     the budget; a pair that cannot fit alone raises."""
@@ -168,7 +201,9 @@ def guide_align(x_tok, y_tok, lut, x_len, y_len, submat, trans, sg, end_x, end_y
     B, PX = x_tok.shape
     PY = y_tok.shape[1]
     dtype = submat.dtype
-    cells = ((x_len.long() + 1) * (y_len.long() + 1)).tolist()
+    ranks = diagonal_ranks(lut, x_len, y_len, PY)
+    NDP = ranks["diag"].shape[1]
+    cells = ranks["bp_bytes"]
     free, _ = torch.cuda.mem_get_info(dev)
     steps = torch.full((B, PX + PY), STEP_S, dtype=torch.int8, device=dev)
     ints = torch.zeros((5, B), dtype=torch.int32, device=dev)
@@ -177,18 +212,20 @@ def guide_align(x_tok, y_tok, lut, x_len, y_len, submat, trans, sg, end_x, end_y
     for lo, hi in _chunks(cells, free // 2):
         off = torch.tensor(np.concatenate([[0], np.cumsum(cells[lo:hi])[:-1]]),
                            dtype=torch.int64, device=dev)
-        bp = torch.empty(sum(cells[lo:hi]), dtype=torch.uint8, device=dev)
-        col = torch.empty((hi - lo, 6, PX + 1), dtype=dtype, device=dev)
+        bp = torch.empty(max(sum(cells[lo:hi]), 1), dtype=torch.uint8, device=dev)
+        # the columns' scratch, used where they do not fit shared memory
+        col = torch.empty((hi - lo, 6, NDP), dtype=dtype, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = fn(x_tok[lo].data_ptr(), y_tok[lo].data_ptr(), lut[lo].data_ptr(),
-                      x_len[lo].data_ptr(), y_len[lo].data_ptr(), submat.data_ptr(),
-                      submat.shape[0], trans.data_ptr(), sg.data_ptr(),
-                      end_x[lo].data_ptr(), end_y[lo].data_ptr(), PX, PY,
-                      bp.data_ptr(), off.data_ptr(), col.data_ptr(),
-                      steps[lo].data_ptr(), ints[0, lo:].data_ptr(), ints[1, lo:].data_ptr(),
-                      ints[2, lo:].data_ptr(), ints[3, lo:].data_ptr(), ints[4, lo:].data_ptr(),
-                      score[lo].data_ptr(), hi - lo, stream)
+            code = fn(x_tok[lo].data_ptr(), y_tok[lo].data_ptr(), ranks["diag"][lo].data_ptr(),
+                      ranks["nd"][lo].data_ptr(), ranks["lo"][lo].data_ptr(),
+                      ranks["hi"][lo].data_ptr(), NDP, x_len[lo].data_ptr(),
+                      y_len[lo].data_ptr(), submat.data_ptr(), submat.shape[0],
+                      trans.data_ptr(), sg.data_ptr(), end_x[lo].data_ptr(),
+                      end_y[lo].data_ptr(), PX, PY, bp.data_ptr(), off.data_ptr(),
+                      col.data_ptr(), steps[lo].data_ptr(), ints[0, lo:].data_ptr(),
+                      ints[1, lo:].data_ptr(), ints[2, lo:].data_ptr(), ints[3, lo:].data_ptr(),
+                      ints[4, lo:].data_ptr(), score[lo].data_ptr(), hi - lo, stream)
         _kernels.check(code, "guidealign")
         LAUNCHES += 1
     return (steps, *ints, score)

@@ -185,7 +185,7 @@ def _check_inputs(planes, y_src, y_lp, y_null, tx, t6, ye_src, ye_lp,
 def pair_trace(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp, ye_src,
                ye_lp, uniforms, is_best, n_steps_max: int):
     """The walker: the plain version for CPU tensors, the CUDA kernel (one
-    thread per trace) for CUDA tensors.  Any other device raises."""
+    warp per trace) for CUDA tensors.  Any other device raises."""
     global LAUNCHES
     _check_inputs(planes, y_src, y_lp, y_null, tx, t6, ye_src, ye_lp,
                   uniforms, is_best, n_steps_max)

@@ -1,7 +1,7 @@
 """Wall time and device profile of `recon` on the card.
 
     python -m historian_tpu_torch.profile_recon [--routes fused default]
-        [--cprofile] [--parent DIR] -- <recon arguments>
+        [--cprofile] [--parent DIR [--walls PAIRS]] -- <recon arguments>
 
 For each route (`fused`: HISTORIAN_PALLAS_FUSED=1, every merge through
 K2; `default`: the emission matmul and K1), in float32: one warm-up run,
@@ -22,6 +22,12 @@ resolve there (only this checkout's runs take --cprofile).  Prints each
 run's lines as it goes, tagged with its side and order, then one
 `{"compare": ...}` line: per route, each side's timed walls, device busy
 times and idle shares in run order.
+
+With --parent DIR --walls PAIRS, times walls only, on the first route:
+one worker process a side, warmed up once, then PAIRS pairs of timed
+runs alternating P C, C P, ...; prints each run's wall and the process's
+CPU time over it, then their quartiles and the change's minus the
+parent's in each pair.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 #: kernels and host functions listed a run
@@ -126,25 +133,93 @@ def compare(parent: str, routes: list, cprofile: bool, args: list) -> int:
     return 0
 
 
+def walls(parent: str, route: str, pairs: int, args: list) -> int:
+    """Timed walls only, parent and this checkout alternating: one worker
+    process a side, each run from its root and warmed up once, then
+    `pairs` pairs in the order P C, C P, P C, ...  Prints each run, then
+    one `{"walls": ...}` line: for the walls and the CPU times, each
+    side's in run order, their quartiles, and the change's minus the
+    parent's per pair."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    me = os.path.abspath(__file__)
+    code = f"import runpy, sys; sys.argv[0] = {me!r}; runpy.run_path({me!r}, run_name='__main__')"
+    roots = {"parent": os.path.abspath(parent), "change": here}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    workers = {side: subprocess.Popen(
+        [sys.executable, "-c", code, "--serve", "--routes", route, "--", *args], cwd=root,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True) for side, root in roots.items()}
+
+    def one(side: str) -> dict:
+        w = workers[side]
+        w.stdin.write("run\n")
+        w.stdin.flush()
+        line = w.stdout.readline()
+        if not line:
+            raise RuntimeError(f"profile_recon: the {side} worker in {roots[side]} failed")
+        return json.loads(line)
+
+    try:
+        for side in workers:
+            print(json.dumps(dict(side=side, warmup=one(side))), flush=True)
+        got = {"parent": [], "change": []}
+        for k in range(pairs):
+            for side in ("parent", "change") if k % 2 == 0 else ("change", "parent"):
+                got[side].append(one(side))
+                print(json.dumps(dict(side=side, pair=k, **got[side][-1])), flush=True)
+    finally:
+        for w in workers.values():
+            w.stdin.close()
+            w.wait()
+    out = dict(args=args, route=route, roots=roots)
+    for key in ("wall_s", "cpu_s"):
+        v = {side: [r[key] for r in runs] for side, runs in got.items()}
+        out[key] = dict(v, quartiles={side: [float(q) for q in np.percentile(x, [25, 50, 75])]
+                                      for side, x in v.items()},
+                        change_minus_parent=[c - p for p, c in zip(v["parent"], v["change"])])
+    print(json.dumps({"walls": out}), flush=True)
+    return 0
+
+
+def serve(cli, args: list) -> int:
+    """One timed run per `run` line on stdin: its wall and the process's
+    CPU time over it (all threads, a synchronize's spin included) as a
+    JSON line."""
+    for line in sys.stdin:
+        if line.strip() == "run":
+            c0 = time.process_time()
+            wall = run(cli, args)
+            print(json.dumps(dict(wall_s=wall, cpu_s=time.process_time() - c0)), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--routes", nargs="+", default=["fused", "default"],
                     choices=["fused", "default"])
     ap.add_argument("--cprofile", action="store_true")
     ap.add_argument("--parent", help="a checkout to compare with, run P, C, C, P")
+    ap.add_argument("--walls", type=int, metavar="PAIRS",
+                    help="with --parent: timed walls only, PAIRS alternating pairs")
+    ap.add_argument("--serve", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("recon_args", nargs=argparse.REMAINDER)
     opts = ap.parse_args(argv)
     args = [a for a in opts.recon_args if a != "--"]
     if not torch.cuda.is_available():
         print("profile_recon: no CUDA device", file=sys.stderr)
         return 1
+    if opts.parent and opts.walls:
+        return walls(opts.parent, opts.routes[0], opts.walls, args)
     if opts.parent:
         return compare(opts.parent, opts.routes, opts.cprofile, args)
     from historian_tpu_torch import cli
 
+    os.environ["HISTORIAN_DEVICE_DTYPE"] = "f32"
+    if opts.serve:
+        os.environ["HISTORIAN_PALLAS_FUSED"] = "1" if opts.routes[0] == "fused" else "0"
+        return serve(cli, args)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    os.environ["HISTORIAN_DEVICE_DTYPE"] = "f32"
     for route in opts.routes:
         os.environ["HISTORIAN_PALLAS_FUSED"] = "1" if route == "fused" else "0"
         warm = run(cli, args)

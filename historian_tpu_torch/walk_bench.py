@@ -1,0 +1,145 @@
+"""Trace walker timing at long12's first merge (t01 x t02) on the card.
+
+    python -m historian_tpu_torch.walk_bench [--reps N]
+        [--roots DIR ... [--rounds R]]
+
+Fills K1's planes over the full grid of a chain y at that shape (the
+inputs of chip_smoke.py's long12 case: seed 17), then times the walker
+as chip_smoke.py walks them (seed 5): a best-only walk in float32 (the
+recon path's case) and one best plus one sampled walk in float64.  Each
+call is timed alone with CUDA events; the median of --reps after a warm
+call is kept.  Prints the card's name and power limit, then one JSON
+line with each case's ms, the longest walk's steps and us a step.
+
+With --roots (checkouts of other versions of the package, e.g. unpacked
+with `git archive` into build/), runs this file in a fresh process from
+each root, in the order given and then reversed, --rounds times, so that
+versions of the kernel compare in one call; prints each run's line
+tagged with its root, then one `{"compare": ...}` line with each root's
+times in run order.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+NEG = -1e30
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "data")
+
+
+def first_merge_shape() -> tuple:
+    """(SX, SY) of long12's first merge: START plus t01's and t02's residues."""
+    from historian_tpu_torch.core.seqs import read_fasta
+
+    seqs = {s.name: s.seq for s in read_fasta(os.path.join(DATA, "long12.fa"))}
+    return len(seqs["t01"]) + 1, len(seqs["t02"]) + 1
+
+
+def walk_args(SX: int, SY: int, T: int, dtype, dev) -> tuple:
+    """K1's planes of a chain y over the full grid and the walker's
+    arguments over them, trace 0 best and the rest sampled."""
+    from historian_tpu_torch.ops import colforward
+
+    rng = np.random.default_rng(17)
+    absorb = rng.normal(-5, 1, (SY, SX))
+    rng.integers(0, 6, (SY, 1))  # chip_smoke's DAG edges, unused by a chain y
+    y_src = np.maximum(np.arange(SY) - 1, 0)[:, None]
+    y_lp = rng.normal(-1, 0.5, (SY, 1))
+    y_ready = np.ones(SY, bool)
+    y_ready[0] = False
+    flags = np.stack([np.zeros(SY), y_ready, rng.normal(-2, 1, SY), rng.normal(-2, 1, SY)], 1)
+    x_ready = np.ones(SX, bool)
+    x_ready[-1] = False
+    xvec = np.stack([rng.normal(-2, 1, SX), rng.normal(-2, 1, SX),
+                     np.where(x_ready, 0.0, NEG), np.zeros(SX)])
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    planes = colforward.col_forward_planes(
+        t(y_src, torch.int32), t(y_lp), t(flags), t(absorb), t(np.zeros((SY, SX))), t(xvec),
+        t(rng.normal(-1, 0.5, 23)))
+    rng = np.random.default_rng(5)
+    tx = rng.normal(-0.1, 0.05, SX)
+    tx[0] = 0.0
+    L = SX + SY
+    return (planes, t(y_src, torch.int32), t(y_lp), t(np.zeros(SY), torch.bool), t(tx),
+            t(rng.normal(-1, 0.5, (6, 6))), SX - 1, -0.3,
+            t(np.array([SY - 3, SY - 1]), torch.int32), t(np.array([-1.5, -0.2])),
+            t(rng.random((T, L))), torch.arange(T, device=dev) == 0, L)
+
+
+def median_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def measure(reps: int) -> dict:
+    from historian_tpu_torch.ops import tracedp
+
+    dev = torch.device("cuda")
+    SX, SY = first_merge_shape()
+    out = {}
+    for case, T, dtype in (("best_f32", 1, torch.float32), ("best_sampled_f64", 2, torch.float64)):
+        walk = walk_args(SX, SY, T, dtype, dev)
+        ms = median_ms(lambda: tracedp.pair_trace(*walk), reps)
+        steps = int(tracedp.pair_trace(*walk)[4].max())
+        out[case] = dict(ms=ms, steps=steps, us_step=ms * 1e3 / steps)
+        del walk
+    return out
+
+
+def compare(roots: list, rounds: int, reps: int) -> int:
+    me = os.path.abspath(__file__)
+    code = f"import runpy, sys; sys.argv[0] = {me!r}; runpy.run_path({me!r}, run_name='__main__')"
+    table = {os.path.abspath(r): [] for r in roots}
+    order = [os.path.abspath(r) for r in roots]
+    for k in range(rounds):
+        for root in order if k % 2 == 0 else order[::-1]:
+            proc = subprocess.run([sys.executable, "-c", code, "--reps", str(reps)], cwd=root,
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"walk_bench: the run in {root} failed")
+            rec = json.loads(proc.stdout.splitlines()[-1])
+            print(json.dumps(dict(root=root, **rec)), flush=True)
+            table[root].append(rec)
+    print(json.dumps({"compare": table}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--roots", nargs="+")
+    ap.add_argument("--rounds", type=int, default=2)
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("walk_bench: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    if opts.roots:
+        return compare(opts.roots, opts.rounds, opts.reps)
+    print(json.dumps(measure(opts.reps)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

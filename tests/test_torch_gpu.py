@@ -86,6 +86,92 @@ def test_walker_kernel_matches_plain(cuda):
     assert abs(float(got[5]) - float(ref[5])) < 1e-9
 
 
+def _walk_args(SX, SY, KY, T, dtype, dev, seed=13, exact=False, filled=False):
+    """Walker arguments on random planes [5, SY, SX] (a few NEG cells):
+    y in-edges up to 6 rows back (KY of them, sorted as the bridge sorts
+    them), nulls when KY > 1, two end in-edges, trace 0 best and the rest
+    sampled.  exact: planes, transitions and edge weights 0, so that every
+    candidate weight is 0 or 1, and uniforms in {0, 1/4, 1/2, 3/4, 1}, so
+    that u * ptot falls exactly on a cumulative weight.  filled: the planes
+    and y side of a K1 fill over the full grid instead, whose NEG cells
+    keep a walk inside the grid on the smallest shapes."""
+    rng = np.random.default_rng(seed)
+    planes = rng.normal(-8, 3, (5, SY, SX))
+    planes[rng.random(planes.shape) < 0.05] = NEG
+    y_src = np.clip(np.arange(SY)[:, None] - 1 - rng.integers(0, 6, (SY, KY)), 0, None)
+    y_src[:, 0] = np.maximum(np.arange(SY) - 1, 0)
+    y_lp = rng.normal(-1, 0.5, (SY, KY))
+    y_null = np.zeros(SY, bool)
+    if KY > 1 and SY > 2:
+        y_null[rng.choice(np.arange(1, SY), max(SY // 16, 1), replace=False)] = True
+    if filled:
+        k1, _ = _k1_rect(SX, SY, KY, np.ones((SY, SX), bool), torch.float64, dev, seed)
+        planes = colforward.col_forward_planes(*k1).cpu().numpy()
+        y_src, y_lp = k1[0].cpu().numpy(), k1[1].cpu().numpy()
+        y_null = k1[2][:, 0].cpu().numpy() > 0.5
+    tx, t6 = rng.normal(-0.1, 0.05, SX), rng.normal(-1, 0.5, (6, 6))
+    tx[0] = 0.0
+    xe_lp, ye_lp = -0.3, rng.normal(-1, 0.3, 2)
+    L = SX + SY
+    u = rng.random((T, L))
+    if exact:
+        planes[:] = 0.0
+        y_lp[:], tx[:], t6[:], ye_lp[:], xe_lp = 0.0, 0.0, 0.0, 0.0, 0.0
+        u = rng.integers(0, 5, (T, L)) / 4
+    ws, wl = sorted_walk_edges(y_src.astype(np.int32), y_lp)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    ye = np.array([max(SY - 2, 0), SY - 1], np.int32)
+    return (t(planes), t(ws, torch.int32), t(wl), t(y_null, torch.bool), t(tx), t(t6), SX - 1,
+            xe_lp, t(ye, torch.int32), t(ye_lp), t(u), torch.arange(T, device=dev) == 0, L)
+
+
+WALK_CASES = {
+    # name: (SX, SY, KY, T, exact, filled)
+    "best only": (700, 650, 1, 1, False, False),
+    "33 walks": (240, 260, 4, 33, False, False),
+    "KY 7, two rounds": (300, 280, 7, 3, False, False),
+    "exact boundaries": (150, 170, 4, 9, True, False),
+    "two rows": (90, 2, 1, 4, False, True),
+    "one column": (2, 80, 3, 4, False, True),
+    # a y side too large for shared memory: the kernel reads it from
+    # device memory, on the one-round path (KY 5) and in rounds (KY 7);
+    # filled, since a random walk on so narrow an x leaves the grid
+    "y side in device memory": (64, 6000, 5, 2, False, True),
+    "y side in device memory, KY 7": (64, 4500, 7, 2, False, True),
+}
+
+
+def y_side_fits(SX, SY, KY, dtype, dev) -> bool:
+    """Whether the walker stages the y side in shared memory: its bytes
+    (y_lp, tx, t6, y_src, y_null) under the card's per-block limit, less
+    the kernel's other shared memory (under 2 KB)."""
+    item = torch.finfo(dtype).bits // 8
+    y_side = (SY * KY + SX + 36) * item + SY * KY * 4 + SY
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    return y_side + 2048 <= limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_walker_cases_match_plain(cuda, name, dtype):
+    """The warp-per-walk kernel against the plain walker, with the y side
+    in shared or in device memory: paths, values and step counts
+    identical."""
+    SX, SY, KY, T, exact, filled = WALK_CASES[name]
+    assert y_side_fits(SX, SY, KY, dtype, cuda) == ("device memory" not in name)
+    walk = _walk_args(SX, SY, KY, T, dtype, cuda, exact=exact, filled=filled)
+    before = tracedp.LAUNCHES
+    got = tracedp.pair_trace(*walk)
+    assert tracedp.LAUNCHES == before + 1
+    ref = tracedp.pair_trace_plain(*walk)
+    for what, a, b in zip(("pi", "pj", "ps", "vals", "n_steps"), got[:5], ref[:5]):
+        assert torch.equal(a, b), (name, what)
+    assert abs(float(got[5]) - float(ref[5])) <= 1e-9 * max(1.0, abs(float(ref[5])))
+
+
 def _k2_args(S, KY, CA, dtype, dev, seed=4):
     """K2's packed inputs: K1's recurrence inputs, random emission factors,
     and a band |m2 - m1| <= 6 around a drifting diagonal, with a few
@@ -175,6 +261,56 @@ def test_guide_kernel_matches_plain(cuda, dtype):
     for name, a, b in zip(("steps", "n_steps", "x_end", "y_end", "lead_i", "lead_j", "score"),
                           got, ref):
         assert torch.equal(a, b), name
+
+
+def _guide_case(name):
+    """guide_args for the card's edge cases of the rank-space kernel."""
+    if name == "full":  # every diagonal: ND = X + Y - 1 > X
+        return guide_args([(90, 130), (140, 70)], seed=7, full=True)
+    if name == "single diagonal":
+        a = guide_args([(80, 100), (100, 80), (3, 1)], seed=8)
+        a["lut"][:] = False
+        a["lut"][:, 2 + a["y_tok"].shape[1]] = True
+        return a
+    if name == "unequal lengths":
+        return guide_args([(400, 120), (35, 500), (1, 1), (260, 260), (9, 300)], seed=9)
+    if name == "run breaks at the edge":
+        # runs of diagonals that cross each pair's last diagonals, X - 1 and
+        # 1 - Y, and a pair whose band misses its grid altogether
+        lengths = [(60, 200), (200, 60), (150, 150), (20, 30)]
+        a = guide_args(lengths, seed=10)
+        PY = a["y_tok"].shape[1]
+        for b, (X, Y) in enumerate(lengths[:3]):
+            a["lut"][b, max(X - 8, 0) + PY: X + 6 + PY] = True
+            a["lut"][b, 1 - Y - 5 + PY: 1 - Y + 4 + PY] = True
+        a["lut"][3] = False
+        a["lut"][3, 40 + PY] = True
+        return a
+    if name == "several tiles":  # ND > 1024: a column takes several tiles
+        return guide_args([(700, 700), (650, 720)], seed=12, full=True)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["full", "single diagonal", "unequal lengths",
+                                  "run breaks at the edge", "several tiles"])
+def test_guide_rank_space_cases(cuda, name, dtype):
+    from historian_tpu_torch import convert
+
+    t = convert.guide_tensors(_guide_case(name), cuda, dtype)
+    args = [t[k] for k in GUIDE_ORDER]
+    nd = guidedp.diagonal_ranks(t["lut"], t["x_len"], t["y_len"], t["y_tok"].shape[1])["nd"]
+    if name == "full":
+        assert bool((nd > t["x_len"]).all())
+    if name == "several tiles":
+        assert int(nd.min()) > 1024
+    before = guidedp.LAUNCHES
+    got = guidedp.guide_align(*args)
+    assert guidedp.LAUNCHES == before + 1
+    ref = guidedp.guide_align_plain(*args)
+    for what, a, b in zip(("steps", "n_steps", "x_end", "y_end", "lead_i", "lead_j", "score"),
+                          got, ref):
+        assert torch.equal(a, b), (name, what)
 
 
 def _pf_args(B, X1, Y1, dtype, dev, seed=8):
