@@ -14,10 +14,14 @@ Phases, each fatal on failure (nothing is caught):
       that worked; a banded case runs with the mask's lanes (timed, active
       share below 0.5) and with every lane; the full grid takes more than
       one strip;
-  (d) the trace walker against its plain version on the float64 planes
-      of both cases of (c), best and sampled traces, and a best-only walk
-      (T = 1, the recon path's) on long12's first-merge planes in float32
-      and float64; each prints us a step;
+  (d) the trace walker against its plain version on the planes of (c):
+      the best walk and sampled walks, the sampled ones one after another
+      over one draw buffer (the DAG y in float64; long12's first merge
+      best only in float32 and float64, the `-fast` path's case, 1 + 2 in
+      float32 and 1 + 1 in float64), and 1 + 10 in float32 at long12's
+      first merge, a default merge's walks, timed, with the last walk
+      checked alone from the draw where the nine before it stopped; each
+      prints us a step and its bound, counted from the paths walked;
   (e) end to end through the CLI entry: `recon -fast -noband` on small4
       (4 x 300 aa from tests/data/long8.fa) in float64 on the card must
       be byte-identical to the CPU float64 run; then `recon -fast -noband`
@@ -46,12 +50,26 @@ Phases, each fatal on failure (nothing is caught):
       pairs of long12 cut to 3000 x 3000 through K4; then K3 and K4
       against their plain version on the card at those three shapes
       (the headline in float32 and float64, the others in float32, K4
-      always with x_tile below X).
+      always with x_tile below X);
+  (j) the default `recon` (sampled profiles): small6 in float64 on the
+      card, default and fused routes, each byte-identical to the CPU
+      float64 run; then tests/data/long12.fa with no tree and no profile
+      flags on the default route in float32, the main path's run, and in
+      float64 from the guide and tree that the float32 run saved, each
+      with its wall; the two `#=GF LP` within 50 nats (the bound of
+      tests/test_f32_drift.py).  Each run
+      prints its merges and fills on each route, its launches of K1, K2,
+      the walker and the guide kernel, its sampled walks and the mt19937
+      draws they took; K1 (K2) launches must equal the fills whose x is a
+      chain and the host fills those whose x is a sampled profile (a log
+      of every fill's x, kept apart from the routes' counters), and some
+      sampled walks must run on the card.
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A kernel's
 `launches` sums the main-path runs that drive it, each counted from 0:
-K1 in (e) and (h) default, K2 and the guide kernel in (h) fused, the
-walker in (e).
+K1 in (e), (h) default and (j) long12 f32, K2 in (h) fused, the guide
+kernel in (h) fused and (j) long12 f32, the walker in (e) and (j) long12
+f32.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -93,6 +111,9 @@ F64_TOL = 1e-9
 #: (warp blocks, then warp totals, then tiles, against Hillis-Steele), which
 #: moves a float32 lp_end by ~3e-7 relative at the headline shape.
 PF_F32_RTOL = 1e-6
+#: float32 `#=GF LP` against float64 on one input, in nats: the bound of
+#: tests/test_f32_drift.py
+F32_LP_DRIFT = 50.0
 
 #: an H100 SXM's peaks: device memory bytes/s, and operations/s outside the
 #: tensor cores by dtype (from NVIDIA's H100 data sheet)
@@ -266,10 +287,45 @@ def phase_k1(colforward) -> dict:
     return dict(err=err, ms=k_ms, plain_ms=p_ms, walk_planes=walk_planes, times=times, **bnd)
 
 
-def phase_walker(tracedp, name: str, planes, args, T: int) -> dict:
-    """The walker against its plain version on planes of (c): trace 0
-    best, the others sampled; paths must be identical.  Prints the kernel's
-    us a step (of the longest walk: the walks run side by side)."""
+def walk_bound(walk, got) -> dict:
+    """bound_ms of the walks in `got`, counted from the paths walked: the
+    first step reads the end cells' 5 KE values and the end edges; a step
+    out of IMM, IDM or IMI reads the 5 KY values of its y-move candidates
+    (KY at a null row, where one state a source is live) and the row's
+    edges (source and lp), one out of IMD or IIW the 5 values of its x-move;
+    a sampled walk reads one uniform a step, the best walk none.  Every
+    output ([T, L] path entries i, j, s, value and n_steps) is written
+    once.  Operations per live candidate: two adds and a compare (best),
+    two adds, an exp, the ptot add, the subtraction and its compare
+    (sampled)."""
+    from historian_tpu_torch.ops.tracedp import IDM, IMI, IMM
+
+    planes, y_src, y_null, ye_src = walk[0], walk[1], walk[3], walk[8]
+    include_best = walk[11]
+    KY, KE, item = y_src.shape[1], ye_src.shape[0], planes.element_size()
+    pj, ps = got[1].cpu().numpy(), got[2].cpu().numpy()
+    null = y_null.cpu().numpy()
+    n_bytes, ops = 0, 0
+    for t, n in enumerate(got[4].tolist()):
+        s, j = ps[t, :n - 1], pj[t, :n - 1]  # the cells that steps 2..n leave
+        ymove = np.isin(s, (IMM, IDM, IMI))
+        values = 5 * KE + int(np.where(ymove, np.where(null[j], KY, 5 * KY), 5).sum())
+        sampled = not (include_best and t == 0)
+        n_bytes += (values * item + (KE + int(ymove.sum()) * KY) * (4 + item)
+                    + (n * item if sampled else 0))
+        ops += values * (6 if sampled else 3)
+    T, L = ps.shape
+    return bound(n_bytes + T * L * (12 + item) + T * 4, ops, planes.dtype)
+
+
+def phase_walker(tracedp, name: str, planes, args, n_samples: int, check: bool = True) -> dict:
+    """The walker against its plain version on planes of (c): the best walk
+    and n_samples sampled walks, one after another over one draw buffer;
+    paths must be identical (check False: the kernel is timed, and only
+    its last sampled walk is checked, walked alone by the plain version
+    from the draw where the walks before it stopped).  Prints the kernel's
+    us a step (of the best walk or of the sampled walks together,
+    whichever is longer: the two run side by side)."""
     y_src, y_lp = args[0].cpu().numpy(), args[1].cpu().numpy()
     pad = y_lp <= NEG / 2
     order = np.argsort(np.where(pad, np.iinfo(np.int32).max, y_src), axis=1, kind="stable")
@@ -290,28 +346,35 @@ def phase_walker(tracedp, name: str, planes, args, T: int) -> dict:
         SX - 1, -0.3,
         torch.tensor([SY - 3, SY - 1], dtype=torch.int32, device=dev),
         torch.tensor([-1.5, -0.2], dtype=dt, device=dev),
-        torch.as_tensor(rng.random((T, L)), dtype=dt, device=dev),
-        torch.arange(T, device=dev) == 0,
-        L,
+        torch.as_tensor(rng.random(max(n_samples, 1) * L), dtype=dt, device=dev),
+        True, n_samples, L,
     )
     got = tracedp.pair_trace(*walk)
-    ref, p_ms = host_ms(lambda: tracedp.pair_trace_plain(*walk))
     k_ms = cuda_ms(lambda: tracedp.pair_trace(*walk))
-    for a, b, what in zip(got, ref, ("pi", "pj", "ps", "vals", "n_steps")):
-        if not torch.equal(a, b):
-            raise AssertionError(f"walker {name} {what} differs from the plain walker")
-    lp_err = abs(float(got[5]) - float(ref[5]))
-    # what the walks need: per step the three candidate cells' five values
-    # and one uniform read, one path entry (i, j, s, value) written
-    steps = int(got[4].sum())
-    item = planes.element_size()
-    bnd = bound(steps * (15 * item + item + 12 + item), steps * 3 * 5 * 2, planes.dtype)
+    n_steps = got[4].tolist()
+    if check:
+        ref, p_ms = host_ms(lambda: tracedp.pair_trace_plain(*walk))
+        for a, b, what in zip(got, ref, ("pi", "pj", "ps", "vals", "n_steps")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"walker {name} {what} differs from the plain walker")
+        lp_err = abs(float(got[5]) - float(ref[5]))
+        checked = f"plain {p_ms:.1f} ms, paths identical, lp_end err {lp_err:.3e}"
+    else:
+        off = sum(n_steps[1:-1])
+        ref = tracedp.pair_trace_plain(*walk[:10], walk[10][off:], False, 1, L)
+        for a, b, what in zip(got, ref, ("pi", "pj", "ps", "vals", "n_steps")):
+            if not torch.equal(a[-1:], b):
+                raise AssertionError(f"walker {name}: the last walk's {what} differs from the "
+                                     f"plain walker's from draw {off}")
+        lp_err, p_ms = abs(float(got[5]) - float(ref[5])), float("nan")
+        checked = f"timed; the last walk, from draw {off}, identical to the plain walker's"
+    bnd = walk_bound(walk, got)
     if not lp_err <= F64_TOL:
         raise AssertionError(f"walker {name} lp_end differs by {lp_err}")
-    us_step = k_ms * 1e3 / int(got[4].max())
-    print(f"(d) walker {name} SX={SX} SY={SY} {str(dt)[6:]}, 1 best + {T - 1} sampled, steps "
-          f"{got[4].tolist()}: kernel {k_ms:.3f} ms ({us_step:.3f} us a step), plain "
-          f"{p_ms:.1f} ms, paths identical, lp_end err {lp_err:.3e}", flush=True)
+    us_step = k_ms * 1e3 / max(n_steps[0], sum(n_steps[1:]))
+    print(f"(d) walker {name} SX={SX} SY={SY} {str(dt)[6:]}, 1 best + {n_samples} sampled, "
+          f"steps {n_steps}: kernel {k_ms:.3f} ms ({us_step:.3f} us a step), {checked}, "
+          f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})", flush=True)
     return dict(err=lp_err, ms=k_ms, plain_ms=p_ms, **bnd)
 
 
@@ -624,6 +687,119 @@ def phase_pairforward(pairforward, bench, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def fill_log(forward):
+    """Records, fill by fill, whether the merge's x is a chain: the fills
+    each route must have taken, counted apart from the routes' own
+    counters."""
+    log = []
+    fill = forward.ForwardMatrix._fill
+
+    def logged(self):
+        log.append(not (self.x_empty or self.y_empty) and self.x.as_chain() is not None)
+        return fill(self)
+
+    forward.ForwardMatrix._fill = logged
+    try:
+        yield log
+    finally:
+        forward.ForwardMatrix._fill = fill
+
+
+def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
+    return dict(colforward=colforward.LAUNCHES, colforward_fused=colforward.FUSED_LAUNCHES,
+                pairtrace=tracedp.LAUNCHES, guidealign=guidedp.LAUNCHES,
+                merges=dict(recon.MERGES), fills=dict(forward.FILLS),
+                sampled=dict(forward.SAMPLED))
+
+
+def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
+    colforward.LAUNCHES = colforward.FUSED_LAUNCHES = tracedp.LAUNCHES = guidedp.LAUNCHES = 0
+    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED):
+        for k in d:
+            d[k] = 0
+
+
+def check_routes(what: str, counts: dict, log: list, fused: bool) -> None:
+    """K1 (or K2) launches are the chain-x fills, the host fills the fills
+    of a sampled x, and sampled walks were made."""
+    chain, dag = sum(log), len(log) - sum(log)
+    fill, other = (("colforward_fused", "colforward") if fused
+                   else ("colforward", "colforward_fused"))
+    if (counts[fill] != chain or counts[other] != 0 or counts["fills"]["device"] != chain
+            or counts["fills"]["host"] != dag or dag < 1
+            or counts["sampled"]["device_walks"] < 1 or counts["pairtrace"] < 1):
+        raise AssertionError(f"{what}: {chain} chain-x and {dag} sampled-x fills, counts {counts}")
+
+
+def phase_default_recon(cli, colforward, tracedp, guidedp) -> dict:
+    """(j) The default `recon` (sampled profiles, no -fast): small6 card f64
+    == CPU f64 on the default and the fused route; then long12 with no tree
+    and no profile flags on the card, default route (K1), in float32 and in
+    float64 from the float32 run's guide and tree, whose `#=GF LP` must
+    agree within F32_LP_DRIFT.  Each run's K1
+    (K2) launches must equal its chain-x fills and its host fills the
+    fills whose x is a sampled profile.  Returns the float32 run's counts."""
+    from historian_tpu_torch import recon
+    from historian_tpu_torch.engine import forward
+
+    counters = (recon, forward, colforward, tracedp, guidedp)
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        small = [write_small6(d)]
+        os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
+        cpu = run_cli(cli, ["-platform", "cpu", *small], "f64")
+        for fused in ("0", "1"):
+            os.environ["HISTORIAN_PALLAS_FUSED"] = fused
+            zero_counts(*counters)
+            with fill_log(forward) as log:
+                gpu = run_cli(cli, ["-platform", "gpu", *small], "f64")
+            counts = recon_counts(*counters)
+            if gpu != cpu:
+                raise AssertionError(f"small6 default f64 fused={fused}: card output differs "
+                                     "from the CPU output")
+            check_routes(f"small6 fused={fused}", counts, log, fused == "1")
+            rows, lp = stockholm_rows_lp(gpu)
+            print(f"(j) small6 default recon f64 fused={fused}: card == cpu, {len(rows)} rows, "
+                  f"LP {lp}, {counts}", flush=True)
+        os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
+        # the float64 run takes the float32 run's guide and tree, so that the
+        # two differ in their merges only
+        guide = os.path.join(d, "long12_guide.sto")
+        inputs = {"f32": ["-saveguide", guide, os.path.join(REPO, "tests", "data", "long12.fa")],
+                  "f64": ["-stockholm", guide]}
+        source = {"f32": "its guide stage and tree", "f64": "the f32 run's guide and tree"}
+        for dtype in ("f32", "f64"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(*counters)
+            t0 = time.perf_counter()
+            with fill_log(forward) as log:
+                out = run_cli(cli, ["-platform", "gpu", *inputs[dtype]], dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = recon_counts(*counters)
+            rows, lp = stockholm_rows_lp(out)
+            if len(rows) != 23 or not math.isfinite(lp) or "#=GF NH" not in out:
+                raise AssertionError(f"long12 default {dtype}: {len(rows)} rows, LP {lp}")
+            check_routes(f"long12 default {dtype}", counts, log, False)
+            print(f"(j) long12 default recon (no profile flags; {source[dtype]}) "
+                  f"{dtype}: {len(rows)} rows, LP {lp}, wall {wall:.2f} s, merges "
+                  f"{counts['merges']}, fills {counts['fills']}, launches K1 "
+                  f"{counts['colforward']} K2 {counts['colforward_fused']} walker "
+                  f"{counts['pairtrace']} guide {counts['guidealign']}, sampled walks and "
+                  f"draws {counts['sampled']}, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+            runs[dtype] = (lp, counts)
+    del os.environ["HISTORIAN_PALLAS_FUSED"]
+    drift = abs(runs["f32"][0] - runs["f64"][0])
+    if not drift < F32_LP_DRIFT:
+        raise AssertionError(f"long12 default: f32 LP is {drift} nats off f64")
+    print(f"(j) long12 default f32 LP - f64 LP: {drift:.6f} nats (limit {F32_LP_DRIFT})",
+          flush=True)
+    return runs["f32"][1]
+
+
 def main() -> int:
     from historian_tpu_torch import bench, cli
     from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
@@ -645,27 +821,31 @@ def main() -> int:
     k1 = phase_k1(colforward)
     walk_planes = k1.pop("walk_planes")
     f32, f64 = torch.float32, torch.float64
-    dag_err = phase_walker(tracedp, "dag", *walk_planes.pop(("dag", f64)), T=4)["err"]
+    dag_err = phase_walker(tracedp, "dag", *walk_planes.pop(("dag", f64)), 3)["err"]
     for dt in (f32, f64):
-        phase_walker(tracedp, "long12 best only", *walk_planes[("long12", dt)], T=1)
-    del walk_planes[("long12", f32)]
-    walker = phase_walker(tracedp, "long12", *walk_planes.pop(("long12", f64)), T=2)
+        phase_walker(tracedp, "long12 best only", *walk_planes[("long12", dt)], 0)
+    sampled_err = phase_walker(tracedp, "long12 in order", *walk_planes[("long12", f32)], 2)["err"]
+    phase_walker(tracedp, "long12 in order", *walk_planes.pop(("long12", f32)), 10, check=False)
+    walker = phase_walker(tracedp, "long12", *walk_planes.pop(("long12", f64)), 1)
     launches = phase_e2e(cli, colforward, tracedp)
     k2 = phase_k2(colforward)
     guide = phase_guide(guidedp)
     launches_h = phase_guide_e2e(cli, colforward, tracedp, guidedp)
     pf = phase_pairforward(pairforward, bench, torch.device("cuda"))
+    launches_j = phase_default_recon(cli, colforward, tracedp, guidedp)
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
              replaces="historian_tpu/ops/pallas_colforward.py:364",
-             launches=launches["colforward"] + launches_h["default"]["colforward"],
+             launches=(launches["colforward"] + launches_h["default"]["colforward"]
+                       + launches_j["colforward"]),
              max_abs_err=k1["err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
         dict(name="pairtrace", route="cuda", source="historian_tpu_torch/csrc/tracedp.cu",
              replaces="historian_tpu/ops/tracedp.py:85",
-             launches=launches["pairtrace"], max_abs_err=max(dag_err, walker["err"]),
+             launches=launches["pairtrace"] + launches_j["pairtrace"],
+             max_abs_err=max(dag_err, sampled_err, walker["err"]),
              ms=walker["ms"], plain_ms=walker["plain_ms"], bound_ms=walker["bound_ms"],
              bound_by=walker["bound_by"], library_ms=None),
         dict(name="colforward_fused", route="cuda",
@@ -676,7 +856,8 @@ def main() -> int:
              bound_by=k2["bound_by"], library_ms=None),
         dict(name="guidealign", route="cuda", source="historian_tpu_torch/csrc/guidealign.cu",
              replaces="historian_tpu/ops/guidedp.py:161",
-             launches=launches_h["fused"]["guidealign"], max_abs_err=guide["err"],
+             launches=launches_h["fused"]["guidealign"] + launches_j["guidealign"],
+             max_abs_err=guide["err"],
              ms=guide["ms"], plain_ms=guide["plain_ms"], bound_ms=guide["bound_ms"],
              bound_by=guide["bound_by"], library_ms=None),
     ]

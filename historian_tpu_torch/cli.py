@@ -1,11 +1,14 @@
 """Command-line interface of the port: `recon` on PyTorch and CUDA.
 
 Same flags as historian_tpu/cli.py for the reconstruction subset, the
-same `-fast` alias, plus `-platform gpu|cpu`: `gpu`, the default, needs
-CUDA and fails without it; `cpu` runs the kernels' plain PyTorch
-versions and is only ever chosen explicitly.  The guide and tree flags
-have their JAX meaning; flags of paths that are not ported yet raise
-NotImplementedError naming their ROADMAP item, none is dropped silently.
+same `-fast` and `-careful` aliases, plus `-platform gpu|cpu`: `gpu`, the
+default, needs CUDA and fails without it; `cpu` runs the kernels' plain
+PyTorch versions and is only ever chosen explicitly.  The guide, tree and
+profile flags have their JAX meaning; flags of paths that are not ported
+yet raise NotImplementedError naming their ROADMAP item, none is dropped
+silently.  `-profminpost` and `-refine` raise at the end of parsing, so
+that a later `-profsamples` or `-norefine` cancels them as it does in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -51,7 +54,13 @@ Usage: {PROG} recon [options] [files]
   -insrate/-delrate/-insextprob/-delextprob/-gaprate/-gapextprob <x>
   -inslen/-dellen/-gaplen <L>  -subscale/-indelscale/-scale <x>
   -gamma <n> -shape <a>  -savemodel <file>
-  -band <n> | -noband  -profmaxstates <n>  -profsamples <n>
+  -band <n> | -noband  band around the guide alignment (default 20)
+  -profsamples <n>   sampled traces kept in each internal profile (default 10)
+  -profmaxstates <n> | -profmaxmem <pct>  cells a profile may keep (default:
+                     from -profmaxmem's share, 5, of the host memory)
+  -nobest            leave the best trace out of the profiles
+  -keepgapsopen      keep gap states open in the profiles
+  -profminlen <n> -profmaxlen <n>  accepted, unused (as in the JAX package)
   -output fasta|nexus|stockholm|json  -noancs  -seed <n>
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
   -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
@@ -60,14 +69,8 @@ Usage: {PROG} recon [options] [files]
 
 #: flags of the JAX CLI whose paths are not ported yet
 _NOT_PORTED = {
-    "-profminpost": "full-readback/BackwardMatrix",
-    "-profmaxmem": "sampled-profile and DAG x DAG merges",
-    "-keepgapsopen": "sampled-profile and DAG x DAG merges",
-    "-nobest": "sampled-profile and DAG x DAG merges",
     "-ancseq": "counts/fit/-ancseq", "-ancprob": "counts/fit/-ancseq",
-    "-refine": "MCMC/refiner", "-mcmc": "MCMC/refiner",
-    "-profminlen": "sampled-profile and DAG x DAG merges",
-    "-profmaxlen": "sampled-profile and DAG x DAG merges",
+    "-mcmc": "MCMC/refiner",
     "-savedot": "full-readback/BackwardMatrix",
     "-dotpost": "full-readback/BackwardMatrix",
     "-dotgapsopen": "full-readback/BackwardMatrix",
@@ -80,6 +83,12 @@ _NOT_PORTED = {
         "-fixguide")},
     "-mesh": "multi-GPU",
 }
+#: the other commands of the JAX CLI, by alias, and the ROADMAP item each waits for
+_COMMANDS = {"c": "count", "count": "count", "f": "fit", "fit": "fit", "m": "mcmc",
+             "mcmc": "mcmc", "s": "sum", "sum": "sum", "g": "generate", "generate": "generate"}
+_COMMAND_ITEMS = {"count": "item 4, counts/fit/-ancseq", "sum": "item 4, counts/fit/-ancseq",
+                  "fit": "item 4, counts/fit/-ancseq", "mcmc": "item 6, MCMC/refiner",
+                  "generate": "item 5, generate"}
 _MODEL_PARAMS = ("-insrate", "-delrate", "-insextprob", "-delextprob", "-inslen",
                  "-dellen", "-gaprate", "-gapextprob", "-gaplen", "-subscale",
                  "-indelscale", "-scale")
@@ -88,6 +97,7 @@ _FORMATS = {"fasta": FORMAT_FASTA, "nexus": FORMAT_NEXUS,
 
 
 def _parse(recon: Reconstructor, argvec: deque) -> None:
+    posteriors = refine = False
     while argvec:
         arg = argvec.popleft()
 
@@ -99,8 +109,11 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
         if arg in _NOT_PORTED:
             raise not_ported(f"option {arg}", _NOT_PORTED[arg])
         env = recon.diag_env_params
-        if arg == "-norefine":
-            pass  # -refine is not ported, so the merge never refines
+        if arg in ("-refine", "-norefine"):
+            refine = arg == "-refine"
+        elif arg == "-profminpost":
+            float(take())
+            posteriors = True
         elif arg in ("-rndspan", "-allspan"):
             recon.guide_align_try_all_pairs = arg == "-allspan"
         elif arg in ("-upgma", "-nj"):
@@ -170,14 +183,30 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.max_distance_from_guide = -1
         elif arg == "-profsamples":
             recon.profile_samples = int(take())
+            posteriors = False
         elif arg == "-profmaxstates":
             recon.profile_node_limit = int(take())
+        elif arg == "-profmaxmem":
+            recon.max_dp_memory_fraction = float(take()) / 100.0
+            recon.profile_node_limit = 0
+        elif arg in ("-profminlen", "-profmaxlen"):
+            # accepted and unused, as in the JAX package (ROADMAP section 3,
+            # "Faults found in the reference")
+            int(take())
+        elif arg == "-nobest":
+            recon.include_best_trace_in_profile = False
+        elif arg == "-keepgapsopen":
+            recon.keep_gaps_open = True
         elif arg == "-seed":
             recon.rnd_seed = int(take())
         elif not arg.startswith("-"):
             recon.load_auto(arg)
         else:
             raise SystemExit(f"{PROG}: unknown option {arg!r} (try '{PROG} help')")
+    if posteriors:
+        raise not_ported("option -profminpost", "full-readback/BackwardMatrix")
+    if refine:
+        raise not_ported("option -refine", "MCMC/refiner")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -199,8 +228,9 @@ def main(argv: list[str] | None = None) -> int:
     command, rest = argv[0], argv[1:]
     if command in ("r", "recon", "reconstruct"):
         command = "recon"
-    elif command in ("c", "count", "f", "fit", "m", "mcmc", "s", "sum", "g", "generate"):
-        raise not_ported(f"the {command!r} command", "counts/fit/-ancseq and MCMC/refiner")
+    elif command in _COMMANDS:
+        name = _COMMANDS[command]
+        raise not_ported(f"the {name!r} command", _COMMAND_ITEMS[name])
     else:
         rest = argv  # no command word: reconstruct
     devmod.select(platform)

@@ -21,15 +21,20 @@ A merge fills in one of three ways, tried in order:
 - `_fill_device`: every chain-x merge runs the resident fill and trace
   walks of ops/devicedp.py on the selected device (K1 or K2 and the
   walker on the card, their plain PyTorch versions on the CPU);
-- `_fill_native`: the native host fill (csrc/fill.cpp), for merges with
-  an empty profile, which the device route leaves to the host;
+- `_fill_native`: the native host fill (csrc/fill.cpp), for merges whose
+  x is not a chain (a sampled profile: the JAX package keeps DAG x DAG
+  merges on the host by default) or with an empty profile; their traces
+  are walked on the host (`sample_trace`, `best_trace`);
 - the python fill below, when the native runtime is off.
 
-The JAX package's fill router (its dispatch probes, host-rate
-bookkeeping and the mesh-sharded `_fill_sp`) is not ported.  Merges that
-the port cannot run yet raise NotImplementedError naming their ROADMAP
-item.  Graph surgery (profile construction, chain collapse) stays on the
-host.
+`FILLS` counts the fills on each route.  Either route's sampled traces
+take the run's mt19937 draws in the reference's order.  The JAX
+package's fill router (its dispatch probes, host-rate bookkeeping, the
+cost model `merge_on_device` and the mesh-sharded `_fill_sp`) is not
+ported: on the device, every chain-x merge fills there.  Full-band
+consumers of a merge (BackwardMatrix, counts) raise NotImplementedError
+naming their ROADMAP item.  Graph surgery (profile construction, chain
+collapse) stays on the host.
 """
 
 from __future__ import annotations
@@ -70,6 +75,14 @@ from historian_tpu_torch.utils.rng import MT19937
 
 NEG_INF = -np.inf
 
+#: fills of ForwardMatrix by route, band-doubling retries included:
+#: "device" (K1 or K2 and the walker) or "host" (csrc/fill.cpp, or the
+#: python fill, with host walks)
+FILLS = {"device": 0, "host": 0}
+#: sampled traces walked on each route, and the mt19937 uniforms that
+#: sample_profile consumed for them
+SAMPLED = {"device_walks": 0, "host_walks": 0, "draws": 0}
+
 # ProfilingStrategy flags (reference forward.h:42-46)
 KEEP_ALL = 0
 COLLAPSE_CHAINS = 1
@@ -107,6 +120,15 @@ def _edge_arrays(profile: Profile):
         srcs.append(np.array([profile.trans[t].src for t in st.in_trans], dtype=np.int64))
         lps.append(np.array([profile.trans[t].lp for t in st.in_trans]))
     return srcs, lps
+
+
+def _emit_row(rows: np.ndarray, state: int) -> int:
+    """rows[state], the state's row among the emit states; -1 marks a
+    state that emits nothing, and looking one up is a fault."""
+    r = int(rows[state])
+    if r < 0:
+        raise IndexError(f"state {state} emits nothing: it has no absorb row")
+    return r
 
 
 def _lse_rows(*rows):
@@ -435,7 +457,6 @@ class ForwardMatrix(DPMatrix):
         self._defer_cells = defer_cells
         self._trace_handle = None
         self._trace_values: dict = {}
-        self._prefetched = None  # (n_samples, include_best, raw device tuple)
         self._fill()
 
     #: lp_end is a plain attribute on every path except the device-
@@ -458,17 +479,6 @@ class ForwardMatrix(DPMatrix):
         if self._lp_end is None:
             self._trace_handle.dispatch_lp_end()
 
-    def prefetch_traces(self, n_samples: int, include_best: bool, rng) -> None:
-        """Enqueue this merge's traceback walk on device without reading
-        it back, consuming the merge's single mt19937 draw NOW (so draw
-        order is fixed by prefetch order).  sample_profile/_device_traces
-        pick the walk up when they run."""
-        if self._trace_handle is None:
-            return
-        seed = rng.next_u32() if (rng is not None and n_samples) else 0
-        raw = self._trace_handle.dispatch_traces(n_samples, include_best, seed)
-        self._prefetched = (n_samples, include_best, raw)
-
     def _trans18(self) -> np.ndarray:
         h = self.hmm
         return np.array(
@@ -481,17 +491,15 @@ class ForwardMatrix(DPMatrix):
 
     def _fill_device(self) -> bool:
         """The fill on the selected device, for every merge whose x is a
-        chain (every leaf merge and every `-fast` merge): the cells stay
-        on the device, tracebacks are walked there, and only the visited
-        cells come back (`_device_traces`).  False for an empty profile,
-        which has no grid; the merge then fills on the host."""
-        if self.x_empty or self.y_empty:
+        chain (every leaf merge, every `-fast` merge, and a chain x against
+        a sampled-profile y): the cells stay on the device, tracebacks are
+        walked there, and only the visited cells come back
+        (`_device_traces`).  False for an empty profile, which has no grid,
+        and for an x that is not a chain (a sampled profile), as the JAX
+        package routes DAG x DAG merges by default: the merge then fills
+        on the host and walks there."""
+        if self.x_empty or self.y_empty or self.x.as_chain() is None:
             return False
-        if self.x.as_chain() is None:
-            raise NotImplementedError(
-                "merge with a non-chain x profile (sampled-profile or DAG x DAG "
-                "merges, ROADMAP queue 1 item 'sampled-profile and DAG x DAG merges')"
-            )
         if not self._defer_cells or self.sumprod is not None:
             raise NotImplementedError(
                 "full-band consumers of a merge (BackwardMatrix, counts) are not "
@@ -557,7 +565,9 @@ class ForwardMatrix(DPMatrix):
     # ------------------------------------------------------------------- fill
     def _fill(self) -> None:
         if self._fill_device():
+            FILLS["device"] += 1
             return
+        FILLS["host"] += 1
         if self._fill_native():
             return
         self.cells = bufpool.get(self._pool_role, (self.x_size, self.y_size, 5), self)
@@ -782,20 +792,15 @@ class ForwardMatrix(DPMatrix):
 
     def _device_traces(self, n_samples: int, include_best: bool, rng) -> list:
         """Walk traces on device (ops/tracedp.py).  Returns host paths in
-        the host layout: [(i, j, s), ..., end_cell], start->end.  Visited
-        cell values land in _trace_values for make_profile.  Consumes ONE
-        mt19937 draw to key the device RNG (deterministic per seed; not
-        draw-for-draw identical to the host walk, which an f32
-        accelerator fill could not be anyway)."""
-        pre = self._prefetched
-        if pre is not None and pre[0] == n_samples and pre[1] == include_best:
-            self._prefetched = None  # one-shot (draw already consumed)
-            traces = self._trace_handle.collect_traces(pre[2], n_samples, include_best)
-        else:
-            seed = rng.next_u32() if (rng is not None and n_samples) else 0
-            _, traces = self._trace_handle.lp_end_and_traces(
-                n_samples, include_best, seed
-            )
+        the host layout: [(i, j, s), ..., end_cell], start->end, the best
+        first.  Visited cell values land in _trace_values for make_profile.
+        The sampled walks take the generator's next uniforms in order, as
+        n_samples host walks would (a walk draws len(path) - 1 times), but
+        the generator is not moved: the caller advances it by the draws of
+        the walks it keeps."""
+        uniforms = rng.uniforms_ahead(n_samples * self._trace_handle.n_steps_max) \
+            if n_samples else None
+        _, traces = self._trace_handle.lp_end_and_traces(n_samples, include_best, uniforms)
         out = []
         for cells_, vals in traces:
             path = [tuple(c) for c in cells_] + [self.end_cell]
@@ -1271,13 +1276,13 @@ class ForwardMatrix(DPMatrix):
                     i, j, s = c
                     if s == IMM:
                         st.lp_absorb = (
-                            self.subx_lp[self._subx_row[i]]
-                            + self.suby_lp[self._suby_row[j]]
+                            self.subx_lp[_emit_row(self._subx_row, i)]
+                            + self.suby_lp[_emit_row(self._suby_row, j)]
                         )
                     elif s == IMD:
-                        st.lp_absorb = self.subx_lp[self._subx_row[i]].copy()
+                        st.lp_absorb = self.subx_lp[_emit_row(self._subx_row, i)].copy()
                     elif s == IDM:
-                        st.lp_absorb = self.suby_lp[self._suby_row[j]].copy()
+                        st.lp_absorb = self.suby_lp[_emit_row(self._suby_row, j)].copy()
                 st.align_path = self.cell_align_path(c)
                 st.seq_coords = self.cell_seq_coords(c)
                 st.name = self.cell_name(c)
@@ -1386,15 +1391,15 @@ class ForwardMatrix(DPMatrix):
         assert (strategy & INCLUDE_BEST_TRACE) or profile_samples > 0
         n_traces = 0
         if self._trace_handle is not None:
-            # device-resident fill: all traces walked in one dispatch,
-            # then the host accumulation below is applied in trace order
-            # (same accept/threshold semantics; the max_cells early-stop
-            # discards surplus traces instead of never walking them).
+            # device-resident fill: the best and all sampled traces walked
+            # in one launch on the generator's next draws, then the host
+            # loop's acceptance below in trace order (the max_cells early
+            # stop and the length break discard the surplus walks), and
+            # the generator moved past the draws of exactly the walks the
+            # host loop would have made, the rejected one included.
             # max_cells == 1 with a best trace is the -fast preset: the
-            # best trace alone always satisfies the budget, so the host
-            # loop samples NOTHING -- skip the sampled walks entirely
-            # (each is a full sequential path walk on device) and draw
-            # no rng, exactly like the host path.
+            # best trace alone fills the budget, so the host loop samples
+            # nothing -- walk no sampled trace and draw nothing.
             include_best = bool(strategy & INCLUDE_BEST_TRACE)
             n_eff = 0 if (max_cells == 1 and include_best) else profile_samples
             paths = self._device_traces(n_eff, include_best, rng)
@@ -1405,11 +1410,13 @@ class ForwardMatrix(DPMatrix):
                 n_traces += 1
                 k0 = 1
             n_accepted = 0
+            n_draws = 0
             for sampled in paths[k0:]:
                 if n_accepted >= profile_samples or (
                     max_cells != 0 and len(cell_count) >= max_cells
                 ):
                     break
+                n_draws += len(sampled) - 1
                 anc_len = sum(1 for c in sampled if c[2] in (IMM, IDM, IMD))
                 if anc_len < min_len or anc_len > max_len:
                     break
@@ -1417,6 +1424,10 @@ class ForwardMatrix(DPMatrix):
                     cell_count[c] = cell_count.get(c, 0) + 1
                 n_traces += 1
                 n_accepted += 1
+            if n_draws:
+                rng.advance_uniforms(n_draws)
+            SAMPLED["device_walks"] += len(paths) - k0
+            SAMPLED["draws"] += n_draws
         else:
             if strategy & INCLUDE_BEST_TRACE:
                 for c in self.best_trace():
@@ -1425,6 +1436,8 @@ class ForwardMatrix(DPMatrix):
             n_accepted = 0
             while n_accepted < profile_samples and (max_cells == 0 or len(cell_count) < max_cells):
                 sampled = self.sample_trace(rng)
+                SAMPLED["host_walks"] += 1
+                SAMPLED["draws"] += len(sampled) - 1
                 anc_len = sum(1 for c in sampled if c[2] in (IMM, IDM, IMD))
                 if anc_len < min_len or anc_len > max_len:
                     break

@@ -36,10 +36,10 @@ _SIGNATURES = {
     # strips of K1's width that can be resident at once
     "colforward_capacity": [],
     # planes, SY, SX, y_src, y_lp, KY, y_null, tx, t6, xe_src, xe_lp,
-    # ye_src, ye_lp, KE, uniforms, is_best, T, L, pi, pj, ps, vals,
+    # ye_src, ye_lp, KE, uniforms, n_best, T, L, pi, pj, ps, vals,
     # n_steps, stream
     "pairtrace": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
-                  _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+                  _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # y_src, y_lp, y_flags, ey, ex_t, xvec, params, lanes, progress, rec, out,
     # SY, SX, KY, CA, NS, stream
     "colforward_fused": [_P] * 11 + [_I] * 5 + [_P],

@@ -227,30 +227,28 @@ class TorchTraceFill:
             self._lp_end = -np.inf if v < NEG_CUTOFF else v
         return self._lp_end
 
-    def dispatch_traces(self, n_samples: int, include_best: bool, seed: int):
-        """Enqueue include_best + n_samples walks in one launch; the
-        sampled walks draw their uniforms from a torch.Generator seeded
-        with the merge's single mt19937 draw."""
+    def dispatch_traces(self, n_samples: int, include_best: bool, uniforms=None):
+        """Enqueue the best walk and n_samples sampled walks in one launch.
+        The sampled walks take their draws in order from `uniforms`, the
+        run's next mt19937 uniforms (float64, at least n_samples x
+        n_steps_max of them), copied to the device in the fill dtype."""
         dev, dtype = self.planes.device, self.planes.dtype
-        T = max(n_samples + (1 if include_best else 0), 1)
         if n_samples:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed))
-            u = torch.rand((T, self.n_steps_max), generator=gen, device=dev, dtype=dtype)
+            u = torch.as_tensor(np.asarray(uniforms)[: n_samples * self.n_steps_max],
+                                dtype=dtype).to(dev)
         else:
-            u = torch.zeros((T, self.n_steps_max), device=dev, dtype=dtype)
-        best = torch.zeros(T, dtype=torch.bool, device=dev)
-        best[0] = include_best
+            u = torch.zeros(1, dtype=dtype, device=dev)
         w = self.walk
         return pair_trace(
             self.planes, w["y_src"], w["y_lp"], w["y_null"], w["tx"], w["t6"],
-            w["xe_src"], w["xe_lp"], w["ye_src"], w["ye_lp"], u, best,
-            self.n_steps_max,
+            w["xe_src"], w["xe_lp"], w["ye_src"], w["ye_lp"], u, include_best,
+            n_samples, self.n_steps_max,
         )
 
     def collect_traces(self, raw, n_samples: int, include_best: bool):
         """Read a dispatch_traces result back: a list of (cells, vals)
-        start->end (END excluded), best first when include_best."""
+        start->end (END excluded), best first when include_best.  A walk's
+        draws are its step count, len(cells)."""
         T = n_samples + (1 if include_best else 0)
         pi, pj, ps, vals, n_steps, lp = (x.cpu().numpy() for x in raw)
         vals = vals.astype(np.float64)
@@ -266,8 +264,8 @@ class TorchTraceFill:
             traces.append((cells, vals[t, :n][::-1]))
         return traces
 
-    def lp_end_and_traces(self, n_samples: int, include_best: bool, seed: int):
-        raw = self.dispatch_traces(n_samples, include_best, seed)
+    def lp_end_and_traces(self, n_samples: int, include_best: bool, uniforms=None):
+        raw = self.dispatch_traces(n_samples, include_best, uniforms)
         traces = self.collect_traces(raw, n_samples, include_best)
         return self.lp_end, traces
 

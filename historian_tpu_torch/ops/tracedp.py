@@ -9,13 +9,20 @@ exactly:
 - y-move rows first (in-edges sorted by source by the bridge, s' inner),
   then the x-move row, i.e. the host's sorted candidate order;
 - best traces take the first maximum (strict >);
-- sampled traces take the first candidate whose running weight sum
-  reaches u * ptot, with weights exp(lp - lpmax);
 - the first step leaves the EEE cell through the end in-edges.
 
+Sampled traces follow the host's walk instead (DPMatrix.sample_cell,
+ForwardMatrix.sample_trace), so that they take the run's mt19937 draws
+one for one: weights exp(lp - lpmax), ptot summed in candidate order, p
+= u * ptot, then p -= w_k in order, the first candidate of positive
+weight with p <= 0 wins.  A walk draws once a step, the EEE step
+included, so it takes n_steps draws; the sampled walks run one after
+another over one 1-D draw buffer, each from where the one before
+stopped.
+
 Returns pi, pj, ps [T, L] int32 (post-step cells, end->start, -1 after
-the start cell), vals [T, L] (cell value per step, NEG after), n_steps
-[T] int32 and lp_end (a 0-d tensor).
+the start cell; the best walk first), vals [T, L] (cell value per step,
+NEG after), n_steps [T] int32 and lp_end (a 0-d tensor).
 """
 
 from __future__ import annotations
@@ -61,93 +68,108 @@ def end_lp(planes, t6, xe_src, xe_lp, ye_src, ye_lp):
     return out
 
 
-def _pick(cand_lp, u, best):
-    """Index per row of cand_lp [T, M]: first max for best rows, else the
-    first index whose weight cumsum reaches u * ptot."""
-    lpmax = cand_lp.max(dim=1, keepdim=True).values
-    w = torch.exp(cand_lp - lpmax)
-    p = u * w.sum(dim=1)
-    k_samp = torch.argmax((torch.cumsum(w, dim=1) >= p[:, None]).to(torch.int8), dim=1)
-    k_best = torch.argmax(cand_lp, dim=1)
-    return torch.where(best, k_best, k_samp)
+def sampled_index(w, u) -> int:
+    """The host's sampled pick (DPMatrix.sample_cell) over the weights w
+    of one step, in candidate order, in w's own precision: ptot summed
+    left to right, p = u * ptot, then p -= w_k in that order; the first
+    k with w_k > 0 and p <= 0 wins.  A zero weight never wins (where p
+    stays above 0 by rounding, the last positive weight does)."""
+    zero = w.dtype.type(0)
+    ptot = zero
+    for x in w:
+        ptot = ptot + x
+    p = w.dtype.type(u) * ptot
+    last = 0
+    for k, x in enumerate(w):
+        p = p - x
+        if x > zero:
+            if p <= zero:
+                return k
+            last = k
+    return last
 
 
-def pair_trace_plain(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp,
-                     ye_src, ye_lp, uniforms, is_best, n_steps_max: int):
-    """Plain PyTorch walker, vectorized over the T traces."""
+def _pick(cand_lp, u):
+    """Index into cand_lp [M]: the first maximum for a best walk (u None),
+    else the host's sampled pick with the weights exp(lp - lpmax)."""
+    if u is None:
+        return int(torch.argmax(cand_lp))
+    w = torch.exp(cand_lp - cand_lp.max())
+    return sampled_index(w.cpu().numpy(), u)
+
+
+def _walk_plain(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp, ye_src, ye_lp,
+                u, L: int):
+    """One walk from the end cell to (0, 0): best when u is None, else
+    sampled with draw n of the step after n steps from u (host floats).
+    Returns (pi, pj, ps) lists of the post-step cells, end->start."""
     dev, dtype = planes.device, planes.dtype
-    T = is_best.shape[0]
-    L = n_steps_max
-    KY = y_src.shape[1]
     gate = source_gate(dtype, dev)
-    sp = torch.arange(5, device=dev)
-    rows = torch.arange(T, device=dev)
+    KY = y_src.shape[1]
 
     # ---- EEE step: the end-transition candidates ----
-    KE = ye_src.shape[0]
     e_cell = _cells(planes, ye_src, torch.full_like(ye_src, int(xe_src)))
     e_lp = torch.clamp_min(
         ye_lp[:, None] + t6[:5, EEE][None, :] + xe_lp + e_cell, NEG
     ).reshape(-1)
-    e_j = ye_src.long().repeat_interleave(5)
-    e_s = sp.repeat(KE)
-    k0 = _pick(e_lp[None, :].expand(T, -1), uniforms[:, 0], is_best)
-    i = torch.full((T,), int(xe_src), dtype=torch.long, device=dev)
-    j = e_j[k0]
-    s = e_s[k0]
+    k = _pick(e_lp, None if u is None else u[0])
+    i, j, s = int(xe_src), int(ye_src[k // 5]), k % 5
+    path = [(i, j, s)]
+    while len(path) < L and not (i == 0 and j == 0):
+        ys = y_src[j].long()
+        ynul = bool(y_null[j])
+        txi = tx[i]
+        t6_s = t6[:5, s]  # trans6[s', s]
+        if s in (IMM, IDM, IMI):  # y-moves live
+            if ynul:
+                sp = IMM if s == IMM else s
+                y_cand_lp = torch.full((KY, 5), NEG, dtype=dtype, device=dev)
+                y_cand_lp[:, sp] = y_lp[j]
+            elif s == IMM:
+                y_cand_lp = y_lp[j][:, None] + (gate[IMM] + t6[:5, IMM] + txi)[None, :]
+            else:
+                y_cand_lp = y_lp[j][:, None] + (gate[s] + t6_s)[None, :]
+            y_i = i - 1 if (s == IMM and not ynul) else i
+            y_cell = planes[:, ys, max(y_i, 0)].T  # [KY, 5]
+            y_cand = torch.clamp_min(y_cand_lp + y_cell, NEG).reshape(-1)
+            x_cand = torch.full((5,), NEG, dtype=dtype, device=dev)
+        else:  # x-moves live
+            y_i = i
+            y_cand = torch.full((KY * 5,), NEG, dtype=dtype, device=dev)
+            x_cand = torch.clamp_min(gate[s] + t6_s + txi + planes[:, j, max(i - 1, 0)], NEG)
+        k = _pick(torch.cat([y_cand, x_cand]), None if u is None else u[len(path)])
+        if k < KY * 5:
+            i, j = y_i, int(ys[k // 5])
+        else:
+            i = i - 1
+        s = k % 5
+        path.append((i, j, s))
+    return path
 
-    pi = torch.full((T, L), -1, dtype=torch.int32, device=dev)
-    pj = torch.full_like(pi, -1)
-    ps = torch.full_like(pi, -1)
-    pi[:, 0], pj[:, 0], ps[:, 0] = i, j, s
-    done = (i == 0) & (j == 0)
-    n = 0
-    while n + 1 < L and not bool(done.all()):
-        ys = y_src[j].long()  # [T, KY]
-        yl = y_lp[j]
-        ynul = y_null[j]
-        is_imm = s == IMM
-        null_ok = sp[None, :] == torch.where(is_imm, IMM, s)[:, None]  # [T, 5]
-        t6_s = t6[:5][:, s].T  # [T, 5]: trans6[s', s]
-        txi = tx[i][:, None]
-        emit_lp = torch.where(
-            is_imm[:, None],
-            gate[IMM][None, :] + t6[:5, IMM][None, :] + txi,
-            gate[s] + t6_s,
-        )
-        y_cand_lp = torch.where(
-            ynul[:, None, None],
-            torch.where(null_ok[:, None, :], yl[:, :, None], NEG),
-            yl[:, :, None] + emit_lp[:, None, :],
-        )  # [T, KY, 5]
-        y_i = torch.where(is_imm & ~ynul, i - 1, i)
-        y_cell = _cells(planes, ys, torch.clamp_min(y_i, 0)[:, None].expand(-1, KY))
-        y_cand = torch.clamp_min(y_cand_lp + y_cell, NEG)
-        y_live = (s == IMM) | (s == IDM) | (s == IMI)
-        y_cand = torch.where(y_live[:, None, None], y_cand, NEG)
 
-        x_cand_lp = gate[s] + t6_s + txi
-        x_cell = _cells(planes, j, torch.clamp_min(i - 1, 0))  # [T, 5]
-        x_cand = torch.clamp_min(x_cand_lp + x_cell, NEG)
-        x_live = (s == IMD) | (s == IIW)
-        x_cand = torch.where(x_live[:, None], x_cand, NEG)
-
-        cand_lp = torch.cat([y_cand.reshape(T, -1), x_cand], dim=1)
-        k = _pick(cand_lp, uniforms[:, n + 1], is_best)
-        from_y = k < KY * 5
-        ky = torch.clamp_max(k // 5, KY - 1)
-        ni = torch.where(from_y, y_i, i - 1)
-        nj = torch.where(from_y, ys[rows, ky], j)
-        ns = k % 5
-        ni = torch.where(done, i, ni)
-        nj = torch.where(done, j, nj)
-        ns = torch.where(done, s, ns)
-        pi[:, n + 1] = torch.where(done, -1, ni).to(torch.int32)
-        pj[:, n + 1] = torch.where(done, -1, nj).to(torch.int32)
-        ps[:, n + 1] = torch.where(done, -1, ns).to(torch.int32)
-        done = done | ((ni == 0) & (nj == 0))
-        i, j, s = ni, nj, ns
-        n += 1
+def pair_trace_plain(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp,
+                     ye_src, ye_lp, uniforms, include_best: bool, n_samples: int,
+                     n_steps_max: int):
+    """Plain PyTorch walker: the best walk, then the sampled walks in order,
+    walk t reading its draws from where walk t - 1 stopped."""
+    dev, dtype = planes.device, planes.dtype
+    L = n_steps_max
+    u_host = uniforms.cpu().numpy()
+    paths, off = [], 0
+    if include_best:
+        paths.append(_walk_plain(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp,
+                                 ye_src, ye_lp, None, L))
+    for _ in range(n_samples):
+        path = _walk_plain(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp,
+                           ye_src, ye_lp, u_host[off:], L)
+        off += len(path)
+        paths.append(path)
+    T = len(paths)
+    cells = torch.full((T, L, 3), -1, dtype=torch.int32)
+    for t, path in enumerate(paths):
+        cells[t, : len(path)] = torch.tensor(path, dtype=torch.int32)
+    cells = cells.to(dev)
+    pi, pj, ps = (cells[..., q].contiguous() for q in range(3))
     n_steps = (pi >= 0).sum(dim=1).to(torch.int32)
     all5 = _cells(planes, torch.clamp_min(pj, 0), torch.clamp_min(pi, 0))  # [T, L, 5]
     vals = all5.gather(-1, torch.clamp_min(ps, 0).long()[..., None])[..., 0]
@@ -157,19 +179,18 @@ def pair_trace_plain(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp,
 
 
 def _check_inputs(planes, y_src, y_lp, y_null, tx, t6, ye_src, ye_lp,
-                  uniforms, is_best, n_steps_max):
+                  uniforms, include_best, n_samples, n_steps_max):
     _, SY, SX = planes.shape
     dt, dev = planes.dtype, planes.device
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"planes must be float32 or float64, got {dt}")
-    T = is_best.shape[0]
     KY, KE = y_src.shape[1], ye_src.shape[0]
     want = {
         "planes": (planes, (5, SY, SX), dt), "y_src": (y_src, (SY, KY), torch.int32),
         "y_lp": (y_lp, (SY, KY), dt), "y_null": (y_null, (SY,), torch.bool),
         "tx": (tx, (SX,), dt), "t6": (t6, (6, 6), dt),
         "ye_src": (ye_src, (KE,), torch.int32), "ye_lp": (ye_lp, (KE,), dt),
-        "uniforms": (uniforms, (T, n_steps_max), dt), "is_best": (is_best, (T,), torch.bool),
+        "uniforms": (uniforms, tuple(uniforms.shape[:1]), dt),
     }
     for name, (t, shape, tdt) in want.items():
         if tuple(t.shape) != shape or t.dtype != tdt:
@@ -178,20 +199,26 @@ def _check_inputs(planes, y_src, y_lp, y_null, tx, t6, ye_src, ye_lp,
             raise ValueError(f"{name} is on {t.device}, planes on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if T < 1 or KE < 1 or n_steps_max < 1:
-        raise ValueError(f"empty walk: T={T} KE={KE} L={n_steps_max}")
+    if n_samples < 0 or int(include_best) + n_samples < 1 or KE < 1 or n_steps_max < 1:
+        raise ValueError(f"empty walk: best={include_best} samples={n_samples} KE={KE} "
+                         f"L={n_steps_max}")
+    if uniforms.shape[0] < n_samples * n_steps_max:
+        raise ValueError(f"uniforms: {uniforms.shape[0]} draws, the sampled walks may "
+                         f"take {n_samples} x {n_steps_max}")
 
 
 def pair_trace(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp, ye_src,
-               ye_lp, uniforms, is_best, n_steps_max: int):
-    """The walker: the plain version for CPU tensors, the CUDA kernel (one
-    warp per trace) for CUDA tensors.  Any other device raises."""
+               ye_lp, uniforms, include_best: bool, n_samples: int, n_steps_max: int):
+    """The walker: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (the best walk in one block, the sampled walks one after
+    another in a second, each from where the one before stopped in the
+    1-D draw buffer `uniforms`).  Any other device raises."""
     global LAUNCHES
     _check_inputs(planes, y_src, y_lp, y_null, tx, t6, ye_src, ye_lp,
-                  uniforms, is_best, n_steps_max)
+                  uniforms, include_best, n_samples, n_steps_max)
     dev = planes.device
     args = (planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp, ye_src,
-            ye_lp, uniforms, is_best, n_steps_max)
+            ye_lp, uniforms, include_best, n_samples, n_steps_max)
     if dev.type == "cpu":
         return pair_trace_plain(*args)
     if dev.type != "cuda":
@@ -199,7 +226,8 @@ def pair_trace(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp, ye_src,
     from historian_tpu_torch.ops import _kernels
 
     _, SY, SX = planes.shape
-    T, L = uniforms.shape
+    n_best = int(bool(include_best))
+    T, L = n_best + n_samples, n_steps_max
     xe = torch.as_tensor(xe_lp, dtype=planes.dtype, device=dev).reshape(1)
     pi = torch.empty((T, L), dtype=torch.int32, device=dev)
     pj = torch.empty_like(pi)
@@ -213,7 +241,7 @@ def pair_trace(planes, y_src, y_lp, y_null, tx, t6, xe_src, xe_lp, ye_src,
         code = fn(planes.data_ptr(), SY, SX, y_src.data_ptr(), y_lp.data_ptr(),
                   y_src.shape[1], y_null.data_ptr(), tx.data_ptr(), t6.data_ptr(),
                   int(xe_src), xe.data_ptr(), ye_src.data_ptr(), ye_lp.data_ptr(),
-                  ye_src.shape[0], uniforms.data_ptr(), is_best.data_ptr(), T, L,
+                  ye_src.shape[0], uniforms.data_ptr(), n_best, T, L,
                   pi.data_ptr(), pj.data_ptr(), ps.data_ptr(), vals.data_ptr(),
                   n_steps.data_ptr(), stream)
     _kernels.check(code, "pairtrace")

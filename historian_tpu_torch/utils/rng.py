@@ -64,3 +64,29 @@ class MT19937:
         if ret >= 1.0:  # libstdc++ clamps to nextafter(1, 0)
             ret = 0.9999999999999999
         return a + ret * (b - a)
+
+    def _numpy_twin(self):
+        """A numpy.random.MT19937 in this generator's state."""
+        import numpy as np
+
+        bits = np.random.MT19937()
+        bits.state = {"bit_generator": "MT19937",
+                      "state": {"key": np.array(self.mt, dtype=np.uint32), "pos": self.mti}}
+        return bits
+
+    def uniforms_ahead(self, n: int):
+        """The next n uniform() draws as a float64 array, bit for bit,
+        without moving the generator (drawn in bulk by numpy's MT19937)."""
+        import numpy as np
+
+        raw = self._numpy_twin().random_raw(2 * n).astype(np.float64)
+        ret = (raw[0::2] + raw[1::2] * 4294967296.0) / 18446744073709551616.0
+        return np.where(ret >= 1.0, 0.9999999999999999, ret)
+
+    def advance_uniforms(self, n: int) -> None:
+        """Move the generator past n uniform() calls."""
+        bits = self._numpy_twin()
+        bits.random_raw(2 * n)
+        state = bits.state["state"]
+        self.mt = [int(v) for v in state["key"]]
+        self.mti = int(state["pos"])

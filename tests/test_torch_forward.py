@@ -71,11 +71,20 @@ def test_chain_x_against_sampled_dag_y(cpu64):
 
 
 def test_non_chain_x_is_not_ported(cpu64):
+    """A non-chain x (a sampled profile) is not a merge for the device
+    route: like the JAX package's default, it fills on the host
+    (csrc/fill.cpp), counted there, and walks its traces there."""
     model, (a, b, c) = leaves(PORT, 3, 60)
     hmm = pair_hmm(PORT, model, 0.3, 0.2)
     dag = host_forward(PORT, a, b, hmm, 3).sample_profile(PORT.rng.MT19937(7), 10, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PORT.forward.ForwardMatrix(dag, c, hmm, 4, defer_cells=True)
+    assert dag.as_chain() is None
+    fills = dict(PORT.forward.FILLS)
+    fwd = PORT.forward.ForwardMatrix(dag, c, hmm, 4, defer_cells=True)
+    assert fwd._trace_handle is None and fwd.cells is not None
+    assert PORT.forward.FILLS == dict(fills, host=fills["host"] + 1)
+    assert fwd.lp_end > -np.inf
+    path = fwd.best_trace()
+    assert path[0] == fwd.start_cell and path[-1] == fwd.end_cell
 
 
 def test_empty_x_takes_the_host_fill(cpu64):
@@ -95,9 +104,9 @@ def test_empty_x_takes_the_host_fill(cpu64):
 
 
 def test_sampled_walks_are_host_paths(cpu64):
-    """Sampled traces (uniforms from a torch.Generator seeded by one
-    mt19937 draw) are valid paths of the host DP: every step a candidate
-    of the host's traceback, every visited value the host cell."""
+    """Sampled traces (the generator's next uniforms, in order) are valid
+    paths of the host DP: every step a candidate of the host's traceback,
+    every visited value the host cell."""
     x, y, hmm = _merge(JAX, 2, 120, (0.5, 0.5))
     host = JAX.forward.ForwardMatrix(x, y, hmm, 2)
     x, y, hmm = _merge(PORT, 2, 120, (0.5, 0.5))

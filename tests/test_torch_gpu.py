@@ -8,6 +8,8 @@ it also runs where only PyTorch is installed:
 (`--noconftest`: tests/conftest.py imports jax.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -75,8 +77,7 @@ def test_walker_kernel_matches_plain(cuda):
             torch.as_tensor(rng.normal(-1, 0.5, (6, 6)), **f64), S - 1, -0.3,
             torch.tensor([S - 2, S - 1], dtype=torch.int32, device=cuda),
             torch.tensor([-1.0, -0.5], **f64),
-            torch.as_tensor(rng.random((5, 2 * S)), **f64),
-            torch.tensor([True, False, False, False, False], device=cuda), 2 * S)
+            torch.as_tensor(rng.random(4 * 2 * S), **f64), True, 4, 2 * S)
     before = tracedp.LAUNCHES
     got = tracedp.pair_trace(*walk)
     assert tracedp.LAUNCHES == before + 1
@@ -89,12 +90,14 @@ def test_walker_kernel_matches_plain(cuda):
 def _walk_args(SX, SY, KY, T, dtype, dev, seed=13, exact=False, filled=False):
     """Walker arguments on random planes [5, SY, SX] (a few NEG cells):
     y in-edges up to 6 rows back (KY of them, sorted as the bridge sorts
-    them), nulls when KY > 1, two end in-edges, trace 0 best and the rest
-    sampled.  exact: planes, transitions and edge weights 0, so that every
-    candidate weight is 0 or 1, and uniforms in {0, 1/4, 1/2, 3/4, 1}, so
-    that u * ptot falls exactly on a cumulative weight.  filled: the planes
-    and y side of a K1 fill over the full grid instead, whose NEG cells
-    keep a walk inside the grid on the smallest shapes."""
+    them), nulls when KY > 1, two end in-edges, a best walk and T - 1
+    sampled walks over one buffer of (T - 1) L draws.  exact: planes,
+    transitions and edge weights 0, so that every candidate weight is 0 or
+    1, and uniforms in {0, 1/4, 1/2, 3/4, 1}, so that p = u * ptot falls
+    exactly on 0 after a subtraction (and at u = 0 the first candidate of
+    positive weight must win).  filled: the planes and y side of a K1 fill
+    over the full grid instead, whose NEG cells keep a walk inside the
+    grid on the smallest shapes."""
     rng = np.random.default_rng(seed)
     planes = rng.normal(-8, 3, (5, SY, SX))
     planes[rng.random(planes.shape) < 0.05] = NEG
@@ -113,11 +116,11 @@ def _walk_args(SX, SY, KY, T, dtype, dev, seed=13, exact=False, filled=False):
     tx[0] = 0.0
     xe_lp, ye_lp = -0.3, rng.normal(-1, 0.3, 2)
     L = SX + SY
-    u = rng.random((T, L))
+    u = rng.random(max(T - 1, 1) * L)
     if exact:
         planes[:] = 0.0
         y_lp[:], tx[:], t6[:], ye_lp[:], xe_lp = 0.0, 0.0, 0.0, 0.0, 0.0
-        u = rng.integers(0, 5, (T, L)) / 4
+        u = rng.integers(0, 5, u.shape) / 4
     ws, wl = sorted_walk_edges(y_src.astype(np.int32), y_lp)
 
     def t(a, dt=dtype):
@@ -125,7 +128,7 @@ def _walk_args(SX, SY, KY, T, dtype, dev, seed=13, exact=False, filled=False):
 
     ye = np.array([max(SY - 2, 0), SY - 1], np.int32)
     return (t(planes), t(ws, torch.int32), t(wl), t(y_null, torch.bool), t(tx), t(t6), SX - 1,
-            xe_lp, t(ye, torch.int32), t(ye_lp), t(u), torch.arange(T, device=dev) == 0, L)
+            xe_lp, t(ye, torch.int32), t(ye_lp), t(u), True, T - 1, L)
 
 
 WALK_CASES = {
@@ -170,6 +173,48 @@ def test_walker_cases_match_plain(cuda, name, dtype):
     for what, a, b in zip(("pi", "pj", "ps", "vals", "n_steps"), got[:5], ref[:5]):
         assert torch.equal(a, b), (name, what)
     assert abs(float(got[5]) - float(ref[5])) <= 1e-9 * max(1.0, abs(float(ref[5])))
+
+
+def _long12_first_merge() -> tuple:
+    """(SX, SY) of long12's first merge, t01 x t02: START plus the residues."""
+    from historian_tpu_torch.core.seqs import read_fasta
+
+    seqs = {s.name: s.seq for s in read_fasta(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "long12.fa"))}
+    return len(seqs["t01"]) + 1, len(seqs["t02"]) + 1
+
+
+SAMPLED_CASES = {
+    # name: (SX, SY, KY, T), on filled planes; every case's second sampled
+    # walk starts inside the L draws the first could have taken
+    "long12 first merge": (*_long12_first_merge(), 1, 4),
+    "DAG y, KY 7": (420, 400, 7, 6),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(SAMPLED_CASES))
+def test_walker_sampled_walks_in_order(cuda, name, dtype):
+    """The best walk and T - 1 sampled walks in one launch: the sampled
+    walks one after another over one draw buffer, walk t from where walk
+    t - 1 stopped.  Paths, values and step counts identical to the plain
+    walker's, and each sampled walk the same as one walked alone from its
+    offset."""
+    SX, SY, KY, T = SAMPLED_CASES[name]
+    walk = _walk_args(SX, SY, KY, T, dtype, cuda, seed=21, filled=True)
+    before = tracedp.LAUNCHES
+    got = tracedp.pair_trace(*walk)
+    assert tracedp.LAUNCHES == before + 1
+    ref = tracedp.pair_trace_plain(*walk)
+    for what, a, b in zip(("pi", "pj", "ps", "vals", "n_steps"), got[:5], ref[:5]):
+        assert torch.equal(a, b), (name, what)
+    n_steps = got[4].tolist()
+    L = walk[-1]
+    assert all(0 < n < L for n in n_steps)  # every walk ends at the start cell
+    off = n_steps[1]  # the second sampled walk reads from inside the first's L
+    alone = tracedp.pair_trace(*walk[:10], walk[10][off:].contiguous(), False, 1, L)
+    for a, b in zip(alone[:5], got[:5]):
+        assert torch.equal(a[0], b[2])
 
 
 def _k2_args(S, KY, CA, dtype, dev, seed=4):

@@ -83,12 +83,45 @@ def test_platform_gpu_without_cuda_fails(small4):
         device.select("gpu")
 
 
+def test_band_doubling_ladder_matches_jax(tmp_path, monkeypatch):
+    """small4 `-fast -band 2`: a merge with no path inside the band is
+    filled again with the band doubled; the port (CPU, float64) builds
+    the same fills with the same bands as the JAX package's host route,
+    and prints the same rows and `#=GF LP`."""
+    from historian_tpu_torch import device
+    from tests.torch_twins import count_fills
+
+    fa, nh = write_small4(tmp_path)
+    args = ["-fast", "-band", "2", "-tree", nh, fa]
+    for k, v in (("HISTORIAN_PLATFORM", "cpu"), ("HISTORIAN_DEVICE_DP", "0"),
+                 ("HISTORIAN_DEVICE_DTYPE", "f64")):
+        monkeypatch.setenv(k, v)
+    ref_bands, ref = count_fills("historian_tpu", args)
+    device.select("cpu")
+    bands, got = count_fills("historian_tpu_torch", ["-platform", "cpu", *args])
+    assert bands == ref_bands == [2, 2, 2, 4, 8]
+    ref_rows, ref_lp = rows_and_lp(ref)
+    rows, lp = rows_and_lp(got)
+    assert rows == ref_rows and abs(lp - ref_lp) < 1e-6
+
+
 def test_unported_paths_raise(small4):
     from historian_tpu_torch import cli
 
     args, _ = small4
-    for argv, item in ((args + ["-profmaxstates", "5"], "sampled-profile"),
+    for argv, item in ((args + ["-refine"], "refiner"),
                        (args + ["-ancseq"], "ancseq"),
                        (["-careful", *args[1:]], "BackwardMatrix")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["recon", "-platform", "cpu", *argv])
+
+
+@pytest.mark.parametrize("command,item", [("count", "item 4"), ("fit", "item 4"),
+                                          ("mcmc", "item 6"), ("sum", "item 4"),
+                                          ("generate", "item 5")])
+def test_unported_commands_name_their_item(command, item):
+    """Each command that is not ported raises naming its own ROADMAP item."""
+    from historian_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match=f"'{command}' command .*{item},"):
+        cli.main([command, "-platform", "cpu"])

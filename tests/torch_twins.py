@@ -5,7 +5,9 @@ historian_tpu_torch under the same names, so that a test builds its
 objects from each package's own classes on the same inputs and compares
 the results, and never hands an object of one package to the other."""
 
+import contextlib
 import importlib
+import io
 import os
 from types import SimpleNamespace
 
@@ -59,3 +61,32 @@ def leaves(pkg, n, cut, preset="lg"):
 def pair_hmm(pkg, model, t_l, t_r):
     rm = pkg.ratemodel
     return pkg.pairhmm.PairHMM(rm.ProbModel(model, t_l), rm.ProbModel(model, t_r), model.ins_prob)
+
+
+def count_fills(root: str, args: list) -> tuple:
+    """(bands, stdout) of `recon <args>` of package `root`, run in this
+    process: the band (`max_distance`, -1 without a guide) of every
+    ForwardMatrix that its recon.py builds, band-doubling retries
+    included, in order.  The JAX package takes its host route when
+    HISTORIAN_PLATFORM=cpu and HISTORIAN_DEVICE_DP=0 are set.  On long
+    inputs, give both packages one guide and tree saved by the port
+    (`-saveguide g.sto`, then `-stockholm g.sto`): the JAX package's guide
+    stage on 6000-aa sequences is heavy in memory on the CPU."""
+    recon = importlib.import_module(f"{root}.recon")
+    cli = importlib.import_module(f"{root}.cli")
+    fill, bands = recon.ForwardMatrix, []
+
+    class Counted(fill):
+        def __init__(self, *a, **k):
+            env = a[4] if len(a) > 4 else k.get("env")
+            bands.append(env.max_distance if env is not None and env.initialized else -1)
+            super().__init__(*a, **k)
+
+    recon.ForwardMatrix = Counted
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["recon", *args]) == 0
+    finally:
+        recon.ForwardMatrix = fill
+    return bands, out.getvalue()
