@@ -63,8 +63,24 @@ Phases, each fatal on failure (nothing is caught):
       draws they took; K1 (K2) launches must equal the fills whose x is a
       chain and the host fills those whose x is a sampled profile (a log
       of every fill's x, kept apart from the routes' counters), and some
-      sampled walks must run on the card.
-Prints the kernel table as one JSON line, the card line, and last
+      sampled walks must run on the card;
+  (k) counts, EM and ancestral prediction on (j)'s long12 float32
+      reconstruction (23 rows, more than 6166 columns, so the device fill):
+      `count -stockrecon` and `fit -stockrecon -maxiter 2` on the card and
+      on the CPU, counts and fitted model within 1e-9; `sum` of the two
+      count files; `recon -ancseq -ancprob -stockholm <(j)'s guide>` in
+      float32 on the card, whose rows must be (j)'s with the wildcards
+      filled and whose ancestral rows and PP lines must equal the CPU
+      engine's on that reconstruction; the long12 runs must take the
+      device fill and contraction (engine/sumprod.py ROUTES).  Then small6
+      `recon -ancseq -ancprob` f64, card == CPU byte for byte; a
+      complex-spectrum codon case of 6000 columns (ECMunrest plus a seeded
+      cyclic term), the card's complex128 contraction against the numpy
+      formulation; and the card times of fill_up, fill_down,
+      node_post_prob and the contraction (CUDA events, median of 5 after a
+      warm call) beside their bytes bounds, printed as a JSON line.
+Prints the Felsenstein times as one JSON line, the kernel table as one
+JSON line, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A kernel's
 `launches` sums the main-path runs that drive it, each counted from 0:
 K1 in (e), (h) default and (j) long12 f32, K2 in (h) fused, the guide
@@ -378,13 +394,13 @@ def phase_walker(tracedp, name: str, planes, args, n_samples: int, check: bool =
     return dict(err=lp_err, ms=k_ms, plain_ms=p_ms, **bnd)
 
 
-def run_cli(cli, args: list, dtype: str) -> str:
+def run_cli(cli, args: list, dtype: str, command: str = "recon") -> str:
     os.environ["HISTORIAN_DEVICE_DTYPE"] = dtype
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["recon", *args])
+        rc = cli.main([command, *args])
     if rc != 0:
-        raise AssertionError(f"recon {args} returned {rc}")
+        raise AssertionError(f"{command} {args} returned {rc}")
     return buf.getvalue()
 
 
@@ -732,14 +748,16 @@ def check_routes(what: str, counts: dict, log: list, fused: bool) -> None:
         raise AssertionError(f"{what}: {chain} chain-x and {dag} sampled-x fills, counts {counts}")
 
 
-def phase_default_recon(cli, colforward, tracedp, guidedp) -> dict:
+def phase_default_recon(cli, colforward, tracedp, guidedp, work: str) -> dict:
     """(j) The default `recon` (sampled profiles, no -fast): small6 card f64
     == CPU f64 on the default and the fused route; then long12 with no tree
     and no profile flags on the card, default route (K1), in float32 and in
     float64 from the float32 run's guide and tree, whose `#=GF LP` must
     agree within F32_LP_DRIFT.  Each run's K1
     (K2) launches must equal its chain-x fills and its host fills the
-    fills whose x is a sampled profile.  Returns the float32 run's counts."""
+    fills whose x is a sampled profile.  The float32 run's reconstruction
+    and its guide stay in `work` (work/long12_f32.sto, work/long12_guide.sto)
+    for phase (k).  Returns the float32 run's counts."""
     from historian_tpu_torch import recon
     from historian_tpu_torch.engine import forward
 
@@ -765,7 +783,7 @@ def phase_default_recon(cli, colforward, tracedp, guidedp) -> dict:
         os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
         # the float64 run takes the float32 run's guide and tree, so that the
         # two differ in their merges only
-        guide = os.path.join(d, "long12_guide.sto")
+        guide = os.path.join(work, "long12_guide.sto")
         inputs = {"f32": ["-saveguide", guide, os.path.join(REPO, "tests", "data", "long12.fa")],
                   "f64": ["-stockholm", guide]}
         source = {"f32": "its guide stage and tree", "f64": "the f32 run's guide and tree"}
@@ -791,6 +809,9 @@ def phase_default_recon(cli, colforward, tracedp, guidedp) -> dict:
                   f"draws {counts['sampled']}, peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
             runs[dtype] = (lp, counts)
+            if dtype == "f32":
+                with open(os.path.join(work, "long12_f32.sto"), "w") as f:
+                    f.write(out)
     del os.environ["HISTORIAN_PALLAS_FUSED"]
     drift = abs(runs["f32"][0] - runs["f64"][0])
     if not drift < F32_LP_DRIFT:
@@ -799,6 +820,331 @@ def phase_default_recon(cli, colforward, tracedp, guidedp) -> dict:
           flush=True)
     return runs["f32"][1]
 
+
+#: the card's counts and fitted model against the CPU's (phase (k)): both in
+#: float64, the products in another order
+COUNT_RTOL = 1e-9
+
+
+@contextlib.contextmanager
+def reconstructors(recon_mod):
+    """Records each Reconstructor a CLI run builds, so that its counts,
+    model and datasets can be read after the run."""
+    seen = []
+    init = recon_mod.Reconstructor.__init__
+
+    def recorded(self):
+        init(self)
+        seen.append(self)
+
+    recon_mod.Reconstructor.__init__ = recorded
+    try:
+        yield seen
+    finally:
+        recon_mod.Reconstructor.__init__ = init
+
+
+def complex_codon_model(seed: int):
+    """ECMunrest with a cyclic term added to its rates (codon i -> i + 1 mod
+    A at a seeded rate): a non-reversible codon model whose spectrum is
+    complex.  Every preset's spectrum is real under numpy's eig, ECMunrest's
+    included."""
+    from historian_tpu_torch.models.presets import named_model
+
+    model = named_model("ECMunrest")
+    rng = np.random.default_rng(seed)
+    rate = model.sub_rate.copy()
+    idx = np.arange(rate.shape[1])
+    rate[0, idx, (idx + 1) % rate.shape[1]] += 2.0 + rng.random(rate.shape[1])
+    np.fill_diagonal(rate[0], 0.0)
+    np.fill_diagonal(rate[0], -rate[0].sum(axis=1))
+    model.sub_rate = rate
+    return model
+
+
+def synthetic_rows(model, tree, L: int, seed: int) -> list:
+    """Rows of a reconstruction with one root a column, made from `seed`:
+    the column's root is the tree's root (60 %) or another node, a node
+    under an ungapped parent is gapped at 15 % and everything under a gap
+    is gapped; leaves take random symbols, internal nodes `*`."""
+    rng = np.random.default_rng(seed)
+    n = tree.n_nodes()
+    syms = np.array([model.alphabet.symbol(i) for i in range(model.alphabet.size)])
+    top = np.where(rng.random(L) < 0.6, tree.root(), rng.integers(0, n - 1, L))
+    open_ = np.zeros((n, L), bool)
+    for node in reversed(range(n)):  # preorder
+        p = tree.parent(node)
+        under = open_[p] & (rng.random(L) >= 0.15) if p >= 0 else np.zeros(L, bool)
+        open_[node] = (top == node) | under
+    rows = []
+    for node in range(n):
+        fill = syms[rng.integers(0, len(syms), L)] if tree.is_leaf(node) else np.full(L, "*")
+        rows.append("".join(np.where(open_[node], fill, "-")))
+    return rows
+
+
+def felsenstein_bound(L: int, N: int, C: int, A: int, what: str, cplx: bool = False) -> dict:
+    """bound_ms of one Felsenstein function on [L, N, C, A] float64 messages:
+    the tensors it reads and writes, once each, over the memory rate, or
+    its multiply-adds over the float64 peak (complex128: four real
+    products each).  root_counts reads the roots' [C, A] rows only."""
+    big, small = 8 * L * N * C * A, 8 * L * N * C
+    io = {"fill_up": 2 * big + 2 * small + 4 * N * L,  # tokens in; F, E, logF, logE out
+          "fill_down": 2 * big + 2 * small + L * N,  # E, logE, gaps in; G, logG out
+          "node_post_prob": 2 * big + 2 * small + 8 * L * N * A,  # F, G, logs in; [L, N, A] out
+          "eigen_counts": 3 * big + 3 * small + L * N,  # F, E, G, logs, mask in
+          "root_counts": 8 * L * (C * A + C + 2)}[what]  # each column's root row in
+    flops = {"fill_up": 2 * L * N * C * A * A, "fill_down": 2 * L * N * C * A * A,
+             "node_post_prob": 8 * L * N * C * A, "eigen_counts": 6 * L * N * C * A * A,
+             "root_counts": 4 * L * C * A}[what] * (4 if cplx else 1)
+    return bound(io, flops, torch.float64)
+
+
+def felsenstein_calls(engine, rows: list) -> dict:
+    """The Felsenstein functions of ops/felsenstein.py as zero-argument
+    calls on `rows`, their inputs made once on the engine's device."""
+    from historian_tpu_torch.ops import felsenstein as fs
+
+    dev = engine.device
+    tokens = fs.tokenize_alignment(engine.model.alphabet, rows)
+    arrays = engine.arrays
+    sub, ins, lw = engine.tensors()
+    L = tokens.shape[1]
+    F, logF, E, logE, cpt_ll, col_ll = fs.fill_up(tokens, arrays, sub, ins, lw)
+    gap = tokens.T == fs.GAP_TOK
+    is_gap = torch.as_tensor(gap, device=dev)
+    G, logG = fs.fill_down(E, logE, is_gap, arrays, sub, ins)
+    parent_safe = np.maximum(arrays.parent, 0)
+    mask = (~gap) & (arrays.parent >= 0)[None, :] & ~gap[:, parent_safe]
+    parent_gap = np.where(arrays.parent[None, :] >= 0, gap[:, parent_safe], True)
+    roots = ~gap & parent_gap
+    cols = np.nonzero(roots.any(axis=1))[0]
+    cols_t = torch.as_tensor(cols, device=dev)
+    r = torch.as_tensor(np.argmax(roots, axis=1)[cols], device=dev)
+    w = torch.ones(L, dtype=torch.float64, device=dev)
+    e = engine.eigen
+    real = engine.count_device_ok
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a.real if real else a), device=dev)
+
+    count_args = (F, logF, E, logE, G, logG, col_ll, torch.as_tensor(parent_safe, device=dev),
+                  torch.as_tensor(np.maximum(arrays.sibling, 0), device=dev),
+                  torch.as_tensor(mask, device=dev), w, lw, t(e.evec), t(e.evec_inv),
+                  t(engine.branch_eigen_sub_count))
+    contract = fs.eigen_counts if real else fs.eigen_counts_cplx
+    return {"fill_up": lambda: fs.fill_up(tokens, arrays, sub, ins, lw),
+            "fill_down": lambda: fs.fill_down(E, logE, is_gap, arrays, sub, ins),
+            "node_post_prob": lambda: fs.node_post_prob(F, logF, G, logG, col_ll, lw),
+            "eigen_counts": lambda: contract(*count_args),
+            "root_counts": lambda: fs.root_counts(F[cols_t, r], logF[cols_t, r], col_ll[cols_t],
+                                                  w[cols_t], lw, ins)}
+
+
+def time_felsenstein(model, tree, rows: list, names=None) -> dict:
+    """Each Felsenstein function on `rows`: its card time (CUDA events,
+    median of 5 after a warm call), the same code's time on this machine's
+    CPU (host clock, median of 3 after a warm call), and its bound."""
+    from historian_tpu_torch.engine.sumprod import SumProductEngine
+
+    out = {}
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        engine = SumProductEngine(model, tree, dev)
+        for name, fn in felsenstein_calls(engine, rows).items():
+            if names is not None and name not in names:
+                continue
+            if dev.type == "cuda":
+                out[name] = dict(ms=cuda_ms_median(fn, reps=5))
+            else:
+                fn()
+                out[name]["cpu_ms"] = float(np.median([host_ms(fn)[1] for _ in range(3)]))
+    N, L = len(rows), len(rows[0])
+    C, A = model.components, model.alphabet_size
+    cplx = not engine.count_device_ok
+    for name, tm in out.items():
+        tm.update(felsenstein_bound(L, N, C, A, name, cplx=cplx and name == "eigen_counts"))
+    return out
+
+
+def pp_lines(post_prob: dict, names: list) -> list:
+    return [f"{names[row]} PP {col + 1} {ch} {prob:.6f}"
+            for row, by_col in sorted(post_prob.items())
+            for col, by_char in sorted(by_col.items())
+            for ch, prob in sorted(by_char.items())]
+
+
+def phase_counts(cli, work: str) -> dict:
+    """(k) Counts, EM and ancestral prediction on long12's float32
+    reconstruction from (j), through the CLI entry:
+    `count -stockrecon` and `fit -stockrecon -maxiter 2` on the card and on
+    the CPU (counts and fitted model within COUNT_RTOL), `sum` of the two
+    count files, and `recon -ancseq -ancprob -stockholm <(j)'s guide>` in
+    float32 on the card, whose rows must be (j)'s with the wildcards
+    filled and whose ancestral rows and PP lines must equal those of the
+    CPU's SumProductEngine on the same reconstruction.  The long12 runs
+    must take the device fill and the device contraction (sumprod.ROUTES).
+    Then small6 `recon -ancseq -ancprob` in float64, card == CPU byte for
+    byte; a complex-spectrum codon alignment of 6000 columns made from a
+    seed, the card's complex128 contraction against the CPU's numpy
+    formulation (the route below 512 columns, 500 columns a fill); and the
+    card times of the Felsenstein functions on long12's reconstruction and
+    of the complex contraction.  Returns the long12 card runs' routes."""
+    from historian_tpu_torch import recon as recon_mod
+    from historian_tpu_torch.core.tree import Tree
+    from historian_tpu_torch.engine import sumprod
+    from historian_tpu_torch.models.counts import EventCounts
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    recon_path = os.path.join(work, "long12_f32.sto")
+    card_routes = {}
+
+    def timed(platform, args, command, dtype="f64"):
+        sumprod.ROUTES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with reconstructors(recon_mod) as seen:
+            out = run_cli(cli, ["-platform", platform, *args], dtype, command)
+        torch.cuda.synchronize()
+        routes = dict(sumprod.ROUTES)
+        if platform == "gpu":
+            for k, v in routes.items():
+                card_routes[k] = card_routes.get(k, 0) + v
+        return out, time.perf_counter() - t0, routes, seen[-1] if seen else None
+
+    # count and fit, card against CPU
+    results = {}
+    for command, args in (("count", ["-stockrecon", recon_path]),
+                          ("fit", ["-stockrecon", recon_path, "-maxiter", "2"])):
+        runs = {}
+        for platform in ("gpu", "cpu"):
+            out, wall, routes, rc = timed(platform, args, command)
+            dev = "cuda" if platform == "gpu" else "cpu"
+            iters = 1 if command == "count" else 2
+            # after an M-step the rates need not have an exactly-real
+            # eigensystem, and the contraction then runs in complex128
+            contractions = routes.get(f"counts:{dev}:real", 0) + routes.get(
+                f"counts:{dev}:complex", 0)
+            if (routes.get(f"fill:{dev}") != iters or routes.get(f"down:{dev}") != iters
+                    or contractions != iters or len(routes) > 4
+                    or routes.get(f"counts:{dev}:real", 0) < 1):
+                raise AssertionError(f"long12 {command} -platform {platform}: routes {routes}, "
+                                     f"expected {iters} device fills and contractions")
+            runs[platform] = (out, rc)
+            print(f"(k) long12 {command} -platform {platform}: wall {wall:.2f} s, routes {routes}",
+                  flush=True)
+        (g, grc), (c, crc) = runs["gpu"], runs["cpu"]
+        if command == "count":
+            pairs = [(grc.data_counts.root_count, crc.data_counts.root_count),
+                     (grc.data_counts.sub_count, crc.data_counts.sub_count),
+                     *((np.array(getattr(grc.data_counts.indel, k)),
+                        np.array(getattr(crc.data_counts.indel, k)))
+                       for k in ("ins", "del_", "ins_ext", "del_ext", "ins_time", "del_time", "lp"))]
+            for p, out in (("gpu", g), ("cpu", c)):
+                with open(os.path.join(work, f"counts_{p}.json"), "w") as f:
+                    f.write(out)
+        else:
+            def rates(m):
+                return np.array([m.ins_rate, m.del_rate, m.ins_ext_prob, m.del_ext_prob])
+
+            pairs = [(rates(grc.model), rates(crc.model)), (grc.model.sub_rate, crc.model.sub_rate),
+                     (grc.model.ins_prob, crc.model.ins_prob)]
+        err = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))) for a, b in pairs)
+        for a, b in pairs:
+            np.testing.assert_allclose(a, b, rtol=COUNT_RTOL, atol=1e-12 * np.abs(b).max())
+        results[command] = err
+        print(f"(k) long12 {command}: card and CPU agree, largest relative difference {err:.3e}",
+              flush=True)
+
+    out, wall, _, _ = timed("gpu", [os.path.join(work, f"counts_{p}.json") for p in ("gpu", "cpu")],
+                            "sum")
+    total, parts = (EventCounts.from_json_string(out),
+                    [EventCounts.from_file(os.path.join(work, f"counts_{p}.json"))
+                     for p in ("gpu", "cpu")])
+    if total.indel.ins != parts[0].indel.ins + parts[1].indel.ins:
+        raise AssertionError("sum: indel counts are not the files' sum")
+    np.testing.assert_allclose(total.sub_count, parts[0].sub_count + parts[1].sub_count, rtol=1e-5)
+    print(f"(k) sum of the card's and the CPU's long12 counts: wall {wall:.3f} s", flush=True)
+
+    # ancestral prediction on the card from (j)'s guide, f32 merges
+    out, wall, routes, rc = timed("gpu", ["-ancseq", "-ancprob", "-stockholm",
+                                          os.path.join(work, "long12_guide.sto")], "recon", "f32")
+    if routes != {"fill:cuda": 1, "down:cuda": 1, "post:cuda": 1}:
+        raise AssertionError(f"long12 -ancseq: routes {routes}")
+    with open(recon_path) as f:
+        j_rows = dict(ln.split() for ln in f.read().splitlines()
+                      if ln and not ln.startswith("#") and ln != "//")
+    k_rows = dict(ln.split() for ln in out.splitlines()
+                  if ln and not ln.startswith("#") and ln != "//")
+    # (j) merged on its tree's exact branch lengths, this run on the guide
+    # file's 6-digit ones: in float32 a near-tie of the best or a sampled
+    # pick can go the other way, so a difference is reported, not fatal
+    wild = rc.model.wildcard
+    differ = [name for name, row in j_rows.items()
+              if len(k_rows.get(name, "")) != len(row)
+              or any(a != b and not (a == wild and b != "-") for a, b in zip(row, k_rows[name]))]
+    same = (f"equal to (j)'s f32 rows but for the "
+            f"{sum(r.count(wild) for r in j_rows.values())} predicted residues" if not differ else
+            f"{len(differ)} of them differ from (j)'s f32 rows beyond the predicted residues "
+            f"(widths {len(next(iter(j_rows.values())))} and {len(next(iter(k_rows.values())))})")
+    ds = rc.datasets[0]
+    rows = [s.seq for s in ds.gapped_recon]
+    names = [s.name for s in ds.gapped_ancestral_recon]
+    host = sumprod.SumProductEngine(rc.model, ds.tree, cpu).fill(rows)
+    if host.ancestral_gapped_rows(rows) != [s.seq for s in ds.gapped_ancestral_recon]:
+        raise AssertionError("long12 -ancseq: card's ancestral rows differ from the CPU engine's")
+    card_pp = pp_lines(ds.ancestral_post_prob, names)
+    if pp_lines(host.ancestral_post_probs(rows), names) != card_pp:
+        raise AssertionError("long12 -ancseq: card's PP lines differ from the CPU engine's")
+    print(f"(k) long12 recon -ancseq -ancprob -stockholm (j)'s guide, f32, card: wall {wall:.2f} s, "
+          f"{len(k_rows)} rows, {same}; ancestral rows and {len(card_pp)} PP lines equal the "
+          f"CPU engine's; routes {routes}", flush=True)
+
+    # small6 -ancseq -ancprob, f64, card == CPU
+    small = ["-ancseq", "-ancprob", write_small6(work)]
+    outs = {p: timed(p, small, "recon", "f64") for p in ("gpu", "cpu")}
+    if outs["gpu"][0] != outs["cpu"][0]:
+        raise AssertionError("small6 -ancseq -ancprob f64: card output differs from the CPU's")
+    print(f"(k) small6 recon -ancseq -ancprob f64: card == cpu ({outs['gpu'][0].count(' PP ')} PP "
+          f"lines), walls {outs['gpu'][1]:.2f} / {outs['cpu'][1]:.2f} s, card routes "
+          f"{outs['gpu'][2]}", flush=True)
+
+    # a complex spectrum: the card's complex128 contraction against numpy
+    model = complex_codon_model(seed=11)
+    with open(os.path.join(REPO, "tests", "data", "long12.nh")) as f:
+        tree = Tree(f.read())
+    L = 6000
+    rows = synthetic_rows(model, tree, L, seed=12)
+    w = np.random.default_rng(13).random(L)
+    c, a = model.components, model.alphabet_size
+    sumprod.ROUTES.clear()
+    card = sumprod.SumProductEngine(model, tree, cuda)
+    got = (np.zeros((c, a)), np.zeros((c, a, a), complex))
+    card.fill(rows).accumulate_eigen_counts(*got, w)
+    if dict(sumprod.ROUTES) != {"fill:cuda": 1, "down:cuda": 1, "counts:cuda:complex": 1}:
+        raise AssertionError(f"complex case: routes {dict(sumprod.ROUTES)}")
+    host = sumprod.SumProductEngine(model, tree, cpu)
+    want = (np.zeros((c, a)), np.zeros((c, a, a), complex))
+    for lo in range(0, L, 500):
+        host.fill([r[lo:lo + 500] for r in rows]).accumulate_eigen_counts(*want, w[lo:lo + 500])
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g, r, rtol=COUNT_RTOL, atol=1e-12 * np.abs(r).max())
+    cplx_err = max(float(np.max(np.abs(g - r)) / np.abs(r).max()) for g, r in zip(got, want))
+    print(f"(k) complex spectrum (ECMunrest + cyclic term, max |Im eigenvalue| "
+          f"{np.abs(card.eigen.eval.imag).max():.3f}), {L} synthetic codon columns x "
+          f"{tree.n_nodes()} nodes: card complex128 contraction == numpy within "
+          f"{cplx_err:.3e} of the largest count", flush=True)
+
+    # card times of the Felsenstein functions
+    long12_rows = [s.seq for s in ds.gapped_recon]
+    times = time_felsenstein(rc.model, ds.tree, long12_rows)
+    times["eigen_counts_cplx"] = time_felsenstein(model, tree, rows, ["eigen_counts"])["eigen_counts"]
+    for name, tm in times.items():
+        where = (f"{L} x {tree.n_nodes()} codon" if name.endswith("cplx") else
+                 f"long12 {len(long12_rows[0])} x {len(long12_rows)}")
+        print(f"(k) {name} ({where}, f64): card {tm['ms']:.3f} ms, CPU {tm['cpu_ms']:.3f} ms, "
+              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})", flush=True)
+    return dict(routes=card_routes, times=times, count_err=results["count"],
+                fit_err=results["fit"], cplx_err=cplx_err)
 
 def main() -> int:
     from historian_tpu_torch import bench, cli
@@ -832,7 +1178,9 @@ def main() -> int:
     guide = phase_guide(guidedp)
     launches_h = phase_guide_e2e(cli, colforward, tracedp, guidedp)
     pf = phase_pairforward(pairforward, bench, torch.device("cuda"))
-    launches_j = phase_default_recon(cli, colforward, tracedp, guidedp)
+    with tempfile.TemporaryDirectory() as work:
+        launches_j = phase_default_recon(cli, colforward, tracedp, guidedp, work)
+        routes_k = phase_counts(cli, work)
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -867,6 +1215,15 @@ def main() -> int:
             replaces=f"historian_tpu/ops/pallas_pairforward.py:{line}",
             launches=pf["launches"][name], max_abs_err=pf["err"][kid], library_ms=None,
             **pf[kid]))
+    routes = routes_k["routes"]
+    real, cplx = routes.get("counts:cuda:real", 0), routes.get("counts:cuda:complex", 0)
+    launches_k = {"fill_up": routes.get("fill:cuda", 0), "fill_down": routes.get("down:cuda", 0),
+                  "node_post_prob": routes.get("post:cuda", 0), "eigen_counts": real,
+                  "eigen_counts_cplx": cplx, "root_counts": real + cplx}
+    print(json.dumps({"felsenstein": dict(
+        routes=routes, count_rel_err=routes_k["count_err"], fit_rel_err=routes_k["fit_err"],
+        complex_rel_err=routes_k["cplx_err"],
+        **{name: dict(tm, launches=launches_k[name]) for name, tm in routes_k["times"].items()})}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
-"""Command-line interface of the port: `recon` on PyTorch and CUDA.
+"""Command-line interface of the port: `recon`, `count`, `sum` and `fit`
+on PyTorch and CUDA.
 
-Same flags as historian_tpu/cli.py for the reconstruction subset, the
-same `-fast` and `-careful` aliases, plus `-platform gpu|cpu`: `gpu`, the
-default, needs CUDA and fails without it; `cpu` runs the kernels' plain
-PyTorch versions and is only ever chosen explicitly.  The guide, tree and
-profile flags have their JAX meaning; flags of paths that are not ported
-yet raise NotImplementedError naming their ROADMAP item, none is dropped
-silently.  `-profminpost` and `-refine` raise at the end of parsing, so
-that a later `-profsamples` or `-norefine` cancels them as it does in the
-JAX package.
+Same flags as historian_tpu/cli.py for these commands, the same `-fast`
+and `-careful` aliases, plus `-platform gpu|cpu`: `gpu`, the default,
+needs CUDA and fails without it; `cpu` runs the kernels' plain PyTorch
+versions and is only ever chosen explicitly.  The guide, tree, profile,
+ancestral, count and EM flags have their JAX meaning; flags of paths that
+are not ported yet raise NotImplementedError naming their ROADMAP item,
+none is dropped silently.  `-profminpost` and `-refine` raise at the end
+of parsing, so that a later `-profsamples` or `-norefine` cancels them as
+it does in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from collections import deque
 from historian_tpu_torch.utils.logging import logger
 from historian_tpu_torch import __version__
 from historian_tpu_torch import device as devmod
+from historian_tpu_torch.models.counts import EventCounts
 from historian_tpu_torch.recon import (
     FORMAT_FASTA,
     FORMAT_JSON,
@@ -34,9 +36,15 @@ CAREFUL_ALIAS = ["-allspan", "-kmatchoff", "-band", "40", "-profminpost", ".001"
                  "-profmaxmem", "5", "-refine"]
 FAST_ALIAS = ["-rndspan", "-kmatchn", "3", "-band", "10", "-profmaxstates", "1", "-jc", "-norefine"]
 
-HELP = f"""{PROG}: historian-tpu's `recon` on PyTorch and CUDA
+HELP = f"""{PROG}: historian-tpu's `recon`, `count`, `sum` and `fit` on PyTorch and CUDA
 
-Usage: {PROG} recon [options] [files]
+Usage: {PROG} recon|count|fit [options] [files]
+       {PROG} sum <counts.json>...
+
+  recon (r)          reconstruct ancestral sequence histories [default command]
+  count (c)          expected event counts on a reconstruction (JSON)
+  fit (f)            fit the model's rates by EM on reconstructions (model JSON)
+  sum (s)            sum event-count JSON files
 
   -platform gpu|cpu  device (default gpu; cpu must be given explicitly)
   -seqs <file>       unaligned FASTA (guide stage, unless -noband with -tree)
@@ -62,33 +70,34 @@ Usage: {PROG} recon [options] [files]
   -keepgapsopen      keep gap states open in the profiles
   -profminlen <n> -profmaxlen <n>  accepted, unused (as in the JAX package)
   -output fasta|nexus|stockholm|json  -noancs  -seed <n>
+  -ancseq            predict ancestral residues  -ancprob  with their posteriors
+  -recon <file>      gapped FASTA reconstruction (with -tree) to count or fit on
+  -nexusrecon <file> | -stockrecon <file>  Nexus or Stockholm reconstruction
+  -counts <file>     prior pseudocounts  -nolaplace  no +1 pseudocounts
+  -fixsubrates | -fixgaprates  leave those rates out of the fit
+  -mininc <x> -maxiter <n>  EM stopping rule (defaults .001, 100)
+  -checkpoint <file> snapshot the fit after each EM iteration; resume from it
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
   -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
              -refine; not ported: -profminpost needs the BackwardMatrix)
 """
 
-#: flags of the JAX CLI whose paths are not ported yet
+_BACKWARD = "item 3, full-readback/BackwardMatrix"
+_MCMC = "item 6, MCMC/refiner"
+#: flags of the JAX CLI whose paths are not ported yet, and their ROADMAP items
 _NOT_PORTED = {
-    "-ancseq": "counts/fit/-ancseq", "-ancprob": "counts/fit/-ancseq",
-    "-mcmc": "MCMC/refiner",
-    "-savedot": "full-readback/BackwardMatrix",
-    "-dotpost": "full-readback/BackwardMatrix",
-    "-dotgapsopen": "full-readback/BackwardMatrix",
-    "-dotsubpost": "full-readback/BackwardMatrix",
-    **{flag: "counts/fit/-ancseq" for flag in (
-        "-recon", "-nexusrecon", "-stockrecon", "-counts", "-mininc", "-maxiter",
-        "-nolaplace", "-fixsubrates", "-fixgaprates", "-rootlen")},
-    **{flag: "MCMC/refiner" for flag in (
-        "-samples", "-trace", "-checkpoint", "-ckptevery", "-fixtree", "-fixalign",
-        "-fixguide")},
-    "-mesh": "multi-GPU",
+    **{flag: _BACKWARD for flag in ("-savedot", "-dotpost", "-dotgapsopen", "-dotsubpost")},
+    **{flag: _MCMC for flag in ("-mcmc", "-samples", "-trace", "-ckptevery", "-fixtree",
+                                "-fixalign", "-fixguide")},
+    "-rootlen": "item 5, generate",
+    "-mesh": "item 7, multi-GPU",
 }
-#: the other commands of the JAX CLI, by alias, and the ROADMAP item each waits for
-_COMMANDS = {"c": "count", "count": "count", "f": "fit", "fit": "fit", "m": "mcmc",
-             "mcmc": "mcmc", "s": "sum", "sum": "sum", "g": "generate", "generate": "generate"}
-_COMMAND_ITEMS = {"count": "item 4, counts/fit/-ancseq", "sum": "item 4, counts/fit/-ancseq",
-                  "fit": "item 4, counts/fit/-ancseq", "mcmc": "item 6, MCMC/refiner",
-                  "generate": "item 5, generate"}
+#: the commands of the JAX CLI, by alias
+_COMMANDS = {"r": "recon", "recon": "recon", "reconstruct": "recon", "c": "count",
+             "count": "count", "f": "fit", "fit": "fit", "s": "sum", "sum": "sum",
+             "m": "mcmc", "mcmc": "mcmc", "g": "generate", "generate": "generate"}
+#: the commands that are not ported yet, and their ROADMAP items
+_COMMAND_ITEMS = {"mcmc": _MCMC, "generate": "item 5, generate"}
 _MODEL_PARAMS = ("-insrate", "-delrate", "-insextprob", "-delextprob", "-inslen",
                  "-dellen", "-gaprate", "-gapextprob", "-gaplen", "-subscale",
                  "-indelscale", "-scale")
@@ -199,14 +208,38 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.keep_gaps_open = True
         elif arg == "-seed":
             recon.rnd_seed = int(take())
+            recon.seed_generator()
+        elif arg in ("-ancseq", "-ancprob"):
+            recon.predict_ancestral_sequence = True
+            recon.report_ancestral_sequence_probability |= arg == "-ancprob"
+        elif arg == "-recon":
+            recon.fasta_recon_filename = take()
+        elif arg == "-nexusrecon":
+            recon.nexus_recon_filenames.append(take())
+        elif arg == "-stockrecon":
+            recon.stockholm_recon_filenames.append(take())
+        elif arg == "-counts":
+            recon.count_filenames.append(take())
+        elif arg == "-mininc":
+            recon.min_em_improvement = float(take())
+        elif arg == "-maxiter":
+            recon.max_em_iterations = int(take())
+        elif arg == "-nolaplace":
+            recon.use_laplace_pseudocounts = False
+        elif arg == "-fixsubrates":
+            recon.fit_subst_rates = False
+        elif arg == "-fixgaprates":
+            recon.fit_indel_rates = False
+        elif arg == "-checkpoint":
+            recon.checkpoint_filename = take()
         elif not arg.startswith("-"):
             recon.load_auto(arg)
         else:
             raise SystemExit(f"{PROG}: unknown option {arg!r} (try '{PROG} help')")
     if posteriors:
-        raise not_ported("option -profminpost", "full-readback/BackwardMatrix")
+        raise not_ported("option -profminpost", _BACKWARD)
     if refine:
-        raise not_ported("option -refine", "MCMC/refiner")
+        raise not_ported("option -refine", _MCMC)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -225,19 +258,46 @@ def main(argv: list[str] | None = None) -> int:
     if argv[0] in ("version", "v", "--version", "-V"):
         print(f"{PROG} {__version__}")
         return 0
-    command, rest = argv[0], argv[1:]
-    if command in ("r", "recon", "reconstruct"):
-        command = "recon"
-    elif command in _COMMANDS:
-        name = _COMMANDS[command]
-        raise not_ported(f"the {name!r} command", _COMMAND_ITEMS[name])
-    else:
-        rest = argv  # no command word: reconstruct
+    command, rest = _COMMANDS.get(argv[0]), argv[1:]
+    if command is None:
+        command, rest = "recon", argv  # no command word: reconstruct
+    if command in _COMMAND_ITEMS:
+        raise not_ported(f"the {command!r} command", _COMMAND_ITEMS[command])
+    if command == "sum":
+        return _sum(rest, sys.stdout)
     devmod.select(platform)
     recon = Reconstructor()
+    if command in ("count", "fit"):
+        recon.accumulate_subst_counts = recon.accumulate_indel_counts = True
+        recon.use_laplace_pseudocounts = command == "fit"
     _parse(recon, deque(rest))
     recon.load_model()
     recon.load_seqs()
-    recon.reconstruct_all()
-    recon.write_recon(sys.stdout)
+    if command == "recon":
+        recon.reconstruct_all()
+        recon.predict_all_ancestors()
+        recon.write_recon(sys.stdout)
+        return 0
+    recon.load_recon()
+    recon.load_counts()
+    if command == "count":
+        recon.count_all()
+        recon.write_counts(sys.stdout)
+    else:
+        recon.accumulate_subst_counts = recon.fit_subst_rates
+        recon.accumulate_indel_counts = recon.fit_indel_rates
+        recon.fit()
+        recon.write_model(sys.stdout)
+    return 0
+
+
+def _sum(args: list[str], out) -> int:
+    """The count files' sum (the reducer of the count MapReduce)."""
+    total = None
+    for path in (a for a in args if not a.startswith("-")):
+        c = EventCounts.from_file(path)
+        total = c if total is None else total + c
+    if total is None:
+        raise SystemExit("sum: no count files given")
+    total.write(out)
     return 0

@@ -7,7 +7,8 @@ Port of historian_tpu/engine/treealign.py::log_likelihood:
 
 The first two terms are host arithmetic over gap patterns (same walk,
 same float order as the JAX package); the third is the float64
-Felsenstein up-pass of engine/sumprod.py on the selected device.
+Felsenstein up pass (ops/felsenstein.py) on the selected device, with
+the branch matrices of engine/sumprod.py's engine.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import numpy as np
 
 from historian_tpu_torch.core.alignpath import Alignment
 from historian_tpu_torch.models.ratemodel import ProbModel
-from historian_tpu_torch import device as devmod
-from historian_tpu_torch.engine.sumprod import SumProductEngine
+from historian_tpu_torch.engine.sumprod import get_engine
+from historian_tpu_torch.ops.felsenstein import column_log_likelihoods, tokenize_alignment
 
 
 def root_log_likelihood(model, gapped, tree) -> float:
@@ -72,9 +73,9 @@ def indel_log_likelihood(model, gapped, tree) -> float:
 
 
 def log_likelihood(model, tree, gapped) -> float:
-    subst = SumProductEngine(model, tree, devmod.current()).log_likelihood(
-        [s.seq for s in gapped]
-    )
+    engine = get_engine(model, tree)
+    tokens = tokenize_alignment(model.alphabet, [s.seq for s in gapped])
+    subst = float(column_log_likelihoods(tokens, engine.arrays, *engine.tensors()).cpu().numpy().sum())
     return (
         root_log_likelihood(model, gapped, tree)
         + indel_log_likelihood(model, gapped, tree)

@@ -456,7 +456,6 @@ class EigenCounts:
         if update_indel_counts:
             self.indel.accumulate_tree(model, tree, alignment.path, weight)
         if update_subst_counts:
-            raise NotImplementedError(
-                "substitution counts are not ported to historian_tpu_torch yet "
-                "(ROADMAP queue 1 item 5: counts/fit/-ancseq)"
-            )
+            from historian_tpu_torch.engine.sumprod import accumulate_alignment_eigen_counts
+
+            accumulate_alignment_eigen_counts(self, model, tree, alignment.gapped(), weight)

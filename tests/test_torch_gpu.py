@@ -564,3 +564,73 @@ def test_k2_wide_emission_takes_a_narrower_strip(cuda):
     wide = _k2_args(300, 4, 257, torch.float64, cuda)
     with pytest.raises(ValueError, match="emission factors"):
         colforward.col_forward_planes_fused(*wide)
+
+
+# ---------------------------------------------------------------- sum-product
+SP_TREE = "(((a:0.3,b:0.05):0.2,c:0.7):0.1,(d:0.01,(e:0.4,f:0.2):0.15):0.25)r;"
+#: float64 on the card against float64 on the CPU: the products and sums
+#: run in another order (cuBLAS against the CPU's BLAS), ~L eps apart
+SP_RTOL = 1e-11
+
+
+def _sp_model(name):
+    """`lg`, or `complex`: ECMunrest plus a cyclic non-reversible term, a
+    complex spectrum (as tests/test_torch_felsenstein.py builds it)."""
+    from historian_tpu_torch.models.presets import named_model
+
+    model = named_model("lg" if name == "lg" else "ECMunrest")
+    if name == "complex":
+        rng = np.random.default_rng(11)
+        rate = model.sub_rate.copy()
+        idx = np.arange(rate.shape[1])
+        rate[0, idx, (idx + 1) % rate.shape[1]] += 2.0 + rng.random(rate.shape[1])
+        np.fill_diagonal(rate[0], 0.0)
+        np.fill_diagonal(rate[0], -rate[0].sum(axis=1))
+        model.sub_rate = rate
+    return model
+
+
+def _sp_rows(model, tree, L, seed):
+    rng = np.random.default_rng(seed)
+    syms = np.array([model.alphabet.symbol(i) for i in range(model.alphabet.size)])
+    return ["".join(np.where(rng.random(L) < 0.15, "-", syms[rng.integers(0, len(syms), L)]))
+            if tree.is_leaf(n) else "*" * L for n in range(tree.n_nodes())]
+
+
+@pytest.mark.parametrize("name", ["lg", "complex"])
+def test_sumprod_passes_on_card_match_cpu(cuda, name):
+    """The torch route of the sum-product engine on the card against the
+    same code on the CPU: up and down passes, posteriors, ancestral rows,
+    and the eigencount contraction (real for lg, complex128 otherwise),
+    with every route counted on CUDA."""
+    from historian_tpu_torch.core.tree import Tree
+    from historian_tpu_torch.engine import sumprod
+
+    model = _sp_model(name)
+    tree = Tree(SP_TREE)
+    rows = _sp_rows(model, tree, 1500, seed=4)
+    w = np.random.default_rng(5).random(1500)
+    out = {}
+    sumprod.ROUTES.clear()
+    for dev in (torch.device("cpu"), cuda):
+        eng = sumprod.SumProductEngine(model, tree, dev)
+        eng.NATIVE_FILL_MAX_CELLS = 0
+        fill = eng.fill(rows)
+        c, a = model.components, model.alphabet_size
+        root, eig = np.zeros((c, a)), np.zeros((c, a, a), complex)
+        fill.accumulate_eigen_counts(root, eig, w)
+        out[dev.type] = dict(fill=fill, root=root, eig=eig, anc=fill.ancestral_gapped_rows(rows),
+                             lnpp=fill.log_node_post_prob_all())
+    kind = "real" if name == "lg" else "complex"
+    assert sumprod.ROUTES == {f"{what}:{d}": 1 for what in ("fill", "down", "post")
+                              for d in ("cpu", "cuda")} | {f"counts:cpu:{kind}": 1,
+                                                           f"counts:cuda:{kind}": 1}
+    ref, got = out["cpu"], out["cuda"]
+    assert got["fill"].tensor("F").is_cuda
+    for k in ("F", "logF", "E", "logE", "G", "logG", "cpt_ll", "col_ll"):
+        np.testing.assert_allclose(getattr(got["fill"], k), getattr(ref["fill"], k),
+                                   rtol=SP_RTOL, atol=1e-300, err_msg=k)
+    np.testing.assert_allclose(got["lnpp"], ref["lnpp"], rtol=SP_RTOL, atol=1e-12)
+    assert got["anc"] == ref["anc"]
+    for k in ("root", "eig"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=SP_RTOL, atol=1e-12 * np.abs(ref[k]).max())

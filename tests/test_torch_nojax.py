@@ -62,3 +62,27 @@ def test_guide_recon_without_jax(tmp_path, flags, env):
     assert out.returncode == 0, out.stderr[-2000:]
     rows, lp = rows_and_lp(out.stdout)
     assert len(rows) == 11 and lp < 0 and "#=GF NH" in out.stdout
+
+
+def test_ancseq_count_fit_without_jax(tmp_path):
+    """`recon -ancseq -ancprob` on small4, then `count` and `fit` on that
+    reconstruction, with jax refused: the sum-product engine, the counts,
+    the EM fit and the checkpoint module stand alone too."""
+    fa, nh = write_small4(tmp_path)
+    recon = tmp_path / "small4.sto"
+    outs = {}
+    for name, argv in (("recon", ["recon", "-ancseq", "-ancprob", "-fast", "-noband",
+                                  "-tree", nh, fa]),
+                       ("count", ["count", "-stockrecon", str(recon)]),
+                       ("fit", ["fit", "-stockrecon", str(recon), "-maxiter", "1",
+                                "-checkpoint", str(tmp_path / "ck.json")])):
+        out = subprocess.run([sys.executable, "-c", BLOCKED, argv[0], "-platform", "cpu",
+                              *argv[1:]], capture_output=True, text=True, timeout=300, cwd=REPO)
+        assert out.returncode == 0, out.stderr[-2000:]
+        outs[name] = out.stdout
+        if name == "recon":
+            recon.write_text(out.stdout)
+    rows, lp = rows_and_lp(outs["recon"])
+    assert len(rows) == 7 and lp < 0 and "#=GS node3 PP" in outs["recon"]
+    assert '"alphabet": "arndcqeghilkmfpstwyv"' in outs["count"]
+    assert '"insrate"' in outs["fit"] and (tmp_path / "ck.json").exists()
