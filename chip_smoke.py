@@ -47,10 +47,13 @@ Phases, each fatal on failure (nothing is caught):
       path (historian_tpu_torch/bench.py), whose launches are counted:
       bench.py's headline workload (lg, 128 pairs of 384 x 384) and its
       codon workload (ECMrest, 32 pairs of 192 x 192) through K3, and 6
-      pairs of long12 cut to 3000 x 3000 through K4; then K3 and K4
-      against their plain version on the card at those three shapes
-      (the headline in float32 and float64, the others in float32, K4
-      always with x_tile below X);
+      pairs of long12 cut to 3000 x 3000 through K4; then a line with
+      every compiled K3/K4 instance's registers, local (spill) bytes and
+      warps a block; then K3 and K4 against their plain version on the
+      card at those three shapes (the headline and the long shape in
+      float32 and float64, 3001 lanes being more than one lane a thread
+      at float64's 16 warps, the codon in float32; K4 always with x_tile
+      below X), each with its us a warp step (kernel time over X + 1 + W);
   (j) the default `recon` (sampled profiles): small6 in float64 on the
       card, default and fused routes, each byte-identical to the CPU
       float64 run; then tests/data/long12.fa with no tree and no profile
@@ -655,7 +658,24 @@ def phase_guide_e2e(cli, colforward, tracedp, guidedp) -> dict:
 
 
 PF_CASES = (("headline", torch.float32), ("headline", torch.float64),
-            ("codon", torch.float32), ("long", torch.float32))
+            ("codon", torch.float32), ("long", torch.float32), ("long", torch.float64))
+
+
+def pf_instances_line(pairforward) -> str:
+    """Registers, local (spill) bytes a thread and warps a block of every
+    compiled K3/K4 instance, each at the widest row it takes, as the
+    launcher reports them for every width of whole warps."""
+    parts = []
+    for dtype in (torch.float32, torch.float64):
+        for kid, tiled in (("K3", False), ("K4", True)):
+            widest = {}
+            for y1 in range(32, pairforward.MAX_LANES[dtype] + 1, 32):
+                at = pairforward.kernel_attrs(y1, dtype, tiled)
+                widest[at["lanes_per_thread"]] = at
+            parts += [f"{kid} {str(dtype)[6:]} m={m}: {at['registers']} regs, "
+                      f"{at['local_bytes']} B local, {at['warps']} warps"
+                      for m, at in sorted(widest.items())]
+    return "(i) instances: " + "; ".join(parts)
 
 
 def phase_pairforward(pairforward, bench, dev) -> dict:
@@ -673,6 +693,7 @@ def phase_pairforward(pairforward, bench, dev) -> dict:
     if min(launches.values()) < 1:
         raise AssertionError(f"pair-Forward bench launches {launches}")
 
+    print(pf_instances_line(pairforward), flush=True)
     smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     out = dict(launches=launches, err={"K3": 0.0, "K4": 0.0})
     for name, dtype in PF_CASES:
@@ -692,10 +713,14 @@ def phase_pairforward(pairforward, bench, dev) -> dict:
                 raise AssertionError(f"{kname} {name} {dtype}: lp_end rel err {rel:.3e} > {tol}")
             k_ms = cuda_ms(fn, reps=5)
             rate = bench.state_cells(args) / (k_ms / 1e3)
+            at = pairforward.kernel_attrs(Y1, dtype, kname == "K4")
+            m, warps = at["lanes_per_thread"], at["warps"]
             print(f"(i) {kname} {name} B={B} X={X1 - 1} Y={Y1 - 1} {str(dtype)[6:]}"
-                  f"{f' x_tile {rows}' if kname == 'K4' else ''}: kernel {k_ms:.3f} ms, "
-                  f"plain {p_ms:.1f} ms, max lp err {float((got - ref).abs().max()):.3e} "
-                  f"({rel:.3e} of |lp|), {rate:.4g} state-cells/s", flush=True)
+                  f"{f' x_tile {rows}' if kname == 'K4' else ''}: kernel {k_ms:.3f} ms "
+                  f"({k_ms * 1e3 / (X1 + warps):.3f} us a warp step, {warps} warps of {m} "
+                  f"lanes a thread), plain {p_ms:.1f} ms, max lp err "
+                  f"{float((got - ref).abs().max()):.3e} ({rel:.3e} of |lp|), "
+                  f"{rate:.4g} state-cells/s", flush=True)
             out["err"][kname] = max(out["err"][kname], float((got - ref).abs().max()))
             if dtype == torch.float32 and (kname, name) in (("K3", "headline"), ("K4", "long")):
                 ops = PF_OPS_PER_CELL * B * X1 * Y1

@@ -1,7 +1,8 @@
 """Pair-Forward throughput: the port of bench.py's batched chain x chain
 workloads, the path that runs kernels K3 and K4.
 
-    python -m historian_tpu_torch.bench [headline|codon|long] [-platform gpu|cpu]
+    python -m historian_tpu_torch.bench [headline|codon|long|wide] [-platform gpu|cpu]
+    python -m historian_tpu_torch.bench --roots DIR [DIR ...] [--rounds R]
 
 Workloads, built as the JAX package's bench.py builds them:
 
@@ -12,13 +13,22 @@ Workloads, built as the JAX package's bench.py builds them:
   random 192 x 192 codon sequences tiled to 32, through K3;
 - `long`: 6 pairs of tests/data/long12.fa (t01 x t02, ..., t11 x t12)
   cut to 3000 aa, branch lengths 0.5/0.5, through K4 with X streamed in
-  tiles.
+  tiles;
+- `wide`: as `long`, cut to 5900 aa (5901 lanes: 6 lanes a thread in
+  float32, where `long` takes 4).
 
-Prints one JSON line: the workload, the kernel, the device it ran on,
-the float32 kernel time (CUDA events over 8 launches after a warm one;
+Prints one JSON line: the workload, the kernel, the dtype, the device it
+ran on, the kernel time (CUDA events over 8 launches after a warm one;
 with `-platform cpu` the plain version by host clock), state-cells/s
 counted as bench.py counts them (B (X+1) (Y+1) 5 a launch over that
 time) and the mean lp_end.
+
+`--roots` compares checkouts on one card (each a directory holding a
+`historian_tpu_torch` package, e.g. a `git archive` of another commit):
+round by round, the roots in turn (reversed every other round: P C C P
+for two roots and two rounds), each in a fresh process that imports that
+root's package and times `CASES` with this file's code.  One JSON line a
+root and round, then a `compare` line of the kernel times by case.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ WORKLOADS = {
     "headline": Workload("lg", 42, 8, 128, 384, 384, "k3"),
     "codon": Workload("ECMrest", 11, 4, 32, 192, 192, "k3"),
     "long": Workload("lg", None, 6, 6, 3000, 3000, "k4"),
+    "wide": Workload("lg", None, 6, 6, 5900, 5900, "k4"),
 }
 
 
@@ -99,11 +110,16 @@ def state_cells(args) -> int:
     return b * x1 * y1 * 5
 
 
-def run(name: str, device, reps: int = 8) -> dict:
-    """One workload through its kernel in float32: times and rate (see the
-    module docstring).  On a CUDA device the kernel runs; on the CPU its
-    plain version, timed by host clock."""
-    args = build(name, device)
+#: what `--roots` times in each root: (workload, dtype)
+CASES = (("headline", torch.float32), ("codon", torch.float32), ("long", torch.float32),
+         ("wide", torch.float32), ("headline", torch.float64), ("long", torch.float64))
+
+
+def run(name: str, device, reps: int = 8, dtype=torch.float32) -> dict:
+    """One workload through its kernel: times and rate (see the module
+    docstring).  On a CUDA device the kernel runs; on the CPU its plain
+    version, timed by host clock."""
+    args = build(name, device, dtype)
     fn = kernel_of(name)
     lp = fn(*args)  # warm: builds the kernels on first use
     if not bool(torch.isfinite(lp).all()):
@@ -127,18 +143,40 @@ def run(name: str, device, reps: int = 8) -> dict:
     w = WORKLOADS[name]
     return {
         "workload": f"{name}: {w.preset} batch={w.batch} {w.x_len}x{w.y_len}",
-        "kernel": w.kernel, "device": where, "ms": ms,
+        "kernel": w.kernel, "dtype": str(dtype).replace("torch.", ""), "device": where, "ms": ms,
         "state_cells_per_s": state_cells(args) / (ms / 1e3), "lp_mean": float(lp.mean()),
     }
+
+
+def run_cases(device) -> dict:
+    """Every case of `CASES` on `device`, keyed "<workload>_<dtype>"."""
+    out = {}
+    for name, dtype in CASES:
+        r = run(name, device, dtype=dtype)
+        out[f"{name}_{r['dtype']}"] = {k: r[k] for k in ("ms", "state_cells_per_s", "lp_mean")}
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="historian_tpu_torch.bench")
     ap.add_argument("workload", nargs="?", default="headline", choices=sorted(WORKLOADS))
     ap.add_argument("-platform", default="gpu", choices=("gpu", "cpu"))
+    ap.add_argument("--roots", nargs="+", help="checkouts to time in turn on the card")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cases", action="store_true", help="time every case of CASES on the card")
     a = ap.parse_args(argv)
     from historian_tpu_torch import device as devmod
 
+    if a.roots:
+        from historian_tpu_torch.roots import compare_roots
+
+        devmod.select("gpu")
+        return compare_roots(__file__, ["--cases"], a.roots, a.rounds, "bench",
+                             keep=lambda rec: {c: r["ms"] for c, r in rec["cases"].items()})
+    if a.cases:
+        dev = devmod.select("gpu")
+        print(json.dumps(dict(device=torch.cuda.get_device_name(dev), cases=run_cases(dev))))
+        return 0
     print(json.dumps(run(a.workload, devmod.select(a.platform))))
     return 0
 

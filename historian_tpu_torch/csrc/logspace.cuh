@@ -1,6 +1,6 @@
-// Log-space helpers shared by the Forward kernels: the column fills K1
-// and K2 (colforward_step.cuh) and the pair-Forward kernels K3 and K4
-// (pairforward.cu).
+// Log-space helpers of the Forward kernels: the column fills K1 and K2
+// (colforward_step.cuh) use all of them, the pair-Forward kernels K3 and
+// K4 (pairforward.cu) NEG and cmax.
 //
 // NEG = -1e30 is the finite semiring zero.  lse never forms
 // (-inf) - (-inf).  The block scan solves the affine recurrence

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "pairforward_lp": [_P] * 7 + [_I] * 3 + [_P],
     # absorb, rsx, rsy, ix, iy, trans, out, B, X1, Y1, rows, stream
     "pairforward_lp_tiled": [_P] * 7 + [_I] * 4 + [_P],
+    # tiled, Y1, out[5] (lanes a thread, warps, registers, local bytes, static smem)
+    "pairforward_attrs": [_I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

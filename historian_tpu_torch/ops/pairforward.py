@@ -28,6 +28,7 @@ kernel, with its cells and its envelope mask.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -38,10 +39,13 @@ NEG = -1e30
 LAUNCHES = 0
 #: K4 launches made by `pair_forward_lp_tiled` (never by the plain path)
 TILED_LAUNCHES = 0
-#: the most lanes (Y + 1) a block takes: threads a block x row tiles
-#: kept in registers (csrc/pairforward.cu), by dtype
-MAX_LANES = {torch.float32: 1024 * 8, torch.float64: 512 * 8}
-#: shared memory a K4 block leaves to its scan and lane buffers
+#: the most lanes (Y + 1) a block takes, by dtype: 32 warps (16 in
+#: float64) x 32 threads x 8 lanes a thread kept in registers; the
+#: launcher picks the block's shape (csrc/pairforward.cu
+#: `lanes_per_thread`, read back through `kernel_attrs`)
+MAX_LANES = {torch.float32: 8192, torch.float64: 4096}
+#: shared memory a K4 block leaves to its transitions and handoff ring
+#: (a static_assert in csrc/pairforward.cu)
 K4_STATIC_SMEM = 8192
 
 
@@ -252,6 +256,20 @@ def _check_inputs(what, absorb, rsx, rsy, ix, iy, trans):
             raise ValueError(f"{name} is not contiguous")
     if Y1 > MAX_LANES[dt]:
         raise ValueError(f"{what} takes at most {MAX_LANES[dt]} lanes (Y + 1) in {dt}, got {Y1}")
+
+
+def kernel_attrs(y1: int, dtype, tiled: bool) -> dict:
+    """The compiled K3 (K4 with `tiled`) instance that takes y1 lanes:
+    lanes a thread, warps a block, registers and local (spill) bytes a
+    thread, static shared bytes.  Builds the kernels; needs CUDA."""
+    from historian_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    fn = lib.pairforward_attrs_f32 if dtype == torch.float32 else lib.pairforward_attrs_f64
+    out = (ctypes.c_int * 5)()
+    _kernels.check(fn(int(tiled), y1, out), "pairforward_attrs")
+    return dict(zip(("lanes_per_thread", "warps", "registers", "local_bytes", "static_smem"),
+                    out))
 
 
 def _launch(fn, absorb, rsx, rsy, ix, iy, trans, *extra):

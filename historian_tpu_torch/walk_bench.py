@@ -186,25 +186,6 @@ def merge_routes(n: int, reps: int) -> dict:
     return out
 
 
-def compare(roots: list, rounds: int, reps: int) -> int:
-    me = os.path.abspath(__file__)
-    code = f"import runpy, sys; sys.argv[0] = {me!r}; runpy.run_path({me!r}, run_name='__main__')"
-    table = {os.path.abspath(r): [] for r in roots}
-    order = [os.path.abspath(r) for r in roots]
-    for k in range(rounds):
-        for root in order if k % 2 == 0 else order[::-1]:
-            proc = subprocess.run([sys.executable, "-c", code, "--reps", str(reps)], cwd=root,
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                print(proc.stderr[-4000:], file=sys.stderr)
-                raise RuntimeError(f"walk_bench: the run in {root} failed")
-            rec = json.loads(proc.stdout.splitlines()[-1])
-            print(json.dumps(dict(root=root, **rec)), flush=True)
-            table[root].append(rec)
-    print(json.dumps({"compare": table}), flush=True)
-    return 0
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=9)
@@ -218,7 +199,10 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     if opts.roots:
-        return compare(opts.roots, opts.rounds, opts.reps)
+        from historian_tpu_torch.roots import compare_roots
+
+        return compare_roots(__file__, ["--reps", str(opts.reps)], opts.roots, opts.rounds,
+                             "walk_bench")
     out = measure(opts.reps)
     if opts.merges:
         out["merges"] = [merge_routes(n, opts.reps) for n in opts.merges]

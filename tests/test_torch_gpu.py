@@ -392,6 +392,62 @@ def test_pairforward_kernels_match_plain(cuda, B, X1, Y1, dtype, rtol):
         assert bool((err <= rtol * ref.abs()).all()), (err.max().item(), ref.tolist())
 
 
+def _lp_close(got, ref, rtol):
+    """Identical liveness (an lp below -1e25 is the semiring zero), then
+    within rtol of |lp|."""
+    got, ref = got.cpu().double(), ref.cpu().double()
+    dead = ref < -1e25
+    assert torch.equal(got < -1e25, dead), (got.tolist(), ref.tolist())
+    err = (got - ref).abs()[~dead]
+    assert bool((err <= rtol * ref.abs()[~dead]).all()), (err.max().item(), ref.tolist())
+
+
+PF_EDGE_Y1 = [1, 2, 31, 32, 33, 385, 1024, 1025, 3001, "max"]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("y1", PF_EDGE_Y1)
+def test_pairforward_edge_cases(cuda, y1, dtype, rtol):
+    """K3 and K4 (x_tile 1, 16 and X1) at the edges of the warp pipe: one
+    lane, lanes around a warp and around 1024, the widest block; one,
+    two and 70 rows; one pair.  Each kernel runs 4 times: every run equal
+    to the first (a stale handoff shows now and then), the first within
+    tolerance of the plain version."""
+    Y1 = pairforward.MAX_LANES[dtype] if y1 == "max" else y1
+    for X1 in (1, 2, 70):
+        args = _pf_args(1, X1, Y1, dtype, cuda, seed=Y1 + X1)
+        ref = pairforward.pair_forward_lp_plain(*args)
+        runs = {"K3": lambda: pairforward.pair_forward_lp(*args)}
+        for x_tile in (1, 16, X1):
+            runs[f"K4 x_tile {x_tile}"] = \
+                lambda x_tile=x_tile: pairforward.pair_forward_lp_tiled(*args, x_tile=x_tile)
+        for what, fn in runs.items():
+            outs = [fn() for _ in range(4)]
+            torch.cuda.synchronize()
+            for o in outs[1:]:
+                assert torch.equal(o, outs[0]), (what, X1, Y1)
+            _lp_close(outs[0], ref, rtol)
+
+
+def test_pairforward_block_shapes(cuda):
+    """The launcher's block shapes, as kernel_attrs reads them: the
+    fewest lanes a thread of {1, 2, 4, 6, 8} within 32 warps (16 in
+    float64), then the fewest warps; K3 and K4 alike; MAX_LANES fills the
+    widest block."""
+    f32, f64 = torch.float32, torch.float64
+    shapes = {(1, f32): (1, 1), (33, f32): (1, 2), (385, f32): (1, 13), (1024, f32): (1, 32),
+              (1025, f32): (2, 17), (1500, f32): (2, 24), (3001, f32): (4, 24),
+              (5000, f32): (6, 27), (8192, f32): (8, 32), (385, f64): (1, 13),
+              (513, f64): (2, 9), (1500, f64): (4, 12), (3001, f64): (6, 16),
+              (4096, f64): (8, 16)}
+    for (y1, dtype), shape in shapes.items():
+        for tiled in (False, True):
+            at = pairforward.kernel_attrs(y1, dtype, tiled)
+            assert (at["lanes_per_thread"], at["warps"]) == shape, (y1, dtype, tiled)
+            assert at["registers"] > 0
+    assert [pairforward.MAX_LANES[dt] for dt in (f32, f64)] == [8192, 4096]
+
+
 def _k1_rect(SX, SY, KY, mask, dtype, dev, seed=11):
     """K1 inputs on an SX x SY grid with the band `mask` [SY, SX] and its
     lanes: y in-edges up to 6 columns back, nulls when KY > 1."""

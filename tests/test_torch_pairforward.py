@@ -21,6 +21,7 @@ tests/data/long*.fa cut short, codon sequences drawn from numpy seeds.
 """
 
 import functools
+import json
 import os
 
 import numpy as np
@@ -30,6 +31,7 @@ from jax.experimental import pallas as pl
 
 from historian_tpu.ops import pairforward as jax_pf
 from historian_tpu_torch import bench
+from historian_tpu_torch.roots import compare_roots
 from historian_tpu_torch.ops import pairforward as pf
 from tests.torch_twins import DATA, JAX, PORT
 
@@ -261,3 +263,175 @@ def test_bench_run_on_cpu():
     assert out["state_cells_per_s"] > 0 and -1e4 < out["lp_mean"] < 0
     w = bench.WORKLOADS["long"]
     assert (w.batch, w.x_len, w.y_len, w.kernel) == (6, 3000, 3000, "k4")
+
+
+# The order in which csrc/pairforward.cu's warp step associates the row
+# scans, as torch: each thread composes its M lanes in order, a 32-thread
+# Hillis-Steele scan combines the thread aggregates of a warp, and the
+# carry passes from warp to warp in order, applied as lse(u_local, c + w)
+# a lane.  Dead lanes past Y1 are (NEG, NEG), as the kernels make them.
+
+def _lse2(a, b):
+    return torch.logaddexp(a, b)
+
+
+def _kernel_order_scan(a, b, m, warps):
+    """u[l] = lse(a[l], u[l-1] + b[l]) along the last axis of [B, Y1], in
+    the warp step's order, at m lanes a thread and `warps` warps."""
+    B, Y1 = a.shape
+    n = warps * 32 * m
+    pad = a.new_full((B, n - Y1), NEG_F)
+    v = torch.cat([a, pad], 1).reshape(B, warps, 32, m)
+    w = torch.cat([b, pad], 1).reshape(B, warps, 32, m)
+    v, w = list(v.unbind(-1)), list(w.unbind(-1))
+    for k in range(1, m):  # each thread's lanes in order
+        v[k] = _lse2(v[k], v[k - 1] + w[k])
+        w[k] = torch.clamp_min(w[k - 1] + w[k], NEG_F)
+    av, aw = v[-1], w[-1]  # [B, warps, 32]
+    t = torch.arange(32)
+    for d in (1, 2, 4, 8, 16):  # across the threads of a warp
+        ov, ow = pf._shift(av, d, 0.0), pf._shift(aw, d, 0.0)
+        av, aw = (torch.where(t >= d, _lse2(av, ov + aw), av),
+                  torch.where(t >= d, torch.clamp_min(aw + ow, NEG_F), aw))
+    ev, ew = pf._shift(av, 1, 0.0), pf._shift(aw, 1, 0.0)
+    carry, out = a.new_full((B,), NEG_F), []
+    for q in range(warps):  # warp to warp, in order
+        cin = torch.where(t == 0, carry[:, None], _lse2(ev[:, q], carry[:, None] + ew[:, q]))
+        u = torch.stack([_lse2(v[k][:, q], cin + w[k][:, q]) for k in range(m)], -1)
+        out.append(u.reshape(B, 32 * m))
+        carry = out[-1][:, -1]
+    return torch.cat(out, 1)[:, :Y1]
+
+
+NEG_F = pf.NEG
+
+
+def _kernel_order_lp(absorb, rsx, rsy, ix, iy, trans, m, warps):
+    """A copy of pair_forward_lp_plain's row loop in the kernels' order, at
+    m lanes a thread and `warps` warps a block:
+    in float64 IMD, IIW and the IMM source in linear space scaled by each
+    lane's largest state (float32 keeps the plain version's pairwise
+    log-sum-exps), the IDM source as one three-term log-sum-exp, and the
+    row scans as `_kernel_order_scan`."""
+    tr = trans.tolist()
+    et = torch.exp(trans)
+    B, X1, Y1 = absorb.shape
+    cols = torch.arange(Y1)
+    neg_row = absorb.new_full((B, Y1), NEG_F)
+    rsx_c, ix_c = torch.clamp_min(rsx, NEG_F), torch.clamp_min(ix, NEG_F)
+
+    def scans(so, io):
+        idm = _kernel_order_scan(pf._shift(so, 1, NEG_F) + rsy, tr[12] + rsy, m, warps)
+        imi = _kernel_order_scan(pf._shift(io, 1, NEG_F) + iy, tr[16] + iy, m, warps)
+        return idm, imi
+
+    def lse3(a, b, c):
+        mx = torch.maximum(torch.maximum(a, b), c)
+        return mx + torch.log(torch.exp(a - mx) + torch.exp(b - mx) + torch.exp(c - mx))
+
+    imm = torch.where(cols == 0, 0.0, neg_row)
+    imd = iiw = neg_row
+    idm, imi = scans(imm + tr[2], imm + tr[3])
+    lse = pf._lse
+    for i in range(1, X1):
+        if absorb.dtype == torch.float32:
+            imd_n = lse(lse(imm + tr[1], imd + tr[7]), lse(idm + tr[11], imi + tr[15]))
+            iiw_n = lse(lse(imm + tr[4], imi + tr[17]), iiw + tr[21])
+            src = lse(lse(lse(imm + tr[0], imd + tr[6]), lse(idm + tr[10], imi + tr[14])),
+                      iiw + tr[19])
+        else:
+            r = torch.stack([imm, imd, idm, imi, iiw]).amax(0)
+            em, ed, ei, en, ew = (torch.exp(p - r) for p in (imm, imd, idm, imi, iiw))
+            imd_n = r + torch.log(em * et[1] + ed * et[7] + ei * et[11] + en * et[15])
+            iiw_n = r + torch.log(em * et[4] + en * et[17] + ew * et[21])
+            src = r + torch.log(em * et[0] + ed * et[6] + ei * et[10] + en * et[14] + ew * et[19])
+        imd_n = imd_n + rsx_c[:, i, None]
+        iiw_n = iiw_n + ix_c[:, i, None]
+        imd = torch.where(cols < Y1 - 1, imd_n, NEG_F)
+        iiw = torch.where(cols < Y1 - 1, iiw_n, NEG_F)
+        imm = pf._shift(src, 1, NEG_F) + absorb[:, i]
+        idm, imi = scans(lse3(imm + tr[2], imd + tr[8], iiw + tr[20]), imm + tr[3])
+    return pf._lse(pf._lse(imm[:, -1] + tr[5], imd[:, -1] + tr[9]), iiw[:, -1] + tr[22])
+
+
+def _pf_numpy_args(B, X1, Y1, dt, seed=8):
+    """Random emissions with the boundary row and column at -inf, as the
+    float32 arrays of chain_pair_forward_arrays have them."""
+    rng = np.random.default_rng(seed)
+    absorb = rng.normal(-5, 1, (B, X1, Y1))
+    absorb[:, 0, :] = absorb[:, :, 0] = -np.inf
+    vx = rng.normal(-3, 1, (2, B, X1))
+    vy = rng.normal(-3, 1, (2, B, Y1))
+    vx[:, :, 0] = vy[:, :, 0] = -np.inf
+    tr = rng.normal(-1, 0.5, 23)
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=DTYPES[dt][1])
+            for a in (absorb, vx[0], vy[0], vx[1], vy[1], tr)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("y1,m,warps", [
+    (385, 1, 13), (1500, 2, 24), (1500, 4, 12), (3001, 3, 32), (3001, 4, 24), (3001, 6, 16)])
+def test_kernel_scan_order_one_row(y1, m, warps, dt):
+    """The warp step's scan order against affine_scan on one row, at m
+    lanes a thread and `warps` warps (the launcher's shapes among them:
+    385 lanes take 13 warps, not 16)."""
+    _, _, rsy, _, iy, tr = _pf_numpy_args(2, 2, y1, dt, seed=y1)
+    a = torch.as_tensor(np.random.default_rng(1).normal(-8, 3, (2, y1)), dtype=rsy.dtype)
+    a[:, 0] = NEG_F
+    b = tr[12] + rsy
+    got = _kernel_order_scan(a, b, m, warps)
+    ref = pf.affine_scan(a, b, NEG_F)
+    assert torch.isfinite(ref).all()
+    assert bool(((got - ref).abs() <= TOL[dt] * ref.abs()).all())
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("y1,m,warps", [
+    (385, 1, 13), (1500, 2, 24), (1500, 4, 12), (3001, 3, 32), (3001, 4, 24), (3001, 6, 16)])
+def test_kernel_scan_order_lp(y1, m, warps, dt):
+    """lp_end with the rows scanned in the kernels' order, at m lanes a
+    thread and `warps` warps (the launcher's shapes among them: 4 lanes a
+    thread at 3001 lanes in float32, 6 in float64), against
+    pair_forward_lp_plain: the new association rounds within the
+    kernels' tolerance (1e-6 of |lp| in float32, 1e-9 in float64)."""
+    args = _pf_numpy_args(2, 24, y1, dt)
+    ref = pf.pair_forward_lp_plain(*args)
+    got = _kernel_order_lp(*args, m, warps)
+    _close(got.numpy(), ref.numpy(), dt)
+
+
+def test_bench_f64_and_cases():
+    """The bench path in float64 (the plain version here) agrees with the
+    float32 run, and `--roots` times the headline, codon and long
+    workloads in float32 and the headline in float64."""
+    f64 = bench.run("codon", torch.device("cpu"), reps=1, dtype=torch.float64)
+    f32 = bench.run("codon", torch.device("cpu"), reps=1)
+    assert (f64["dtype"], f32["dtype"]) == ("float64", "float32")
+    assert abs(f64["lp_mean"] - f32["lp_mean"]) < 1e-4 * abs(f64["lp_mean"])
+    assert [(n, str(d)) for n, d in bench.CASES] == [
+        ("headline", "torch.float32"), ("codon", "torch.float32"), ("long", "torch.float32"),
+        ("wide", "torch.float32"), ("headline", "torch.float64"), ("long", "torch.float64")]
+
+
+def test_compare_roots_order(tmp_path, capsys):
+    """`--roots` runs the script from each root in turn, P C C P, with the
+    child's arguments, and keeps what `keep` picks in the compare line;
+    a failed run raises."""
+    script = tmp_path / "child.py"
+    script.write_text("import json, os, sys\n"
+                      "print('noise')\n"
+                      "print(json.dumps({'cwd': os.path.basename(os.getcwd()), "
+                      "'argv': sys.argv[1:]}))\n")
+    roots = [tmp_path / "P", tmp_path / "C"]
+    for r in roots:
+        r.mkdir()
+    assert compare_roots(str(script), ["--cases"], roots, 2, "t",
+                         keep=lambda rec: rec["cwd"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [(r["cwd"], r["round"], r["argv"]) for r in lines[:-1]] == [
+        ("P", 0, ["--cases"]), ("C", 0, ["--cases"]), ("C", 1, ["--cases"]),
+        ("P", 1, ["--cases"])]
+    assert lines[-1] == {"compare": {str(roots[0]): ["P", "P"], str(roots[1]): ["C", "C"]}}
+    script.write_text("raise SystemExit(3)\n")
+    with pytest.raises(RuntimeError, match="the run in"):
+        compare_roots(str(script), [], roots, 1, "t")
