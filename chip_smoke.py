@@ -81,14 +81,32 @@ Phases, each fatal on failure (nothing is caught):
       cyclic term), the card's complex128 contraction against the numpy
       formulation; and the card times of fill_up, fill_down,
       node_post_prob and the contraction (CUDA events, median of 5 after a
-      warm call) beside their bytes bounds, printed as a JSON line.
-Prints the Felsenstein times as one JSON line, the kernel table as one
-JSON line, the card line, and last
+      warm call) beside their bytes bounds, printed as a JSON line;
+  (l) the full-band paths (merges whose band the host reads: posterior
+      profiles, -savedot, counting while reconstructing): small6 in
+      float64, card == CPU byte for byte, `recon -careful -norefine` on the
+      default and the fused route, `recon -profminpost 0.01 -savedot F
+      -dotpost 0.02` (alignment and dot file) and `count` on unaligned small6,
+      each with its merges on each route and readback bytes; then
+      tests/data/long6.fa (6 x ~6000 aa) `recon -careful -norefine` in
+      float32 (its full-band merges in float64), the main path's run: the
+      guide kernel over every diagonal of all 15 pairs, K1's launches and
+      ms, each merge's readback bytes and ms beside its bound (bytes over
+      the pinned card-to-host rate measured in the same call), the
+      BackwardMatrix and posterior-profile host seconds and the profiles'
+      sizes, peak device and host memory; at its first leaf merge the
+      posteriors of a float32 fill against the float64 one (the largest of
+      each, their largest difference, the cells that cross the 0.001 cut;
+      float64's at most 1 + 1e-6); then long6 in float64 from the float32
+      run's saved guide and tree, `#=GF LP` within 50 nats.  Prints a
+      {"readback": ...} JSON line.
+Prints the Felsenstein times and the readbacks as JSON lines, the kernel
+table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A kernel's
 `launches` sums the main-path runs that drive it, each counted from 0:
-K1 in (e), (h) default and (j) long12 f32, K2 in (h) fused, the guide
-kernel in (h) fused and (j) long12 f32, the walker in (e) and (j) long12
-f32.
+K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32, K2 in (h) fused
+and (l) small6 fused, the guide kernel in (h) fused, (j) long12 f32 and
+(l) long6 f32, the walker in (e) and (j) long12 f32.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -112,6 +130,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1171,6 +1190,274 @@ def phase_counts(cli, work: str) -> dict:
     return dict(routes=card_routes, times=times, count_err=results["count"],
                 fit_err=results["fit"], cplx_err=cplx_err)
 
+#: the posterior cut of `-careful` (its -profminpost), at which phase (l)
+#: counts the cells that a float32 fill would move across it
+CAREFUL_CUT = 1e-3
+#: a posterior above 1 by more than this is a fault of the full-band route
+POST_SLACK = 1e-6
+
+
+@contextlib.contextmanager
+def cuda_timed(module, name: str):
+    """module.<name> wrapped with a pair of CUDA events around each call;
+    yields the list of pairs (read them after a synchronize).  Records
+    only: no synchronize inside the run."""
+    fn = getattr(module, name)
+    pairs = []
+
+    def timed(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kw)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield pairs
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def host_timed(cls, name: str):
+    """cls.<name> wrapped with the host clock; yields [(seconds, result)]."""
+    fn = getattr(cls, name)
+    calls = []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, fn)
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def peak_host_memory():
+    """The process's largest resident set while the block runs, sampled
+    every 20 ms by a thread that the block's end stops: {"peak": bytes}."""
+    box = {"peak": rss_bytes()}
+    stop = threading.Event()
+
+    def poll():
+        while not stop.wait(0.02):
+            box["peak"] = max(box["peak"], rss_bytes())
+
+    t = threading.Thread(target=poll, daemon=True)
+    t.start()
+    try:
+        yield box
+    finally:
+        stop.set()
+        t.join()
+        box["peak"] = max(box["peak"], rss_bytes())
+
+
+def d2h_bytes_per_s() -> float:
+    """The card-to-host copy rate into pinned memory: 256 MiB, median of 5."""
+    n = 256 << 20
+    src = torch.empty(n, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    ms = cuda_ms_median(lambda: dst.copy_(src, non_blocking=True))
+    return n / (ms / 1e3)
+
+
+def posterior_error(merge: tuple) -> dict:
+    """At one full-band merge (x, y, hmm, parent row, envelope): the
+    BackwardMatrix posteriors exp(fwd + bwd - lp_end) over the band with
+    the Forward cells filled in float32 on the card against float64 (the
+    route's dtype, device.FULLBAND_DTYPE): the largest posterior of each,
+    their largest difference, the cells on the two sides of CAREFUL_CUT,
+    and each fill's forward/backward disagreement (the check of
+    BackwardMatrix trips above 0.01)."""
+    from historian_tpu_torch import device as devmod
+    from historian_tpu_torch.engine import forward
+
+    x, y, hmm, row, env = merge
+    route_dtype = devmod.FULLBAND_DTYPE
+    post, out = {}, {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        devmod.FULLBAND_DTYPE = dtype
+        try:
+            fwd = forward.ForwardMatrix(x, y, hmm, row, env)
+        finally:
+            devmod.FULLBAND_DTYPE = route_dtype
+        bwd = forward.BackwardMatrix(fwd)
+        nx, ny = fwd.x_size - 1, fwd.y_size - 1
+        ii, jj = np.nonzero(fwd.env_mask[:nx, :ny])
+        with np.errstate(invalid="ignore"):
+            p = np.exp(fwd.cells[ii, jj] + bwd.cells[ii, jj] - fwd.lp_end)
+        post[name] = np.nan_to_num(p, nan=0.0)
+        out[name] = dict(lp_end=fwd.lp_end, max_post=float(post[name].max()),
+                         fwd_bwd_rel=abs(bwd.lp_start - fwd.lp_end)
+                         / max(abs(bwd.lp_start), abs(fwd.lp_end)))
+        out["shape"] = (nx, ny, len(ii))
+        del fwd, bwd
+    out["max_abs_err"] = float(np.abs(post["f32"] - post["f64"]).max())
+    out["crossing"] = int(np.count_nonzero((post["f32"] > CAREFUL_CUT)
+                                           != (post["f64"] > CAREFUL_CUT)))
+    out["above_cut"] = int(np.count_nonzero(post["f64"] > CAREFUL_CUT))
+    return out
+
+
+def readback_summary(reads: list, rate: float) -> dict:
+    n = sum(r["bytes"] for r in reads)
+    return dict(merges=len(reads), bytes=n, ms=sum(r["ms"] for r in reads),
+                bound_ms=n / rate * 1e3)
+
+
+def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
+    """(l) The full-band paths: merges whose band the host reads (posterior
+    profiles, -savedot, counting while reconstructing).  small6 in float64,
+    card == CPU byte for byte: `recon -careful -norefine` on the default
+    and the fused (K2) route, `recon -profminpost 0.01 -savedot F -dotpost 0.02`
+    (the alignment and the dot file), `count` on the unaligned input; each
+    prints its merges on each route and its readback bytes.  Then long6
+    (tests/data/long6.fa, 6 x 5961-6087 aa) `recon -careful -norefine` in
+    float32 on the card, the main path's run (its full-band merges fill in
+    float64, `device.FULLBAND_DTYPE`): wall, the guide kernel's ms at the
+    full envelope, K1's launches and ms, each merge's readback bytes and ms
+    beside its bound (bytes over the pinned card-to-host rate measured
+    here), the BackwardMatrix and posterior-profile host seconds, the
+    posterior profiles' sizes, peak device and host memory.  At its first
+    leaf merge, the posteriors of a float32 fill against the float64 one
+    (`posterior_error`); the float64 posteriors must stay within 1 +
+    POST_SLACK.  Then long6 in float64 from the float32 run's saved guide
+    and tree: the two `#=GF LP` within F32_LP_DRIFT.  Returns the float32
+    run's launches and the fused small6 run's K2 launches."""
+    from historian_tpu_torch import recon
+    from historian_tpu_torch.engine import forward, quickalign
+    from historian_tpu_torch.ops import devicedp
+
+    counters = (recon, forward, colforward, tracedp, guidedp)
+    rate = d2h_bytes_per_s()
+    print(f"(l) card-to-host copy into pinned memory: {rate / 1e9:.2f} GB/s", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        fa6 = write_small6(d)
+        dots = {p: os.path.join(d, f"{p}.dot") for p in ("cpu", "gpu")}
+        cases = (("recon -careful -norefine", "recon", ["-careful", "-norefine", fa6], "0"),
+                 ("recon -careful -norefine fused", "recon", ["-careful", "-norefine", fa6], "1"),
+                 ("recon -profminpost 0.01 -savedot -dotpost 0.02", "recon",
+                  ["-profminpost", "0.01", "-savedot", "{dot}", "-dotpost", "0.02", fa6], "0"),
+                 ("count (unaligned)", "count", [fa6], "0"))
+        k2 = 0
+        for what, command, args, fused in cases:
+            os.environ["HISTORIAN_PALLAS_FUSED"] = fused
+            outs = {}
+            for platform in ("cpu", "gpu"):
+                zero_counts(*counters)
+                n_read = len(devicedp.READBACKS)
+                argv = [a.replace("{dot}", dots[platform]) for a in args]
+                outs[platform] = run_cli(cli, ["-platform", platform, *argv], "f64", command)
+                if "{dot}" in args:
+                    with open(dots[platform]) as f:
+                        outs[platform] += f.read()
+            counts = recon_counts(*counters)
+            reads = devicedp.READBACKS[n_read:]
+            if outs["gpu"] != outs["cpu"]:
+                raise AssertionError(f"small6 {what} f64: card output differs from the CPU's")
+            fill = "colforward_fused" if fused == "1" else "colforward"
+            if counts["merges"]["fullband"] < 1 or counts[fill] < counts["merges"]["fullband"]:
+                raise AssertionError(f"small6 {what}: no full-band merge on the card, {counts}")
+            if fused == "1":
+                k2 += counts["colforward_fused"]
+            print(f"(l) small6 {what} f64: card == cpu ({len(outs['gpu'])} bytes), merges "
+                  f"{counts['merges']}, launches K1 {counts['colforward']} K2 "
+                  f"{counts['colforward_fused']}, readback {sum(r['bytes'] for r in reads)} "
+                  f"bytes in {len(reads)} copies", flush=True)
+        del os.environ["HISTORIAN_PALLAS_FUSED"]
+
+    guide = os.path.join(work, "long6_guide.sto")
+    inputs = {"f32": ["-saveguide", guide, os.path.join(REPO, "tests", "data", "long6.fa")],
+              "f64": ["-stockholm", guide]}
+    runs, first = {}, []
+    fullband = devicedp.col_forward_cells
+
+    def capture(dp, *args):
+        if not first:
+            first.append((dp.x, dp.y, dp.hmm, dp.parent_row, dp.env))
+        return fullband(dp, *args)
+
+    for dtype in ("f32", "f64"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(*counters)
+        n_read = len(devicedp.READBACKS)
+        devicedp.col_forward_cells = capture
+        t0 = time.perf_counter()
+        try:
+            with cuda_timed(quickalign, "guide_align") as guide_ev, \
+                    cuda_timed(devicedp, "col_forward_planes") as k1_ev, \
+                    host_timed(forward.BackwardMatrix, "__init__") as bwd_t, \
+                    host_timed(forward.BackwardMatrix, "post_prob_profile") as prof_t, \
+                    peak_host_memory() as host_mem:
+                out = run_cli(cli, ["-platform", "gpu", "-careful", "-norefine",
+                                    *inputs[dtype]], dtype)
+                torch.cuda.synchronize()
+        finally:
+            devicedp.col_forward_cells = fullband
+        wall = time.perf_counter() - t0
+        counts = recon_counts(*counters)
+        reads = devicedp.READBACKS[n_read:]
+        rows, lp = stockholm_rows_lp(out)
+        if len(rows) != 11 or not math.isfinite(lp) or "#=GF NH" not in out:
+            raise AssertionError(f"long6 -careful {dtype}: {len(rows)} rows, LP {lp}")
+        if counts["merges"]["fullband"] < 1 or counts["colforward"] < counts["merges"]["fullband"] \
+                or len(reads) != counts["fills"]["fullband"]:
+            raise AssertionError(f"long6 -careful {dtype}: routes {counts}, {len(reads)} readbacks")
+        guide_ms = [a.elapsed_time(b) for a, b in guide_ev]
+        k1_ms = [a.elapsed_time(b) for a, b in k1_ev]
+        print(f"(l) long6 recon -careful -norefine {dtype} on the card: {len(rows)} rows, LP {lp}, "
+              f"wall {wall:.2f} s, merges {counts['merges']}, fills {counts['fills']}, launches "
+              f"K1 {counts['colforward']} K2 {counts['colforward_fused']} walker "
+              f"{counts['pairtrace']} guide {counts['guidealign']}; guide kernel "
+              f"{[round(t, 3) for t in guide_ms]} ms; K1 {[round(t, 3) for t in k1_ms]} ms; "
+              f"BackwardMatrix {[round(t, 3) for t, _ in bwd_t]} s; posterior profiles "
+              f"{[round(t, 3) for t, _ in prof_t]} s, sizes {[p.size for _, p in prof_t]} "
+              f"states; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+              f"peak host memory {host_mem['peak'] / 1e9:.2f} GB", flush=True)
+        for k, r in enumerate(reads):
+            print(f"(l) long6 {dtype} readback {k}: {r['cells']} cells, {r['bytes']} bytes in "
+                  f"{r['ms']:.3f} ms, bound {r['bytes'] / rate * 1e3:.3f} ms", flush=True)
+        runs[dtype] = dict(lp=lp, counts=counts, wall=wall, guide_ms=guide_ms, k1_ms=k1_ms,
+                           readback=readback_summary(reads, rate))
+    drift = abs(runs["f32"]["lp"] - runs["f64"]["lp"])
+    if not drift < F32_LP_DRIFT:
+        raise AssertionError(f"long6 -careful: f32 LP is {drift} nats off f64")
+    print(f"(l) long6 -careful f32 LP - f64 LP: {drift:.6f} nats (limit {F32_LP_DRIFT})",
+          flush=True)
+
+    t0 = time.perf_counter()
+    err = posterior_error(first[0])
+    nx, ny, band = err["shape"]
+    print(f"(l) long6 first leaf merge ({nx} x {ny}, {band} band cells), posteriors of the "
+          f"float32 fill against float64: largest f64 {err['f64']['max_post']!r}, f32 "
+          f"{err['f32']['max_post']!r}, largest difference {err['max_abs_err']:.3e}, cells on "
+          f"the two sides of {CAREFUL_CUT}: {err['crossing']} of {err['above_cut']} above it; "
+          f"forward/backward disagreement f64 {err['f64']['fwd_bwd_rel']:.3e}, f32 "
+          f"{err['f32']['fwd_bwd_rel']:.3e}; lp_end f64 {err['f64']['lp_end']!r}, f32 "
+          f"{err['f32']['lp_end']!r} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not err["f64"]["max_post"] <= 1 + POST_SLACK or err["f64"]["fwd_bwd_rel"] > 0.01:
+        raise AssertionError(f"long6 first merge: float64 posteriors {err['f64']}")
+    print(json.dumps({"readback": dict(
+        d2h_bytes_per_s=rate, posterior=err,
+        **{dtype: dict(run["readback"], wall_s=run["wall"], guide_ms=run["guide_ms"],
+                       k1_ms=run["k1_ms"]) for dtype, run in runs.items()})}), flush=True)
+    return dict(f32=runs["f32"]["counts"], fused_k2=k2)
+
+
 def main() -> int:
     from historian_tpu_torch import bench, cli
     from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
@@ -1206,12 +1493,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         launches_j = phase_default_recon(cli, colforward, tracedp, guidedp, work)
         routes_k = phase_counts(cli, work)
+        launches_l = phase_careful(cli, colforward, tracedp, guidedp, work)
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
              replaces="historian_tpu/ops/pallas_colforward.py:364",
              launches=(launches["colforward"] + launches_h["default"]["colforward"]
-                       + launches_j["colforward"]),
+                       + launches_j["colforward"] + launches_l["f32"]["colforward"]),
              max_abs_err=k1["err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
@@ -1224,12 +1512,14 @@ def main() -> int:
         dict(name="colforward_fused", route="cuda",
              source="historian_tpu_torch/csrc/colforward_fused.cu",
              replaces="historian_tpu/ops/pallas_colforward.py:318",
-             launches=launches_h["fused"]["colforward_fused"], max_abs_err=k2["err"],
+             launches=launches_h["fused"]["colforward_fused"] + launches_l["fused_k2"],
+             max_abs_err=k2["err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
         dict(name="guidealign", route="cuda", source="historian_tpu_torch/csrc/guidealign.cu",
              replaces="historian_tpu/ops/guidedp.py:161",
-             launches=launches_h["fused"]["guidealign"] + launches_j["guidealign"],
+             launches=(launches_h["fused"]["guidealign"] + launches_j["guidealign"]
+                       + launches_l["f32"]["guidealign"]),
              max_abs_err=guide["err"],
              ms=guide["ms"], plain_ms=guide["plain_ms"], bound_ms=guide["bound_ms"],
              bound_by=guide["bound_by"], library_ms=None),

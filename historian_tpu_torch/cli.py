@@ -5,11 +5,11 @@ Same flags as historian_tpu/cli.py for these commands, the same `-fast`
 and `-careful` aliases, plus `-platform gpu|cpu`: `gpu`, the default,
 needs CUDA and fails without it; `cpu` runs the kernels' plain PyTorch
 versions and is only ever chosen explicitly.  The guide, tree, profile,
-ancestral, count and EM flags have their JAX meaning; flags of paths that
-are not ported yet raise NotImplementedError naming their ROADMAP item,
-none is dropped silently.  `-profminpost` and `-refine` raise at the end
-of parsing, so that a later `-profsamples` or `-norefine` cancels them as
-it does in the JAX package.
+ancestral, count, EM, posterior-profile and `-savedot` flags have their
+JAX meaning; flags of paths that are not ported yet raise
+NotImplementedError naming their ROADMAP item, none is dropped silently.
+`-refine` raises at the end of parsing, so that a later `-norefine`
+cancels it as it does in the JAX package: `-careful -norefine` runs.
 """
 
 from __future__ import annotations
@@ -66,11 +66,15 @@ Usage: {PROG} recon|count|fit [options] [files]
   -profsamples <n>   sampled traces kept in each internal profile (default 10)
   -profmaxstates <n> | -profmaxmem <pct>  cells a profile may keep (default:
                      from -profmaxmem's share, 5, of the host memory)
+  -profminpost <p>   posterior profiles: keep the cells whose posterior
+                     passes p (a later -profsamples goes back to sampling)
   -nobest            leave the best trace out of the profiles
   -keepgapsopen      keep gap states open in the profiles
   -profminlen <n> -profmaxlen <n>  accepted, unused (as in the JAX package)
   -output fasta|nexus|stockholm|json  -noancs  -seed <n>
   -ancseq            predict ancestral residues  -ancprob  with their posteriors
+  -savedot <file> [-dotpost [p]] [-dotsubpost [p]] [-dotgapsopen]
+                     the root's ancestral sequence graph in GraphViz dot
   -recon <file>      gapped FASTA reconstruction (with -tree) to count or fit on
   -nexusrecon <file> | -stockrecon <file>  Nexus or Stockholm reconstruction
   -counts <file>     prior pseudocounts  -nolaplace  no +1 pseudocounts
@@ -79,14 +83,12 @@ Usage: {PROG} recon|count|fit [options] [files]
   -checkpoint <file> snapshot the fit after each EM iteration; resume from it
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
   -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
-             -refine; not ported: -profminpost needs the BackwardMatrix)
+             -refine; -refine is not ported: give -careful -norefine)
 """
 
-_BACKWARD = "item 3, full-readback/BackwardMatrix"
 _MCMC = "item 6, MCMC/refiner"
 #: flags of the JAX CLI whose paths are not ported yet, and their ROADMAP items
 _NOT_PORTED = {
-    **{flag: _BACKWARD for flag in ("-savedot", "-dotpost", "-dotgapsopen", "-dotsubpost")},
     **{flag: _MCMC for flag in ("-mcmc", "-samples", "-trace", "-ckptevery", "-fixtree",
                                 "-fixalign", "-fixguide")},
     "-rootlen": "item 5, generate",
@@ -105,8 +107,16 @@ _FORMATS = {"fasta": FORMAT_FASTA, "nexus": FORMAT_NEXUS,
             "stockholm": FORMAT_STOCKHOLM, "json": FORMAT_JSON}
 
 
+def _optional_value(argvec: deque, default: float) -> float:
+    """The number after a flag whose value may be left out (-dotpost,
+    -dotsubpost): taken when the next argument does not start with '-'."""
+    if argvec and not argvec[0].startswith("-"):
+        return float(argvec.popleft())
+    return default
+
+
 def _parse(recon: Reconstructor, argvec: deque) -> None:
-    posteriors = refine = False
+    refine = False
     while argvec:
         arg = argvec.popleft()
 
@@ -121,8 +131,18 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
         if arg in ("-refine", "-norefine"):
             refine = arg == "-refine"
         elif arg == "-profminpost":
-            float(take())
-            posteriors = True
+            recon.min_post_prob = float(take())
+            recon.use_posteriors_for_profile = True
+        elif arg == "-savedot":
+            recon.dot_save_filename = take()
+        elif arg == "-dotpost":
+            recon.use_posteriors_for_dot = True
+            recon.min_dot_post_prob = _optional_value(argvec, recon.min_dot_post_prob)
+        elif arg == "-dotsubpost":
+            recon.use_separate_sub_posteriors_for_dot = True
+            recon.min_dot_sub_post_prob = _optional_value(argvec, recon.min_dot_sub_post_prob)
+        elif arg == "-dotgapsopen":
+            recon.keep_dot_gaps_open = True
         elif arg in ("-rndspan", "-allspan"):
             recon.guide_align_try_all_pairs = arg == "-allspan"
         elif arg in ("-upgma", "-nj"):
@@ -144,7 +164,7 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             env.sparse = False
         elif arg == "-fast":
             argvec.extendleft(reversed(FAST_ALIAS))
-        elif arg == "-careful":  # its -profminpost raises, naming its item
+        elif arg == "-careful":  # its -refine raises unless -norefine follows
             argvec.extendleft(reversed(CAREFUL_ALIAS))
         elif arg == "-model":
             recon.model_filename = take()
@@ -192,7 +212,7 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.max_distance_from_guide = -1
         elif arg == "-profsamples":
             recon.profile_samples = int(take())
-            posteriors = False
+            recon.use_posteriors_for_profile = False
         elif arg == "-profmaxstates":
             recon.profile_node_limit = int(take())
         elif arg == "-profmaxmem":
@@ -236,8 +256,6 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.load_auto(arg)
         else:
             raise SystemExit(f"{PROG}: unknown option {arg!r} (try '{PROG} help')")
-    if posteriors:
-        raise not_ported("option -profminpost", _BACKWARD)
     if refine:
         raise not_ported("option -refine", _MCMC)
 

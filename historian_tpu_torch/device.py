@@ -14,6 +14,12 @@ import os
 import torch
 
 _DEVICE: torch.device | None = None
+#: the fill dtype of a merge whose band the host reads, on every device and
+#: whatever HISTORIAN_DEVICE_DTYPE says: its cells meet the host's float64
+#: BackwardMatrix in posteriors exp(fwd + bwd - lp_end), and a float32
+#: fill's rounding at |lp| ~ 1e4 nats moves those by whole units (PERF.md
+#: section 6: a posterior of 7.99 at long6's first merge)
+FULLBAND_DTYPE = torch.float64
 
 
 def select(platform: str = "gpu") -> torch.device:

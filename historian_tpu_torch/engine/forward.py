@@ -18,23 +18,28 @@ forward.h:11-227, forward.cpp).
 
 A merge fills in one of three ways, tried in order:
 
-- `_fill_device`: every chain-x merge runs the resident fill and trace
-  walks of ops/devicedp.py on the selected device (K1 or K2 and the
-  walker on the card, their plain PyTorch versions on the CPU);
+- `_fill_device`: every chain-x merge fills on the selected device (K1
+  or K2 of ops/devicedp.py on the card, their plain PyTorch versions on
+  the CPU).  A merge whose traces alone are wanted (`defer_cells`, no
+  `sumprod`) keeps its planes there and walks them there (the resident
+  route); a merge whose whole band the host reads (the BackwardMatrix,
+  counts) gets its in-envelope cells back in one copy and then runs on
+  the host like a host fill (the full-band route, in float64: see
+  `device.FULLBAND_DTYPE`);
 - `_fill_native`: the native host fill (csrc/fill.cpp), for merges whose
-  x is not a chain (a sampled profile: the JAX package keeps DAG x DAG
-  merges on the host by default) or with an empty profile; their traces
-  are walked on the host (`sample_trace`, `best_trace`);
+  x is not a chain (a sampled or posterior profile: the JAX package
+  keeps DAG x DAG merges on the host by default) or with an empty
+  profile; their traces are walked on the host (`sample_trace`,
+  `best_trace`);
 - the python fill below, when the native runtime is off.
 
-`FILLS` counts the fills on each route.  Either route's sampled traces
+`FILLS` counts the fills on each route.  Every route's sampled traces
 take the run's mt19937 draws in the reference's order.  The JAX
 package's fill router (its dispatch probes, host-rate bookkeeping, the
 cost model `merge_on_device` and the mesh-sharded `_fill_sp`) is not
-ported: on the device, every chain-x merge fills there.  Full-band
-consumers of a merge (BackwardMatrix, counts) raise NotImplementedError
-naming their ROADMAP item.  Graph surgery (profile construction, chain
-collapse) stays on the host.
+ported: on the device, every chain-x merge fills there.  Graph surgery
+(profile construction, chain collapse) and the BackwardMatrix stay on
+the host.
 """
 
 from __future__ import annotations
@@ -75,10 +80,11 @@ from historian_tpu_torch.utils.rng import MT19937
 
 NEG_INF = -np.inf
 
-#: fills of ForwardMatrix by route, band-doubling retries included:
-#: "device" (K1 or K2 and the walker) or "host" (csrc/fill.cpp, or the
-#: python fill, with host walks)
-FILLS = {"device": 0, "host": 0}
+#: fills of ForwardMatrix by route (`ForwardMatrix.route`), band-doubling
+#: retries included: "device" (K1 or K2 with the planes kept resident, and
+#: the walker), "fullband" (K1 or K2, the band read back to the host) or
+#: "host" (csrc/fill.cpp, or the python fill); the last two walk on the host
+FILLS = {"device": 0, "fullband": 0, "host": 0}
 #: sampled traces walked on each route, and the mt19937 uniforms that
 #: sample_profile consumed for them
 SAMPLED = {"device_walks": 0, "host_walks": 0, "draws": 0}
@@ -492,26 +498,37 @@ class ForwardMatrix(DPMatrix):
     def _fill_device(self) -> bool:
         """The fill on the selected device, for every merge whose x is a
         chain (every leaf merge, every `-fast` merge, and a chain x against
-        a sampled-profile y): the cells stay on the device, tracebacks are
-        walked there, and only the visited cells come back
-        (`_device_traces`).  False for an empty profile, which has no grid,
-        and for an x that is not a chain (a sampled profile), as the JAX
-        package routes DAG x DAG merges by default: the merge then fills
-        on the host and walks there."""
+        a sampled or posterior y).  With `defer_cells` and no `sumprod`,
+        the planes stay on the device, tracebacks are walked there, and
+        only the visited cells come back (`_device_traces`); otherwise the
+        band comes back to the host grid in one copy and the merge goes on
+        as a host fill (the JAX package's `col_forward_cells` and
+        `chain_forward_cells`).  False for an empty profile, which has no
+        grid, and for an x that is not a chain, as the JAX package routes
+        DAG x DAG merges by default: the merge then fills on the host and
+        walks there."""
         if self.x_empty or self.y_empty or self.x.as_chain() is None:
             return False
-        if not self._defer_cells or self.sumprod is not None:
-            raise NotImplementedError(
-                "full-band consumers of a merge (BackwardMatrix, counts) are not "
-                "ported yet (ROADMAP queue 1 item 'full-readback/BackwardMatrix')"
-            )
         dev = devmod.current()
-        self._trace_handle = devicedp.col_forward_device(self, dev, devmod.fill_dtype(dev))
-        self.cells = None
-        self._lp_end = None  # lazy: the handle's end gather on first access
         self.start_cell = (0, 0, IMM)
         self.end_cell = (self.x_size - 1, self.y_size - 1, EEE)
+        if self._defer_cells and self.sumprod is None:
+            self.route = "device"
+            self._trace_handle = devicedp.col_forward_device(self, dev, devmod.fill_dtype(dev))
+            self.cells = None
+            self._lp_end = None  # lazy: the handle's end gather on first access
+            return True
+        self.route = "fullband"
+        self.cells = self._empty_cells()
+        devicedp.col_forward_cells(self, dev, devmod.FULLBAND_DTYPE, self.cells)
+        self._finish_fill()
         return True
+
+    def _empty_cells(self) -> np.ndarray:
+        """The pooled host grid [x_size, y_size, 5], every cell -inf."""
+        cells = bufpool.get(self._pool_role, (self.x_size, self.y_size, 5), self)
+        cells.fill(NEG_INF)
+        return cells
 
     def _fill_native(self) -> bool:
         """Run the fill through the native host runtime; False if unavailable."""
@@ -564,14 +581,12 @@ class ForwardMatrix(DPMatrix):
 
     # ------------------------------------------------------------------- fill
     def _fill(self) -> None:
-        if self._fill_device():
-            FILLS["device"] += 1
+        self.route = "host"
+        filled = self._fill_device() or self._fill_native()
+        FILLS[self.route] += 1
+        if filled:
             return
-        FILLS["host"] += 1
-        if self._fill_native():
-            return
-        self.cells = bufpool.get(self._pool_role, (self.x_size, self.y_size, 5), self)
-        self.cells.fill(NEG_INF)
+        self.cells = self._empty_cells()
         hmm = self.hmm
         x, y = self.x, self.y
         sx, sy = self.x_size, self.y_size
@@ -773,14 +788,13 @@ class ForwardMatrix(DPMatrix):
 
     # ------------------------------------------------- device-resident fills
     def ensure_cells(self) -> None:
-        """Materialize host cells from a device-resident fill, for
+        """Read the band of a device-resident fill into the host grid, for
         full-band consumers (BackwardMatrix, host traceback walks)."""
         if self.cells is not None or self._trace_handle is None:
             return
-        cells_np = self._trace_handle.readback()
-        self.cells = bufpool.get(self._pool_role, (self.x_size, self.y_size, 5), self)
-        self.cells.fill(NEG_INF)
-        self.cells[: self.x_size - 1, : self.y_size - 1] = cells_np
+        cells = self._empty_cells()
+        devicedp.read_band(self._trace_handle.planes, self, cells)
+        self.cells = cells
 
     def _cell_value(self, c) -> float:
         """cells[c], answered from the device-trace readback when the

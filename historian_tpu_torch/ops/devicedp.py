@@ -1,9 +1,10 @@
-"""The merge bridge: profiles -> resident fill planes -> traces.
+"""The merge bridge: profiles -> fill planes -> traces or host cells.
 
 Port of the resident, factored, vector-mask route of
 historian_tpu/ops/devicedp.py (`col_forward_device` ->
 `col_forward_cells(keep=True)` -> `_oneshot_vecmask_pallas`, and
-`DeviceTraceFill`):
+`DeviceTraceFill`), and of its full-readback route (`col_forward_cells`
+on `_oneshot_idx_pallas`, and `chain_forward_cells`):
 
 1. the host builds the y in-edge tables, the x vectors with the chain
    lp folded in, the emission factors and the envelope's O(L) vectors
@@ -14,13 +15,20 @@ historian_tpu/ops/devicedp.py (`col_forward_device` ->
    switch, kernel K2 builds the emission and the mask itself from the
    packed O(L) vectors and fills the planes (`fill_planes_fused`), so
    no [SY, SX] emission or mask plane exists;
-3. `TorchTraceFill` keeps the planes resident and answers lp_end and the
-   trace walks there; only the visited cells come back to the host.
+3. either `TorchTraceFill` keeps the planes resident and answers lp_end
+   and the trace walks there, so that only the visited cells come back
+   to the host; or, for a merge whose whole band the host reads (the
+   BackwardMatrix, counts), `col_forward_cells` gathers the in-envelope
+   cells on the device and copies them to the host once (`read_band`).
+   A chain y is a DAG y whose states have one in-edge each, so chain x
+   chain merges take this route too: the JAX package's separate
+   chain x chain scan needs no kernel of its own.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -37,6 +45,8 @@ from historian_tpu_torch.ops.tracedp import end_lp, pair_trace
 NEG = -1e30
 #: values below this are the semiring zero; the host reads them as -inf
 NEG_CUTOFF = -1e25
+#: one entry a band read back to the host (`read_band`)
+READBACKS: list = []
 
 
 def _clamp(a, dtype=np.float64) -> np.ndarray:
@@ -183,22 +193,82 @@ def _check_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype,
         )
 
 
-def col_forward_device(dp, device: torch.device, dtype: torch.dtype) -> "TorchTraceFill":
-    """Fill a chain-x merge on `device` and keep the planes there."""
+def fill_merge(dp, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Fill a chain-x merge on `device`: the planes [5, SY, SX], by K1, or
+    by K2 under HISTORIAN_PALLAS_FUSED=1."""
     arrays = fill_arrays(dp)
     fused = fused_enabled()
     _check_budget(device, arrays["ny"], arrays["nx"], dtype, fused)
     if fused:
-        planes = fill_planes_fused(convert.fused_tensors(arrays, device, dtype))
+        return fill_planes_fused(convert.fused_tensors(arrays, device, dtype))
+    return fill_planes(convert.fill_tensors(arrays, device, dtype))
+
+
+def col_forward_device(dp, device: torch.device, dtype: torch.dtype) -> "TorchTraceFill":
+    """Fill a chain-x merge on `device` and keep the planes there."""
+    return TorchTraceFill(dp, fill_merge(dp, device, dtype), walk_arrays(dp))
+
+
+def col_forward_cells(dp, device: torch.device, dtype: torch.dtype, out: np.ndarray) -> None:
+    """Fill a chain-x merge on `device` and read its band into the host
+    grid `out` [x_size, y_size, 5] (float64, filled with -inf by the
+    caller)."""
+    read_band(fill_merge(dp, device, dtype), dp, out)
+
+
+def band_index(dp) -> np.ndarray | None:
+    """Flat indices into the [SY, SX] planes of the merge's in-envelope
+    cells, in the row-major order of the host grid's envelope mask (the
+    JAX package's `_mask_idx` over the transposed grid); None when the
+    merge has no envelope and every cell is in the band."""
+    if dp.env_vectors is None:
+        return None
+    nx, ny = dp.x_size - 1, dp.y_size - 1
+    ii, jj = np.nonzero(dp.env_mask[:nx, :ny])
+    return jj.astype(np.int64) * nx + ii
+
+
+def read_band(planes: torch.Tensor, dp, out: np.ndarray) -> None:
+    """Gather the merge's in-envelope cells on the device, copy them to the
+    host once (into pinned memory on the card) and scatter them into the
+    host grid `out`; cells below NEG_CUTOFF read as -inf, as the JAX
+    package's `_expand_cells` reads them.  Appends to READBACKS the cells,
+    the bytes copied and the ms of the gather and the copy (CUDA events on
+    the card)."""
+    nx, ny = dp.x_size - 1, dp.y_size - 1
+    idx = band_index(dp)
+    n = nx * ny if idx is None else len(idx)
+    cuda = planes.device.type == "cuda"
+    idx_d = None if idx is None else torch.as_tensor(idx, device=planes.device)
+    host = torch.empty((5, n), dtype=planes.dtype, pin_memory=cuda)
+    if cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
     else:
-        planes = fill_planes(convert.fill_tensors(arrays, device, dtype))
-    return TorchTraceFill(dp, planes, walk_arrays(dp))
+        t0 = time.perf_counter()
+    # the JAX package's `planes.reshape(5, -1).T[idx]`, state-major: [5, n]
+    vals = planes.reshape(5, -1)
+    host.copy_(vals if idx_d is None else vals.index_select(1, idx_d), non_blocking=cuda)
+    if cuda:
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+    READBACKS.append(dict(cells=n, bytes=host.numel() * host.element_size(), ms=ms))
+    v = host.numpy().astype(np.float64)
+    v[v < NEG_CUTOFF] = -np.inf
+    if idx is None:
+        out[:nx, :ny] = v.reshape(5, ny, nx).transpose(2, 1, 0)
+    else:
+        out[:nx, :ny][dp.env_mask[:nx, :ny]] = v.T
 
 
 class TorchTraceFill:
     """Device-resident fill handle with the interface engine/forward.py
     calls on the JAX package's DeviceTraceFill: dispatch_lp_end, lp_end,
-    dispatch_traces, collect_traces, lp_end_and_traces, readback."""
+    dispatch_traces, collect_traces, lp_end_and_traces; a host consumer
+    of the whole band reads it from `planes` (`read_band`)."""
 
     def __init__(self, dp, planes: torch.Tensor, walk: dict):
         self.dp = dp
@@ -208,7 +278,6 @@ class TorchTraceFill:
         self.n_steps_max = self.nx + self.ny
         self._lp_end = None
         self._lp_end_dev = None
-        self._cells_np = None
 
     def dispatch_lp_end(self) -> None:
         """Enqueue the end gather without waiting for it."""
@@ -268,12 +337,3 @@ class TorchTraceFill:
         raw = self.dispatch_traces(n_samples, include_best, uniforms)
         traces = self.collect_traces(raw, n_samples, include_best)
         return self.lp_end, traces
-
-    def readback(self) -> np.ndarray:
-        """The whole cell tensor [nx, ny, 5] on the host, -inf outside the
-        band and at unreachable cells."""
-        if self._cells_np is None:
-            cells = self.planes.permute(2, 1, 0).cpu().numpy().astype(np.float64)
-            cells[cells < NEG_CUTOFF] = -np.inf
-            self._cells_np = cells
-        return self._cells_np

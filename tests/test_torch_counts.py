@@ -222,9 +222,17 @@ def test_fit_checkpoint_resumes(recons, tmp_path):
 
 
 @pytest.mark.parametrize("command", ["count", "fit"])
-def test_unaligned_input_raises(tmp_path, command):
-    from historian_tpu_torch import cli
+def test_unaligned_input_raises(tmp_path, command, monkeypatch):
+    """`count` and `fit` on input that is not a reconstruction no longer
+    raise: like the JAX package, they reconstruct it (`-fast`) and count
+    while merging, through the root's BackwardMatrix; the output is the
+    JAX package's (its host route), byte for byte."""
+    from tests.test_torch_sampled import MEMSIZE
 
+    monkeypatch.setenv("HISTORIAN_DEVICE_DP", "0")
+    monkeypatch.setenv("HISTORIAN_MEMSIZE", MEMSIZE)
     fa, _ = write_small4(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cli.main([command, "-platform", "cpu", "-fast", fa])
+    argv = [command, "-fast", *(["-maxiter", "2"] if command == "fit" else []), fa]
+    got = run(PORT_ROOT, *argv)
+    assert got == run(JAX_ROOT, *argv)
+    assert '"insrate"' in got if command == "fit" else parse(got)["indel"]["ins"] > 0

@@ -690,3 +690,122 @@ def test_sumprod_passes_on_card_match_cpu(cuda, name):
     assert got["anc"] == ref["anc"]
     for k in ("root", "eig"):
         np.testing.assert_allclose(got[k], ref[k], rtol=SP_RTOL, atol=1e-12 * np.abs(ref[k]).max())
+
+
+# -------------------------------------------------------------- full band
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fullband_gather_matches_full_readback(cuda, dtype):
+    """The full-band route's readback (ops/devicedp.py `read_band`: the
+    in-envelope cells gathered on the card, one copy into pinned memory,
+    scattered into the host grid) against the whole planes copied to the
+    host: the band's cells bit for bit (the semiring zero read as -inf),
+    every other cell -inf; with no envelope, every cell."""
+    from historian_tpu_torch.ops import devicedp
+
+    S = 1500
+    args, _ = _k1_args(S, 4, dtype, cuda)
+    planes = colforward.col_forward_planes(*args)
+    mask = np.abs(np.arange(S)[:, None] - np.arange(S)[None, :]) < 20  # [nx, ny]
+
+    class Merge:  # the attributes read_band reads of a DPMatrix
+        x_size = y_size = S + 1
+        env_mask, env_vectors = np.pad(mask, ((0, 1), (0, 1))), ()
+
+    full = planes.permute(2, 1, 0).cpu().double().numpy()
+    full[full < devicedp.NEG_CUTOFF] = -np.inf
+    n_read = len(devicedp.READBACKS)
+    out = np.full((S + 1, S + 1, 5), -np.inf)
+    devicedp.read_band(planes, Merge, out)
+    np.testing.assert_array_equal(out[:S, :S][mask], full[mask])
+    assert np.isneginf(out[:S, :S][~mask]).all() and np.isfinite(full[mask]).any()
+    read = devicedp.READBACKS[-1]
+    assert len(devicedp.READBACKS) == n_read + 1 and read["cells"] == mask.sum()
+    assert read["bytes"] == mask.sum() * 5 * planes.element_size() and read["ms"] > 0
+    Merge.env_vectors = None
+    out[:] = -np.inf
+    devicedp.read_band(planes, Merge, out)
+    np.testing.assert_array_equal(out[:S, :S], full)
+
+
+def _port_merge(kind):
+    """A merge of the port's own classes (this file imports no jax): a leaf
+    of tests/data/long8.fa cut to 300 aa against another leaf ("chain") or
+    against a sampled profile of two more leaves ("dag", built on the
+    CPU), with the sum-product engine of its tree."""
+    from historian_tpu_torch.core.seqs import read_fasta
+    from historian_tpu_torch.core.tree import Tree
+    from historian_tpu_torch.engine import forward
+    from historian_tpu_torch.engine.pairhmm import PairHMM
+    from historian_tpu_torch.engine.profile import Profile
+    from historian_tpu_torch.engine.sumprod import SumProductEngine
+    from historian_tpu_torch.models.presets import named_model
+    from historian_tpu_torch.models.ratemodel import ProbModel
+    from historian_tpu_torch.utils.rng import MT19937
+
+    tree = Tree("(t2:0.15,(t0:0.3,t1:0.2)n:0.25)r;" if kind == "dag" else "(t0:0.12,t1:0.2)r;")
+    model = named_model("lg")
+    seqs = read_fasta(os.path.join(os.path.dirname(__file__), "data", "long8.fa"))[:3]
+    by_name = {f"t{k}": s for k, s in enumerate(seqs)}
+    for s in seqs:
+        s.seq = s.seq[:300]
+    strategy = (forward.COLLAPSE_CHAINS | forward.COUNT_SUBST_EVENTS
+                | forward.COUNT_INDEL_EVENTS | forward.INCLUDE_BEST_TRACE)
+    sumprod = SumProductEngine(model, tree)
+
+    def hmm(node):
+        l, r = tree.children(node)
+        return PairHMM(ProbModel(model, tree.branch_length(l)),
+                       ProbModel(model, tree.branch_length(r)), model.ins_prob)
+
+    prof = {}
+    for node in range(tree.n_nodes()):
+        if tree.is_leaf(node):
+            prof[node] = Profile.from_sequence(model.components, model.alphabet,
+                                               by_name[tree.node_name(node)], node)
+        elif node != tree.root():
+            l, r = tree.children(node)
+            child = forward.ForwardMatrix(prof[l], prof[r], hmm(node), node, None, sumprod)
+            prof[node] = child.sample_profile(MT19937(5489), 10, 0, strategy)
+    l, r = tree.children(tree.root())
+    return prof[l], prof[r], hmm(tree.root()), tree.root(), sumprod, strategy
+
+
+@pytest.mark.parametrize("kind", ["chain", "dag"])
+def test_card_backward_matches_cpu(cuda, kind):
+    """A full-band merge on the card (K1 in float64, the band read back)
+    against the same merge on the CPU (K1's plain version): the Forward and
+    Backward cells to 1e-9, the same posterior and best profiles, and the
+    expected counts to 1e-9."""
+    from historian_tpu_torch import device
+    from historian_tpu_torch.engine import forward
+
+    device.select("cpu")
+    x, y, hmm, row, sumprod, strategy = _port_merge(kind)
+    out = {}
+    try:
+        for platform in ("gpu", "cpu"):
+            device.select(platform)
+            before = colforward.LAUNCHES
+            fwd = forward.ForwardMatrix(x, y, hmm, row, None, sumprod)
+            assert fwd.route == "fullband"
+            assert colforward.LAUNCHES == before + (platform == "gpu")
+            bwd = forward.BackwardMatrix(fwd)
+            out[platform] = dict(
+                fwd=fwd.cells.copy(), bwd=bwd.cells.copy(), lp=fwd.lp_end, start=bwd.lp_start,
+                post=bwd.post_prob_profile(0.01, 0, strategy).to_json(),
+                best=bwd.best_profile(strategy).to_json(), counts=bwd.get_counts())
+            del fwd, bwd
+    finally:
+        device.select("cpu")
+    got, ref = out["gpu"], out["cpu"]
+    for k in ("fwd", "bwd"):
+        assert np.array_equal(np.isfinite(got[k]), np.isfinite(ref[k]))
+        live = np.isfinite(ref[k])
+        np.testing.assert_allclose(got[k][live], ref[k][live], rtol=1e-9, atol=1e-9)
+    assert got["lp"] == pytest.approx(ref["lp"], rel=1e-12)
+    assert got["start"] == pytest.approx(ref["start"], rel=1e-12)
+    assert got["post"] == ref["post"] and got["best"] == ref["best"]
+    for k in ("root_count", "eigen_count"):
+        np.testing.assert_allclose(getattr(got["counts"], k), getattr(ref["counts"], k),
+                                   rtol=1e-9, atol=1e-12)
+    assert got["counts"].indel.ins == pytest.approx(ref["counts"].indel.ins, rel=1e-9)

@@ -107,12 +107,14 @@ def test_band_doubling_ladder_matches_jax(tmp_path, monkeypatch):
 
 
 def test_unported_paths_raise(small4):
+    """-refine (also from -careful, which ends in it) and -rootlen name
+    their ROADMAP items."""
     from historian_tpu_torch import cli
 
     args, _ = small4
     for argv, item in ((args + ["-refine"], "item 6, MCMC/refiner"),
                        (args + ["-rootlen", "50"], "item 5, generate"),
-                       (["-careful", *args[1:]], "item 3, full-readback/BackwardMatrix")):
+                       (["-careful", *args[1:]], "item 6, MCMC/refiner")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["recon", "-platform", "cpu", *argv])
 

@@ -16,7 +16,7 @@ MODULES = {
     "seqs": "core.seqs", "alignpath": "core.alignpath", "tree": "core.tree",
     "diagenv": "engine.diagenv", "forward": "engine.forward", "pairhmm": "engine.pairhmm",
     "profile": "engine.profile", "presets": "models.presets", "ratemodel": "models.ratemodel",
-    "rng": "utils.rng",
+    "rng": "utils.rng", "seqgraph": "engine.seqgraph", "sumprod": "engine.sumprod",
 }
 
 
