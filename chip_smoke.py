@@ -88,8 +88,8 @@ Phases, each fatal on failure (nothing is caught):
       default and the fused route, `recon -profminpost 0.01 -savedot F
       -dotpost 0.02` (alignment and dot file) and `count` on unaligned small6,
       each with its merges on each route and readback bytes; then
-      tests/data/long6.fa (6 x ~6000 aa) `recon -careful -norefine` in
-      float32 (its full-band merges in float64), the main path's run: the
+      tests/data/long6.fa (6 x ~6000 aa) `recon -careful` in float32 (its
+      full-band merges and branch fills in float64), the main path's run: the
       guide kernel over every diagonal of all 15 pairs, K1's launches and
       ms, each merge's readback bytes and ms beside its bound (bytes over
       the pinned card-to-host rate measured in the same call), the
@@ -98,15 +98,31 @@ Phases, each fatal on failure (nothing is caught):
       posteriors of a float32 fill against the float64 one (the largest of
       each, their largest difference, the cells that cross the 0.001 cut;
       float64's at most 1 + 1e-6); then long6 in float64 from the float32
-      run's saved guide and tree, `#=GF LP` within 50 nats.  Prints a
-      {"readback": ...} JSON line.
-Prints the Felsenstein times and the readbacks as JSON lines, the kernel
-table as one JSON line, the card line, and last
+      run's saved guide and tree with `-norefine`, `#=GF LP` within 50
+      nats of the float32 run's LP before refining.  The float32 run's
+      refiner prints its refine steps and improvements, LP
+      before and after, kernel (e)'s launches (every step's fill) and ms,
+      each branch band's readback bytes and ms, and the refiner's seconds
+      by phase and on the host; and first the lane strips K1 and K2 hold
+      resident at once (colforward_capacity_*, both dtypes).  Prints a
+      {"readback": ...} JSON line;
+  (m) kernel (e), the branch fill: small6 `recon -careful` in
+      float64 on the card, every refine step's fill on the kernel
+      (HISTORIAN_DEVICE_BRANCH=1) and on the automatic route (these fills,
+      below 2e6 state-cells, on the host), each byte-identical to the CPU
+      run; then the kernel against its plain version and against
+      csrc/fill.cpp (Viterbi bit for bit) in both modes, at the forced
+      small6 run's first fill and at (l)'s first long6 fill (6000-odd
+      squared), with ms, the plain version's and fill.cpp's ms and the
+      bound.  Prints a {"branchfill": ...} JSON line.
+Prints the Felsenstein times, the readbacks and the branch fills as JSON
+lines, the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A kernel's
 `launches` sums the main-path runs that drive it, each counted from 0:
 K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32, K2 in (h) fused
 and (l) small6 fused, the guide kernel in (h) fused, (j) long12 f32 and
-(l) long6 f32, the walker in (e) and (j) long12 f32.
+(l) long6 f32, the walker in (e) and (j) long12 f32, kernel (e) in (l)
+long6 f32.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -161,6 +177,15 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 K1_OPS_PER_CELL = 156  # chain y: 61 adds and maxima, 19 log-sum-exps
 PF_OPS_PER_CELL = 91  # K3/K4: 26 adds, maxima and compares, 13 log-sum-exps
 GUIDE_OPS_PER_CELL = 20  # three-state Viterbi step with its back-pointer choice
+#: kernel (e), an in-mask cell: Viterbi 10 adds and 5 maxima; Forward 10
+#: adds and 5 log-sum-exps
+BRANCH_VITERBI_OPS = 15
+BRANCH_FORWARD_OPS = 35
+#: kernel (e) against its plain version (and Forward against fill.cpp):
+#: relative, on the cells above the semiring zero; the plain version's
+#: Delete scan (base - x dd, then + x dd) and the card's exp and log1p
+#: round otherwise than the kernel's per-cell order
+BRANCH_RTOL = 1e-12
 
 
 def nbytes(*tensors) -> int:
@@ -452,6 +477,7 @@ def phase_e2e(cli, colforward, tracedp) -> dict:
         cpu = run_cli(cli, ["-platform", "cpu", *small], "f64")
     if gpu != cpu:
         raise AssertionError("small4 f64: card output differs from the CPU output")
+    none_oversized("(e) small4")
     rows, lp = stockholm_rows_lp(gpu)
     print(f"(e) small4 f64 card == cpu, {len(rows)} rows, LP {lp}", flush=True)
 
@@ -470,6 +496,7 @@ def phase_e2e(cli, colforward, tracedp) -> dict:
         raise AssertionError(f"long12: {len(rows)} rows, LP {lp}")
     if launches["colforward"] != 11 or launches["pairtrace"] < 11:
         raise AssertionError(f"long12 launches {launches}")
+    none_oversized("(e) long12")
     print(f"(e) long12 -fast -noband f32: {len(rows)} rows, LP {lp}, wall {wall:.2f} s, "
           f"launches {launches}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -635,6 +662,7 @@ def phase_guide_e2e(cli, colforward, tracedp, guidedp) -> dict:
             if gpu != cpu:
                 raise AssertionError(f"small6 f64 fused={fused}: card output differs from "
                                      "the CPU output")
+            none_oversized(f"(h) small6 fused={fused}")
             counts = (colforward.LAUNCHES, colforward.FUSED_LAUNCHES, guidedp.LAUNCHES)
             rows, lp = stockholm_rows_lp(gpu)
             print(f"(h) small6 -fast (no tree) f64 fused={fused}: card == cpu, {len(rows)} rows, "
@@ -661,6 +689,7 @@ def phase_guide_e2e(cli, colforward, tracedp, guidedp) -> dict:
         rows, lp = stockholm_rows_lp(out)
         if len(rows) != 23 or not math.isfinite(lp) or "#=GF NH" not in out:
             raise AssertionError(f"long12 {route}: {len(rows)} rows, LP {lp}")
+        none_oversized(f"(h) long12 {route}")
         fill, other = (("colforward_fused", "colforward") if fused == "1"
                        else ("colforward", "colforward_fused"))
         if (launches[other] != 0 or launches[fill] < 11
@@ -766,16 +795,38 @@ def fill_log(forward):
         forward.ForwardMatrix._fill = fill
 
 
+def none_oversized(what: str) -> None:
+    """No merge of the runs so far left the card for the host because it
+    did not fit (recon.MERGES and forward.FILLS "oversized")."""
+    from historian_tpu_torch import recon
+    from historian_tpu_torch.engine import forward
+
+    if recon.MERGES["oversized"] or forward.FILLS["oversized"]:
+        raise AssertionError(f"{what}: a merge did not fit the card and filled on the host: "
+                             f"merges {recon.MERGES}, fills {forward.FILLS}")
+
+
 def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
+    """The launch and route counters since `zero_counts`; fails if a merge
+    took the oversized route."""
+    from historian_tpu_torch.engine import branchmatrix
+    from historian_tpu_torch.ops import branchdp
+
+    none_oversized("recon")
     return dict(colforward=colforward.LAUNCHES, colforward_fused=colforward.FUSED_LAUNCHES,
                 pairtrace=tracedp.LAUNCHES, guidealign=guidedp.LAUNCHES,
-                merges=dict(recon.MERGES), fills=dict(forward.FILLS),
-                sampled=dict(forward.SAMPLED))
+                branchfill=branchdp.LAUNCHES, merges=dict(recon.MERGES),
+                fills=dict(forward.FILLS), sampled=dict(forward.SAMPLED),
+                branch_fills=dict(branchmatrix.FILLS))
 
 
 def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
+    from historian_tpu_torch.engine import branchmatrix
+    from historian_tpu_torch.ops import branchdp
+
     colforward.LAUNCHES = colforward.FUSED_LAUNCHES = tracedp.LAUNCHES = guidedp.LAUNCHES = 0
-    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED):
+    branchdp.LAUNCHES = 0
+    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS):
         for k in d:
             d[k] = 0
 
@@ -1112,7 +1163,12 @@ def phase_counts(cli, work: str) -> dict:
     # ancestral prediction on the card from (j)'s guide, f32 merges
     out, wall, routes, rc = timed("gpu", ["-ancseq", "-ancprob", "-stockholm",
                                           os.path.join(work, "long12_guide.sto")], "recon", "f32")
-    if routes != {"fill:cuda": 1, "down:cuda": 1, "post:cuda": 1}:
+    # the ancestral fill on the card, then the `#=GF LP` rescore's fill of
+    # the distinct columns (engine/treealign.py log_likelihood; on the host
+    # below 2^17 column-node cells, as in the JAX package)
+    fills = routes.get("fill:cuda", 0) + routes.get("fill:native", 0)
+    if (routes.get("fill:cuda", 0) < 1 or fills != 2 or routes.get("down:cuda") != 1
+            or routes.get("post:cuda") != 1 or len(routes) > 4):
         raise AssertionError(f"long12 -ancseq: routes {routes}")
     with open(recon_path) as f:
         j_rows = dict(ln.split() for ln in f.read().splitlines()
@@ -1324,24 +1380,31 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
     card == CPU byte for byte: `recon -careful -norefine` on the default
     and the fused (K2) route, `recon -profminpost 0.01 -savedot F -dotpost 0.02`
     (the alignment and the dot file), `count` on the unaligned input; each
-    prints its merges on each route and its readback bytes.  Then long6
-    (tests/data/long6.fa, 6 x 5961-6087 aa) `recon -careful -norefine` in
-    float32 on the card, the main path's run (its full-band merges fill in
-    float64, `device.FULLBAND_DTYPE`): wall, the guide kernel's ms at the
+    prints its merges on each route and its readback bytes.  First the
+    strip capacities of K1 and K2.  Then long6 (tests/data/long6.fa, 6 x
+    5961-6087 aa) `recon -careful` in float32 on the card, the main path's
+    run (its full-band merges fill in float64, `device.FULLBAND_DTYPE`,
+    then the refiner, `refine_summary`): wall, the guide kernel's ms at the
     full envelope, K1's launches and ms, each merge's readback bytes and ms
     beside its bound (bytes over the pinned card-to-host rate measured
     here), the BackwardMatrix and posterior-profile host seconds, the
     posterior profiles' sizes, peak device and host memory.  At its first
     leaf merge, the posteriors of a float32 fill against the float64 one
     (`posterior_error`); the float64 posteriors must stay within 1 +
-    POST_SLACK.  Then long6 in float64 from the float32 run's saved guide
-    and tree: the two `#=GF LP` within F32_LP_DRIFT.  Returns the float32
-    run's launches and the fused small6 run's K2 launches."""
+    POST_SLACK.  Then long6 `-careful -norefine` in float64 from the
+    float32 run's saved guide and tree: its `#=GF LP` within F32_LP_DRIFT
+    of the float32 run's before refining.  Returns the float32 run's
+    launches, the fused small6 run's K2 launches and the float32 run's
+    first branch fill's arguments (emit, ins, mask, trans, on the card) and
+    its first BranchMatrix's (the refine step's PWMs and envelope)."""
     from historian_tpu_torch import recon
     from historian_tpu_torch.engine import forward, quickalign
-    from historian_tpu_torch.ops import devicedp
+    from historian_tpu_torch.ops import branchdp, devicedp, readback
+    from historian_tpu_torch.sampler import refiner
 
     counters = (recon, forward, colforward, tracedp, guidedp)
+    caps = strip_capacities(colforward)
+    print(f"(l) strips resident at once: {caps}", flush=True)
     rate = d2h_bytes_per_s()
     print(f"(l) card-to-host copy into pinned memory: {rate / 1e9:.2f} GB/s", flush=True)
     with tempfile.TemporaryDirectory() as d:
@@ -1358,14 +1421,14 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
             outs = {}
             for platform in ("cpu", "gpu"):
                 zero_counts(*counters)
-                n_read = len(devicedp.READBACKS)
+                n_read = len(readback.READBACKS)
                 argv = [a.replace("{dot}", dots[platform]) for a in args]
                 outs[platform] = run_cli(cli, ["-platform", platform, *argv], "f64", command)
                 if "{dot}" in args:
                     with open(dots[platform]) as f:
                         outs[platform] += f.read()
             counts = recon_counts(*counters)
-            reads = devicedp.READBACKS[n_read:]
+            reads = merge_reads(readback.READBACKS[n_read:])
             if outs["gpu"] != outs["cpu"]:
                 raise AssertionError(f"small6 {what} f64: card output differs from the CPU's")
             fill = "colforward_fused" if fused == "1" else "colforward"
@@ -1380,8 +1443,10 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         del os.environ["HISTORIAN_PALLAS_FUSED"]
 
     guide = os.path.join(work, "long6_guide.sto")
-    inputs = {"f32": ["-saveguide", guide, os.path.join(REPO, "tests", "data", "long6.fa")],
-              "f64": ["-stockholm", guide]}
+    inputs = {"f32": ["-careful", "-saveguide", guide,
+                      os.path.join(REPO, "tests", "data", "long6.fa")],
+              "f64": ["-careful", "-norefine", "-stockholm", guide]}
+    labels = {"f32": "-careful", "f64": "-careful -norefine (from the f32 run's guide)"}
     runs, first = {}, []
     fullband = devicedp.col_forward_cells
 
@@ -1394,24 +1459,35 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(*counters)
-        n_read = len(devicedp.READBACKS)
+        n_read = len(readback.READBACKS)
         devicedp.col_forward_cells = capture
+        refiner.LAST.clear()
         t0 = time.perf_counter()
         try:
             with cuda_timed(quickalign, "guide_align") as guide_ev, \
                     cuda_timed(devicedp, "col_forward_planes") as k1_ev, \
+                    first_call(branchdp, "branch_fill") as branch_args, \
+                    first_call(refiner, "BranchMatrix") as matrix_args, \
+                    cuda_timed(branchdp, "branch_fill") as branch_ev, \
                     host_timed(forward.BackwardMatrix, "__init__") as bwd_t, \
                     host_timed(forward.BackwardMatrix, "post_prob_profile") as prof_t, \
                     peak_host_memory() as host_mem:
-                out = run_cli(cli, ["-platform", "gpu", "-careful", "-norefine",
-                                    *inputs[dtype]], dtype)
+                out = run_cli(cli, ["-platform", "gpu", *inputs[dtype]], dtype)
                 torch.cuda.synchronize()
         finally:
             devicedp.col_forward_cells = fullband
         wall = time.perf_counter() - t0
         counts = recon_counts(*counters)
-        reads = devicedp.READBACKS[n_read:]
+        reads = merge_reads(readback.READBACKS[n_read:])
         rows, lp = stockholm_rows_lp(out)
+        if dtype == "f32":
+            refine = refine_summary(refiner.LAST, counts, lp, branch_ev,
+                                    [r for r in readback.READBACKS[n_read:]
+                                     if r["kind"] == "branch"])
+            branch_inputs = branch_args[0][:4]  # emit, ins, mask, trans
+            matrix_inputs = matrix_args[0]
+        elif counts["branchfill"] or refiner.LAST:
+            raise AssertionError(f"long6 -careful -norefine f64 refined: {counts}")
         if len(rows) != 11 or not math.isfinite(lp) or "#=GF NH" not in out:
             raise AssertionError(f"long6 -careful {dtype}: {len(rows)} rows, LP {lp}")
         if counts["merges"]["fullband"] < 1 or counts["colforward"] < counts["merges"]["fullband"] \
@@ -1419,7 +1495,8 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
             raise AssertionError(f"long6 -careful {dtype}: routes {counts}, {len(reads)} readbacks")
         guide_ms = [a.elapsed_time(b) for a, b in guide_ev]
         k1_ms = [a.elapsed_time(b) for a, b in k1_ev]
-        print(f"(l) long6 recon -careful -norefine {dtype} on the card: {len(rows)} rows, LP {lp}, "
+        print(f"(l) long6 recon {labels[dtype]} {dtype} on the card: "
+              f"{len(rows)} rows, LP {lp}, "
               f"wall {wall:.2f} s, merges {counts['merges']}, fills {counts['fills']}, launches "
               f"K1 {counts['colforward']} K2 {counts['colforward_fused']} walker "
               f"{counts['pairtrace']} guide {counts['guidealign']}; guide kernel "
@@ -1433,11 +1510,11 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
                   f"{r['ms']:.3f} ms, bound {r['bytes'] / rate * 1e3:.3f} ms", flush=True)
         runs[dtype] = dict(lp=lp, counts=counts, wall=wall, guide_ms=guide_ms, k1_ms=k1_ms,
                            readback=readback_summary(reads, rate))
-    drift = abs(runs["f32"]["lp"] - runs["f64"]["lp"])
+    drift = abs(refine["lp_before"] - runs["f64"]["lp"])
     if not drift < F32_LP_DRIFT:
         raise AssertionError(f"long6 -careful: f32 LP is {drift} nats off f64")
-    print(f"(l) long6 -careful f32 LP - f64 LP: {drift:.6f} nats (limit {F32_LP_DRIFT})",
-          flush=True)
+    print(f"(l) long6 -careful f32 LP before refining - f64 -norefine LP: {drift:.6f} nats "
+          f"(limit {F32_LP_DRIFT})", flush=True)
 
     t0 = time.perf_counter()
     err = posterior_error(first[0])
@@ -1452,10 +1529,251 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
     if not err["f64"]["max_post"] <= 1 + POST_SLACK or err["f64"]["fwd_bwd_rel"] > 0.01:
         raise AssertionError(f"long6 first merge: float64 posteriors {err['f64']}")
     print(json.dumps({"readback": dict(
-        d2h_bytes_per_s=rate, posterior=err,
+        d2h_bytes_per_s=rate, posterior=err, strip_capacity=caps, refine=refine,
         **{dtype: dict(run["readback"], wall_s=run["wall"], guide_ms=run["guide_ms"],
                        k1_ms=run["k1_ms"]) for dtype, run in runs.items()})}), flush=True)
-    return dict(f32=runs["f32"]["counts"], fused_k2=k2)
+    return dict(f32=runs["f32"]["counts"], fused_k2=k2, branch_args=branch_inputs,
+                matrix_args=matrix_inputs)
+
+
+def merge_reads(reads: list) -> list:
+    """The full-band merges' readbacks among `reads` (readback.READBACKS)."""
+    return [r for r in reads if r["kind"] == "merge"]
+
+
+def strip_capacities(colforward) -> dict:
+    """colforward_capacity_* and colforward_fused_capacity_*: the lane
+    strips K1 and K2 hold resident at once, in each dtype (K2 at lg's 20
+    emission factors, at both strip widths); a merge needing more strips
+    fills on the host (devicedp.merge_fits)."""
+    dev = torch.cuda.current_device()
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        out[f"colforward_capacity_{tag}"] = colforward._capacity(
+            "colforward", dtype, colforward.STRIP_WIDTH, 0, dev)
+        for ns in (colforward.STRIP_WIDTH, colforward.NARROW_STRIP_WIDTH):
+            out[f"colforward_fused_capacity_{tag}_ns{ns}_ca20"] = colforward._capacity(
+                "colforward_fused", dtype, ns, 20, dev)
+    return out
+
+
+@contextlib.contextmanager
+def first_call(module, name: str):
+    """module.<name> wrapped to keep its first call's positional arguments;
+    yields the list that holds them."""
+    fn = getattr(module, name)
+    box = []
+
+    def keep(*args, **kw):
+        if not box:
+            box.append(args)
+        return fn(*args, **kw)
+
+    setattr(module, name, keep)
+    try:
+        yield box
+    finally:
+        setattr(module, name, fn)
+
+
+def refine_summary(last: dict, counts: dict, lp: float, branch_ev: list, reads: list) -> dict:
+    """The refiner's run in long6 `-careful` f32: steps, improvements, LP
+    before and after, kernel (e)'s launches and ms, the band readbacks,
+    the refiner's seconds by phase and its host seconds (its wall less
+    the kernel's and the copies' ms).  Every step's fill must be on the
+    card (a long6 branch is ~10^8 state-cells), the written LP the
+    refiner's last, and no lower than before it."""
+    kernel_ms = [a.elapsed_time(b) for a, b in branch_ev]
+    sec = last["seconds"]
+    out = dict(steps=last["steps"], improvements=last["improvements"],
+               lp_before=last["lp_before"], lp_after=last["lp_after"],
+               launches=counts["branchfill"], kernel_ms=sum(kernel_ms),
+               kernel_ms_each=kernel_ms, readbacks=len(reads),
+               readback_bytes=sum(r["bytes"] for r in reads),
+               readback_ms=sum(r["ms"] for r in reads), seconds=sec)
+    out["host_s"] = sec["total"] - (out["kernel_ms"] + out["readback_ms"]) / 1e3
+    if not (counts["branchfill"] == last["steps"] == counts["branch_fills"]["device"]
+            == len(reads) and last["steps"] >= 10):
+        raise AssertionError(f"long6 -careful: {last['steps']} refine steps, routes {counts}, "
+                             f"{len(reads)} band readbacks")
+    if f"{last['lp_after']:.6f}" != f"{lp:.6f}" or last["lp_after"] < last["lp_before"]:
+        raise AssertionError(f"long6 -careful: LP {lp}, refiner {last}")
+    print(f"(l) long6 -careful f32 refiner: {out['steps']} steps, {out['improvements']} "
+          f"improvements, LP {out['lp_before']!r} -> {out['lp_after']!r}; kernel (e) "
+          f"{out['launches']} launches, {out['kernel_ms']:.1f} ms in all "
+          f"({min(kernel_ms):.1f}-{max(kernel_ms):.1f} ms each); {len(reads)} band readbacks, "
+          f"{out['readback_bytes']} bytes in {out['readback_ms']:.2f} ms; refiner seconds "
+          f"{ {k: round(v, 3) for k, v in sec.items()} }, host {out['host_s']:.2f} s", flush=True)
+    for k, r in enumerate(reads):
+        print(f"(l) long6 f32 branch readback {k}: {r['cells']} cells, {r['bytes']} bytes in "
+              f"{r['ms']:.3f} ms", flush=True)
+    return out
+
+
+def branch_host(args, viterbi: bool) -> tuple:
+    """csrc/fill.cpp `branch_fill` on host copies of a branch fill's
+    arguments: (cells, ms)."""
+    from historian_tpu_torch.native import get_native
+
+    emit, ins, mask, trans = (a.cpu().numpy() for a in args)
+    cells = np.empty((*emit.shape, 3))
+    t0 = time.perf_counter()
+    get_native().branch_fill(emit.shape[0], emit.shape[1], emit, ins, mask.astype(np.uint8),
+                             trans, np.uint8(viterbi), cells)
+    return cells, (time.perf_counter() - t0) * 1e3
+
+
+def branch_bound(args, viterbi: bool) -> dict:
+    """Kernel (e)'s bound: the mask, the insert vector and the transitions
+    read once, the emission at the in-mask cells only (a cell outside the
+    mask is NEG whatever its emission), the [X+1, Y+1, 3] float64 grid
+    written once; operations on the in-mask cells (a cell outside the mask
+    is only stored)."""
+    emit, ins, mask, trans = args
+    in_mask = int(mask.sum())
+    n_bytes = nbytes(ins, mask, trans) + in_mask * emit.element_size() + emit.numel() * 3 * 8
+    ops = in_mask * (BRANCH_VITERBI_OPS if viterbi else BRANCH_FORWARD_OPS)
+    return bound(n_bytes, ops, torch.float64)
+
+
+def branch_err(what: str, got, ref) -> float:
+    """Identical semiring zeros (below -1e25), then 1e-12 relative on the
+    rest; returns the largest absolute error."""
+    g, r = got.cpu().numpy() if isinstance(got, torch.Tensor) else got, \
+        ref.cpu().numpy() if isinstance(ref, torch.Tensor) else ref
+    live = r > -1e25
+    if not np.array_equal(g > -1e25, live):
+        raise AssertionError(f"{what}: semiring zeros differ")
+    err = np.abs(g[live] - r[live])
+    if not np.all(err <= BRANCH_RTOL * np.maximum(1.0, np.abs(r[live]))):
+        raise AssertionError(f"{what}: off by {err.max()}")
+    return float(err.max()) if err.size else 0.0
+
+
+#: state-cells of the branches on which branch_routes times both routes,
+#: around branchmatrix.DEVICE_MIN_CELLS (2e6)
+ROUTE_SWEEP = (500_000, 1_000_000, 2_000_000, 4_000_000, 8_000_000, 32_000_000)
+
+
+def branch_routes(matrix_args) -> list:
+    """A BranchMatrix end to end, Viterbi, on each route: the host's
+    emission and mask, then the fill and the best traceback, on fill.cpp
+    (HISTORIAN_DEVICE_BRANCH=0) or on the card (=1: the uploads, the NEG
+    grid, kernel (e), the band's search and readback, the traceback
+    through BandCells).  At long6's first refine branch cut to n x n for
+    each of ROUTE_SWEEP's state-cells, and whole; the routes alternate,
+    3 times each, median wall ms.  Both routes must give the same path."""
+    from historian_tpu_torch import device
+    from historian_tpu_torch.engine.branchmatrix import BranchMatrix
+
+    device.select("gpu")
+    model, x_pwm, y_pwm, dist, env, x_pos, y_pos, x_row, y_row = matrix_args
+    out = []
+    for cells in (*ROUTE_SWEEP, None):
+        nx, ny = len(x_pwm), len(y_pwm)
+        if cells is not None:
+            n = int(math.sqrt(cells / 3))
+            nx, ny = min(n, nx), min(n, ny)
+        args = (model, x_pwm[:nx], y_pwm[:ny], dist, env, x_pos[:nx + 1], y_pos[:ny + 1],
+                x_row, y_row)
+        ms, paths = {"host": [], "device": []}, {}
+        for _ in range(3):
+            for route, flag in (("host", "0"), ("device", "1")):
+                os.environ["HISTORIAN_DEVICE_BRANCH"] = flag
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = BranchMatrix(*args, viterbi=True).best()
+                torch.cuda.synchronize()
+                ms[route].append((time.perf_counter() - t0) * 1e3)
+                paths[route] = path
+        del os.environ["HISTORIAN_DEVICE_BRANCH"]
+        if any(not np.array_equal(paths["host"][r], paths["device"][r]) for r in paths["host"]):
+            raise AssertionError(f"branch {nx} x {ny}: the routes' best paths differ")
+        row = dict(x=nx, y=ny, state_cells=(nx + 1) * (ny + 1) * 3,
+                   host_ms=float(np.median(ms["host"])), device_ms=float(np.median(ms["device"])))
+        print(f"(m) BranchMatrix + best, long6 branch cut to {nx} x {ny} "
+              f"({row['state_cells']} state-cells): fill.cpp route {row['host_ms']:.2f} ms, "
+              f"kernel (e) route {row['device_ms']:.2f} ms (medians of 3: "
+              f"{[round(t, 2) for t in ms['host']]}, {[round(t, 2) for t in ms['device']]})",
+              flush=True)
+        out.append(row)
+    return out
+
+
+def phase_branch(cli, colforward, tracedp, guidedp, long6_args, matrix_args) -> dict:
+    """(m) Kernel (e), the branch fill.  small6 `recon -careful` in float64
+    on the card, once with HISTORIAN_DEVICE_BRANCH=1 (every refine step's
+    fill on the kernel) and once on the automatic route (these small fills
+    on the host), each byte-identical to the CPU run.  Then the kernel
+    against its plain version (1e-12 relative) and against csrc/fill.cpp
+    (Viterbi bit for bit, Forward 1e-12 relative), in both modes, at the
+    first fill of the forced small6 run and at the first long6 fill of
+    (l): ms (CUDA events, median of 5 after a warm launch), the plain
+    version's ms and fill.cpp's, and the bound.  Then both routes of a
+    BranchMatrix around the route rule's threshold (`branch_routes`)."""
+    from historian_tpu_torch import recon
+    from historian_tpu_torch.engine import forward
+    from historian_tpu_torch.ops import branchdp
+    from historian_tpu_torch.sampler import refiner
+
+    counters = (recon, forward, colforward, tracedp, guidedp)
+    with tempfile.TemporaryDirectory() as d:
+        fa6 = write_small6(d)
+        cpu = run_cli(cli, ["-platform", "cpu", "-careful", fa6], "f64")
+        for route, env in (("forced", "1"), ("automatic", "auto")):
+            os.environ["HISTORIAN_DEVICE_BRANCH"] = env
+            zero_counts(*counters)
+            with first_call(branchdp, "branch_fill") as small_args:
+                gpu = run_cli(cli, ["-platform", "gpu", "-careful", fa6], "f64")
+            counts = recon_counts(*counters)
+            steps = refiner.LAST["steps"]
+            if gpu != cpu:
+                raise AssertionError(f"small6 -careful f64 ({route} route): card output differs "
+                                     f"from the CPU's")
+            want = (dict(device=steps, host=0) if route == "forced"
+                    else dict(device=0, host=steps))
+            if counts["branch_fills"] != want or counts["branchfill"] != want["device"]:
+                raise AssertionError(f"small6 -careful {route}: {steps} steps, {counts}")
+            if route == "forced":
+                small = small_args[0][:4]  # emit, ins, mask, trans
+            print(f"(m) small6 recon -careful f64, {route} branch route: card == cpu "
+                  f"({len(gpu)} bytes, LP {stockholm_rows_lp(gpu)[1]}), {steps} refine steps, "
+                  f"{refiner.LAST['improvements']} improvements, branch fills "
+                  f"{counts['branch_fills']}, kernel (e) launches {counts['branchfill']}",
+                  flush=True)
+        del os.environ["HISTORIAN_DEVICE_BRANCH"]
+
+    out = {}
+    for name, args in (("small6", small), ("long6", long6_args)):
+        X1, Y1 = args[0].shape
+        for viterbi in (True, False):
+            mode = "viterbi" if viterbi else "forward"
+            got = branchdp.branch_fill(*args, viterbi)
+            torch.cuda.synchronize()
+            plain, plain_ms = host_ms(lambda: branchdp.branch_fill_plain(*args, viterbi))
+            err = branch_err(f"{name} {mode} kernel vs plain", got, plain)
+            del plain
+            host, fill_cpp_ms = branch_host(args, viterbi)
+            if viterbi:
+                if not np.array_equal(got.cpu().numpy().view(np.uint64), host.view(np.uint64)):
+                    raise AssertionError(f"{name} viterbi: kernel cells differ from fill.cpp's")
+                vs_host = "bit-equal"
+            else:
+                vs_host = f"max abs err {branch_err(f'{name} forward vs fill.cpp', got, host):.3e}"
+            del got, host
+            ms = cuda_ms_median(lambda: branchdp.branch_fill(*args, viterbi))
+            bnd = branch_bound(args, viterbi)
+            print(f"(m) kernel (e) {name} {mode} {X1} x {Y1} ({int(args[2].sum())} in-mask "
+                  f"cells): {ms:.3f} ms, plain {plain_ms:.1f} ms, fill.cpp {fill_cpp_ms:.1f} ms; "
+                  f"vs plain max abs err {err:.3e}, vs fill.cpp {vs_host}; bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+            out[(name, mode)] = dict(ms=ms, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
+                                     err=err, **bnd)
+    main_path = out[("long6", "viterbi")]
+    routes = branch_routes(matrix_args)
+    print(json.dumps({"branchfill": {f"{n} {m}": v for (n, m), v in out.items()},
+                      "routes": routes}), flush=True)
+    return dict(main_path, err=max(v["err"] for v in out.values()))
 
 
 def main() -> int:
@@ -1494,6 +1812,8 @@ def main() -> int:
         launches_j = phase_default_recon(cli, colforward, tracedp, guidedp, work)
         routes_k = phase_counts(cli, work)
         launches_l = phase_careful(cli, colforward, tracedp, guidedp, work)
+    branch = phase_branch(cli, colforward, tracedp, guidedp, launches_l.pop("branch_args"),
+                          launches_l.pop("matrix_args"))
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -1524,6 +1844,11 @@ def main() -> int:
              ms=guide["ms"], plain_ms=guide["plain_ms"], bound_ms=guide["bound_ms"],
              bound_by=guide["bound_by"], library_ms=None),
     ]
+    kernels.append(dict(
+        name="branchfill", route="cuda", source="historian_tpu_torch/csrc/branchfill.cu",
+        replaces="historian_tpu/ops/branchdp.py:41", launches=launches_l["f32"]["branchfill"],
+        max_abs_err=branch["err"], ms=branch["ms"], plain_ms=branch["plain_ms"],
+        bound_ms=branch["bound_ms"], bound_by=branch["bound_by"], library_ms=None))
     for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
         kernels.append(dict(
             name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",

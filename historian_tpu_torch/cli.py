@@ -1,19 +1,23 @@
-"""Command-line interface of the port: `recon`, `count`, `sum` and `fit`
-on PyTorch and CUDA.
+"""Command-line interface of the port: `recon`, `count`, `sum`, `fit`
+and `generate` on PyTorch and CUDA.
 
 Same flags as historian_tpu/cli.py for these commands, the same `-fast`
-and `-careful` aliases, plus `-platform gpu|cpu`: `gpu`, the default,
-needs CUDA and fails without it; `cpu` runs the kernels' plain PyTorch
-versions and is only ever chosen explicitly.  The guide, tree, profile,
-ancestral, count, EM, posterior-profile and `-savedot` flags have their
+and `-careful` aliases, plus `-platform gpu|cpu` (or HISTORIAN_PLATFORM
+when it is not given): `gpu`, the default, needs CUDA and fails without
+it; `cpu` runs the kernels' plain PyTorch versions and is only ever
+chosen explicitly.  The guide, tree, profile, refinement, ancestral,
+count, EM, posterior-profile, `-savedot` and simulation flags have their
 JAX meaning; flags of paths that are not ported yet raise
 NotImplementedError naming their ROADMAP item, none is dropped silently.
-`-refine` raises at the end of parsing, so that a later `-norefine`
-cancels it as it does in the JAX package: `-careful -norefine` runs.
+As in the JAX CLI, a missing file, a bad value or an unknown name ends
+the command with a one-line `historian-tpu-torch: <message>` (`-abort`
+keeps the traceback), and `-profile DIR` writes a torch.profiler trace
+of the command to DIR.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from collections import deque
 
@@ -36,17 +40,21 @@ CAREFUL_ALIAS = ["-allspan", "-kmatchoff", "-band", "40", "-profminpost", ".001"
                  "-profmaxmem", "5", "-refine"]
 FAST_ALIAS = ["-rndspan", "-kmatchn", "3", "-band", "10", "-profmaxstates", "1", "-jc", "-norefine"]
 
-HELP = f"""{PROG}: historian-tpu's `recon`, `count`, `sum` and `fit` on PyTorch and CUDA
+HELP = f"""{PROG}: historian-tpu's `recon`, `count`, `sum`, `fit` and `generate` on PyTorch and CUDA
 
-Usage: {PROG} recon|count|fit [options] [files]
+Usage: {PROG} recon|count|fit|generate [options] [files]
        {PROG} sum <counts.json>...
 
   recon (r)          reconstruct ancestral sequence histories [default command]
   count (c)          expected event counts on a reconstruction (JSON)
   fit (f)            fit the model's rates by EM on reconstructions (model JSON)
   sum (s)            sum event-count JSON files
+  generate (g)       simulate a history down a Newick tree (Stockholm)
 
-  -platform gpu|cpu  device (default gpu; cpu must be given explicitly)
+  -platform gpu|cpu  device (default gpu, or HISTORIAN_PLATFORM; cpu must be
+                     given explicitly)
+  -abort             raw tracebacks instead of one-line errors
+  -profile <dir>     write a torch.profiler trace of the command to <dir>
   -seqs <file>       unaligned FASTA (guide stage, unless -noband with -tree)
   -guide <file>      gapped FASTA guide alignment
   -nexus <file>      Nexus guide alignment and tree
@@ -71,6 +79,8 @@ Usage: {PROG} recon|count|fit [options] [files]
   -nobest            leave the best trace out of the profiles
   -keepgapsopen      keep gap states open in the profiles
   -profminlen <n> -profmaxlen <n>  accepted, unused (as in the JAX package)
+  -refine | -norefine  realign each branch by Viterbi until the likelihood
+                     stops rising (default -norefine)
   -output fasta|nexus|stockholm|json  -noancs  -seed <n>
   -ancseq            predict ancestral residues  -ancprob  with their posteriors
   -savedot <file> [-dotpost [p]] [-dotsubpost [p]] [-dotgapsopen]
@@ -81,17 +91,17 @@ Usage: {PROG} recon|count|fit [options] [files]
   -fixsubrates | -fixgaprates  leave those rates out of the fit
   -mininc <x> -maxiter <n>  EM stopping rule (defaults .001, 100)
   -checkpoint <file> snapshot the fit after each EM iteration; resume from it
+  -rootlen <n>       generate: the root sequence's length (default 100)
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
   -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
-             -refine; -refine is not ported: give -careful -norefine)
+             -refine)
 """
 
-_MCMC = "item 6, MCMC/refiner"
+_MCMC = "item 6, MCMC"
 #: flags of the JAX CLI whose paths are not ported yet, and their ROADMAP items
 _NOT_PORTED = {
     **{flag: _MCMC for flag in ("-mcmc", "-samples", "-trace", "-ckptevery", "-fixtree",
                                 "-fixalign", "-fixguide")},
-    "-rootlen": "item 5, generate",
     "-mesh": "item 7, multi-GPU",
 }
 #: the commands of the JAX CLI, by alias
@@ -99,7 +109,7 @@ _COMMANDS = {"r": "recon", "recon": "recon", "reconstruct": "recon", "c": "count
              "count": "count", "f": "fit", "fit": "fit", "s": "sum", "sum": "sum",
              "m": "mcmc", "mcmc": "mcmc", "g": "generate", "generate": "generate"}
 #: the commands that are not ported yet, and their ROADMAP items
-_COMMAND_ITEMS = {"mcmc": _MCMC, "generate": "item 5, generate"}
+_COMMAND_ITEMS = {"mcmc": _MCMC}
 _MODEL_PARAMS = ("-insrate", "-delrate", "-insextprob", "-delextprob", "-inslen",
                  "-dellen", "-gaprate", "-gapextprob", "-gaplen", "-subscale",
                  "-indelscale", "-scale")
@@ -116,7 +126,6 @@ def _optional_value(argvec: deque, default: float) -> float:
 
 
 def _parse(recon: Reconstructor, argvec: deque) -> None:
-    refine = False
     while argvec:
         arg = argvec.popleft()
 
@@ -129,7 +138,7 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             raise not_ported(f"option {arg}", _NOT_PORTED[arg])
         env = recon.diag_env_params
         if arg in ("-refine", "-norefine"):
-            refine = arg == "-refine"
+            recon.refine_reconstruction = arg == "-refine"
         elif arg == "-profminpost":
             recon.min_post_prob = float(take())
             recon.use_posteriors_for_profile = True
@@ -164,7 +173,7 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             env.sparse = False
         elif arg == "-fast":
             argvec.extendleft(reversed(FAST_ALIAS))
-        elif arg == "-careful":  # its -refine raises unless -norefine follows
+        elif arg == "-careful":
             argvec.extendleft(reversed(CAREFUL_ALIAS))
         elif arg == "-model":
             recon.model_filename = take()
@@ -252,17 +261,17 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.fit_indel_rates = False
         elif arg == "-checkpoint":
             recon.checkpoint_filename = take()
+        elif arg == "-rootlen":
+            recon.simulator_root_seq_len = int(take())
         elif not arg.startswith("-"):
             recon.load_auto(arg)
         else:
             raise SystemExit(f"{PROG}: unknown option {arg!r} (try '{PROG} help')")
-    if refine:
-        raise not_ported("option -refine", _MCMC)
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    platform = "gpu"
+    platform = os.environ.get("HISTORIAN_PLATFORM", "") or "gpu"
     if "-platform" in argv:
         i = argv.index("-platform")
         if i + 1 >= len(argv):
@@ -281,31 +290,87 @@ def main(argv: list[str] | None = None) -> int:
         command, rest = "recon", argv  # no command word: reconstruct
     if command in _COMMAND_ITEMS:
         raise not_ported(f"the {command!r} command", _COMMAND_ITEMS[command])
+    abort = "-abort" in rest  # debugging aid: raw tracebacks (reference optparser.cpp:35)
+    rest = [a for a in rest if a != "-abort"]
+    trace_dir = ""
+    if "-profile" in rest:
+        i = rest.index("-profile")
+        if i + 1 >= len(rest):
+            raise SystemExit(f"{PROG}: option '-profile' requires an argument")
+        trace_dir = rest[i + 1]
+        del rest[i : i + 2]
+
+    def run() -> int:
+        if trace_dir:
+            return _profiled(trace_dir, lambda: _dispatch(command, platform, rest))
+        return _dispatch(command, platform, rest)
+
+    if abort:
+        return run()
+    try:
+        return run()
+    except OSError as e:
+        if e.filename is not None:
+            raise SystemExit(f"{PROG}: {e.strerror.lower()}: {e.filename!r}")
+        raise
+    except ValueError as e:
+        raise SystemExit(f"{PROG}: {e}")
+    except LookupError as e:
+        raise SystemExit(f"{PROG}: {e.args[0] if e.args else e}")
+
+
+def _profiled(trace_dir: str, fn) -> int:
+    """fn() under torch.profiler (host, and the card where there is one),
+    its Chrome trace written to trace_dir/trace.json."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        rc = fn()
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    return rc
+
+
+def _dispatch(command: str, platform: str, rest: list[str]) -> int:
+    out = sys.stdout
     if command == "sum":
-        return _sum(rest, sys.stdout)
+        return _sum(rest, out)
     devmod.select(platform)
     recon = Reconstructor()
     if command in ("count", "fit"):
         recon.accumulate_subst_counts = recon.accumulate_indel_counts = True
         recon.use_laplace_pseudocounts = command == "fit"
     _parse(recon, deque(rest))
+    if command == "generate":
+        # a bare Newick file lands in tree_filename (load_auto)
+        if recon.tree_filename:
+            recon.simulator_tree_filenames.append(recon.tree_filename)
+        recon.load_model()
+        recon.seed_generator()
+        recon.simulate()
+        for ds in recon.datasets:
+            recon.write_tree_alignment(ds.tree, ds.gapped_recon, ds.name, out, True)
+        return 0
     recon.load_model()
     recon.load_seqs()
     if command == "recon":
         recon.reconstruct_all()
         recon.predict_all_ancestors()
-        recon.write_recon(sys.stdout)
+        recon.write_recon(out)
         return 0
     recon.load_recon()
     recon.load_counts()
     if command == "count":
         recon.count_all()
-        recon.write_counts(sys.stdout)
+        recon.write_counts(out)
     else:
         recon.accumulate_subst_counts = recon.fit_subst_rates
         recon.accumulate_indel_counts = recon.fit_indel_rates
         recon.fit()
-        recon.write_model(sys.stdout)
+        recon.write_model(out)
     return 0
 
 

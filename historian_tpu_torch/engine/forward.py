@@ -82,9 +82,11 @@ NEG_INF = -np.inf
 
 #: fills of ForwardMatrix by route (`ForwardMatrix.route`), band-doubling
 #: retries included: "device" (K1 or K2 with the planes kept resident, and
-#: the walker), "fullband" (K1 or K2, the band read back to the host) or
-#: "host" (csrc/fill.cpp, or the python fill); the last two walk on the host
-FILLS = {"device": 0, "fullband": 0, "host": 0}
+#: the walker), "fullband" (K1 or K2, the band read back to the host),
+#: "host" (csrc/fill.cpp, or the python fill) or "oversized" (a chain-x
+#: merge too large for the card, filled on the host as a "host" fill); the
+#: last three walk on the host
+FILLS = {"device": 0, "fullband": 0, "host": 0, "oversized": 0}
 #: sampled traces walked on each route, and the mt19937 uniforms that
 #: sample_profile consumed for them
 SAMPLED = {"device_walks": 0, "host_walks": 0, "draws": 0}
@@ -506,21 +508,30 @@ class ForwardMatrix(DPMatrix):
         `chain_forward_cells`).  False for an empty profile, which has no
         grid, and for an x that is not a chain, as the JAX package routes
         DAG x DAG merges by default: the merge then fills on the host and
-        walks there."""
+        walks there.  False too for a merge that does not fit the card
+        (`devicedp.merge_fits`), which then fills on the host as the JAX
+        package's does past its device budget (route "oversized")."""
         if self.x_empty or self.y_empty or self.x.as_chain() is None:
             return False
         dev = devmod.current()
+        resident = self._defer_cells and self.sumprod is None
+        dtype = devmod.fill_dtype(dev) if resident else devmod.FULLBAND_DTYPE
+        if not devicedp.merge_fits(self, dev, dtype):
+            log_this_at(1, f"merge of {self.x_size - 1} x {self.y_size - 1} cells does not fit "
+                           f"{dev}: filled on the host")
+            self.route = "oversized"
+            return False
         self.start_cell = (0, 0, IMM)
         self.end_cell = (self.x_size - 1, self.y_size - 1, EEE)
-        if self._defer_cells and self.sumprod is None:
+        if resident:
             self.route = "device"
-            self._trace_handle = devicedp.col_forward_device(self, dev, devmod.fill_dtype(dev))
+            self._trace_handle = devicedp.col_forward_device(self, dev, dtype)
             self.cells = None
             self._lp_end = None  # lazy: the handle's end gather on first access
             return True
         self.route = "fullband"
         self.cells = self._empty_cells()
-        devicedp.col_forward_cells(self, dev, devmod.FULLBAND_DTYPE, self.cells)
+        devicedp.col_forward_cells(self, dev, dtype, self.cells)
         self._finish_fill()
         return True
 

@@ -300,6 +300,18 @@ class SumProductFill:
     def n_columns(self) -> int:
         return self.tokens.shape[1]
 
+    def rows_at(self, name: str, cols: np.ndarray, node: int) -> np.ndarray:
+        """tensor[cols, node] as numpy: gathered where the tensor lies, so
+        that a device fill sends back only these rows (the conditional
+        PWMs of engine/treealign.py read a few such slices)."""
+        host = self.__dict__.get(name)
+        if host is not None:
+            return host[cols, node]
+        t = self.tensor(name)
+        if isinstance(t, np.ndarray):
+            return t[cols, node]
+        return t[torch.as_tensor(cols, device=t.device), int(node)].cpu().numpy()
+
     # -------------------------------------------------------------- posteriors
     def log_node_post_prob(self, col: int, node: int) -> np.ndarray:
         """[A] log posterior at node, mixture-marginalized."""

@@ -56,7 +56,11 @@ _SIGNATURES = {
     "pairforward_lp_tiled": [_P] * 7 + [_I] * 4 + [_P],
     # tiled, Y1, out[5] (lanes a thread, warps, registers, local bytes, static smem)
     "pairforward_attrs": [_I, _I, _P],
+    # emit, ins, mask, trans8, xa, xb, cells, sx, sy, viterbi, threads, stream
+    "branchfill": [_P] * 7 + [_I] * 4 + [_P],
 }
+#: the dtypes each kernel is built for, where not both
+_DTYPES = {"branchfill": ("f64",)}
 
 _LIB: ctypes.CDLL | None = None
 
@@ -110,7 +114,7 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         handle = ctypes.CDLL(build())
         for name, args in _SIGNATURES.items():
-            for suffix in ("f32", "f64"):
+            for suffix in _DTYPES.get(name, ("f32", "f64")):
                 fn = getattr(handle, f"{name}_{suffix}")
                 fn.argtypes = args
                 fn.restype = ctypes.c_int

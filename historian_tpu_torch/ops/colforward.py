@@ -264,19 +264,19 @@ def _capacity(name: str, dtype: torch.dtype, ns: int, ca: int, device: int) -> i
         return fn() if name == "colforward" else fn(ns, ca)
 
 
-def _strip_width(name: str, SX: int, dtype, device, ca: int = 0) -> int:
+def strip_width(name: str, SX: int, dtype, device, ca: int = 0) -> int:
     """The strip width of a launch: STRIP_WIDTH, or for K2
     NARROW_STRIP_WIDTH where a [ca, STRIP_WIDTH] slice of ex_t does not fit
-    shared memory.  Raises where its strips cannot all be resident."""
+    shared memory; 0 where its strips cannot all be resident at once.  A
+    negative capacity (a CUDA error) raises."""
     ns = STRIP_WIDTH
     cap = _capacity(name, dtype, ns, ca, device.index)
     if cap <= 0 and name == "colforward_fused":
         ns = NARROW_STRIP_WIDTH
         cap = _capacity(name, dtype, ns, ca, device.index)
-    if cap <= 0 or -(-SX // ns) > cap:
-        raise RuntimeError(f"{name}: {-(-SX // ns)} strips of {ns} lanes for {SX} lanes, but "
-                           f"{device} holds {cap} at once (negative: a CUDA error)")
-    return ns
+    if cap < 0:
+        raise RuntimeError(f"{name}: the strip capacity query failed with CUDA error {-cap}")
+    return ns if -(-SX // ns) <= cap else 0
 
 
 def _launch_strips(name: str, fn, inputs: list, lanes, SY: int, SX: int, tail: list,
@@ -286,7 +286,9 @@ def _launch_strips(name: str, fn, inputs: list, lanes, SY: int, SX: int, tail: l
     as NEG, which the skipped strips keep."""
     from historian_tpu_torch.ops import _kernels
 
-    width = _strip_width(name, SX, dtype, device, ca)
+    width = strip_width(name, SX, dtype, device, ca)
+    if not width:
+        raise RuntimeError(f"{name}: {SX} lanes need more strips than {device} holds at once")
     strips = -(-SX // width)
     if lanes is None:
         out = torch.empty((5, SY, SX), dtype=dtype, device=device)

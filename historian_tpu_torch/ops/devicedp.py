@@ -28,7 +28,6 @@ on `_oneshot_idx_pallas`, and `chain_forward_cells`):
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -39,14 +38,14 @@ from historian_tpu_torch.ops.colforward import (
     col_forward_planes,
     col_forward_planes_fused,
     emission_planes,
+    strip_width,
 )
+from historian_tpu_torch.ops.readback import gather_to_host
 from historian_tpu_torch.ops.tracedp import end_lp, pair_trace
 
 NEG = -1e30
 #: values below this are the semiring zero; the host reads them as -inf
 NEG_CUTOFF = -1e25
-#: one entry a band read back to the host (`read_band`)
-READBACKS: list = []
 
 
 def _clamp(a, dtype=np.float64) -> np.ndarray:
@@ -176,30 +175,48 @@ def walk_arrays(dp) -> dict:
     )
 
 
-def _check_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype,
-                  fused: bool) -> None:
-    """Raise when the merge cannot stay resident: the planes plus, on the
-    K1 route, the fill's transients (emission, mask, gate) must fit the
-    free memory."""
+def _fits_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype,
+                 fused: bool) -> bool:
+    """Whether the merge can stay resident: the planes plus, on the K1
+    route, the fill's transients (emission, mask, gate) must fit the free
+    memory, the blocks PyTorch's allocator holds unused included."""
     if device.type != "cuda":
-        return
+        return True
     item = torch.finfo(dtype).bits // 8
     need = SY * SX * (5 * item if fused else 8 * item + 1)
     free, _ = torch.cuda.mem_get_info(device)
-    if need > free:
-        raise MemoryError(
-            f"merge {SX}x{SY} needs {need / 1e9:.2f} GB of device memory, "
-            f"{free / 1e9:.2f} GB free"
-        )
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return need <= free + cached
+
+
+def _strips_fit(dp, device: torch.device, dtype: torch.dtype, fused: bool) -> bool:
+    """Whether all of the merge's lane strips can be resident at once
+    (`colforward.strip_width`); the plain versions have no strips."""
+    if device.type != "cuda":
+        return True
+    if fused:
+        return strip_width("colforward_fused", dp.x_size - 1, dtype, device,
+                           dp.absorb_factors[2].shape[1]) > 0
+    return strip_width("colforward", dp.x_size - 1, dtype, device) > 0
+
+
+def merge_fits(dp, device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether a chain-x merge fills on `device`: its memory budget and its
+    strips.  Where it does not, the JAX package's `col_forward_device`
+    returns None and the merge fills on the host (historian_tpu/ops/
+    devicedp.py col_forward_device); so does the port's (engine/forward.py
+    `_fill_device`)."""
+    fused = fused_enabled()
+    return (_fits_budget(device, dp.y_size - 1, dp.x_size - 1, dtype, fused)
+            and _strips_fit(dp, device, dtype, fused))
 
 
 def fill_merge(dp, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """Fill a chain-x merge on `device`: the planes [5, SY, SX], by K1, or
-    by K2 under HISTORIAN_PALLAS_FUSED=1."""
+    by K2 under HISTORIAN_PALLAS_FUSED=1.  The caller has checked
+    `merge_fits`."""
     arrays = fill_arrays(dp)
-    fused = fused_enabled()
-    _check_budget(device, arrays["ny"], arrays["nx"], dtype, fused)
-    if fused:
+    if fused_enabled():
         return fill_planes_fused(convert.fused_tensors(arrays, device, dtype))
     return fill_planes(convert.fill_tensors(arrays, device, dtype))
 
@@ -230,32 +247,15 @@ def band_index(dp) -> np.ndarray | None:
 
 def read_band(planes: torch.Tensor, dp, out: np.ndarray) -> None:
     """Gather the merge's in-envelope cells on the device, copy them to the
-    host once (into pinned memory on the card) and scatter them into the
-    host grid `out`; cells below NEG_CUTOFF read as -inf, as the JAX
-    package's `_expand_cells` reads them.  Appends to READBACKS the cells,
-    the bytes copied and the ms of the gather and the copy (CUDA events on
-    the card)."""
+    host once (`readback.gather_to_host`, logged in its READBACKS as a
+    "merge") and scatter them into the host grid `out`; cells below
+    NEG_CUTOFF read as -inf, as the JAX package's `_expand_cells` reads
+    them."""
     nx, ny = dp.x_size - 1, dp.y_size - 1
     idx = band_index(dp)
-    n = nx * ny if idx is None else len(idx)
-    cuda = planes.device.type == "cuda"
     idx_d = None if idx is None else torch.as_tensor(idx, device=planes.device)
-    host = torch.empty((5, n), dtype=planes.dtype, pin_memory=cuda)
-    if cuda:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-    else:
-        t0 = time.perf_counter()
     # the JAX package's `planes.reshape(5, -1).T[idx]`, state-major: [5, n]
-    vals = planes.reshape(5, -1)
-    host.copy_(vals if idx_d is None else vals.index_select(1, idx_d), non_blocking=cuda)
-    if cuda:
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end)
-    else:
-        ms = (time.perf_counter() - t0) * 1e3
-    READBACKS.append(dict(cells=n, bytes=host.numel() * host.element_size(), ms=ms))
+    (host,) = gather_to_host("merge", planes.reshape(5, -1), 1, idx_d)
     v = host.numpy().astype(np.float64)
     v[v < NEG_CUTOFF] = -np.inf
     if idx is None:

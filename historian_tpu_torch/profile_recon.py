@@ -10,7 +10,8 @@ synchronize), then one run under torch.profiler, which gives the device
 busy time (the union of the kernels' and copies' intervals), the idle
 share of the wall, and the kernels that take the most device time; with
 --cprofile, one more run under cProfile, which gives the port's functions
-with the most cumulative host time.  Prints the card's name and power
+with the most cumulative host time and the functions with the most time
+of their own.  Prints the card's name and power
 limit, then one JSON line per route.
 
 With --parent DIR (a checkout of another commit, e.g. unpacked with
@@ -90,17 +91,25 @@ def device_profile(cli, args: list) -> dict:
                 top=[dict(name=k[:90], calls=c, ms=us / 1e3) for k, (c, us) in ranked])
 
 
-def host_profile(cli, args: list) -> list:
+def host_profile(cli, args: list) -> tuple[list, list]:
+    """(the port's functions with the most cumulative time, every function
+    with the most time of its own: numpy's array arithmetic, which
+    cProfile does not see as calls, counts in its caller's own time)."""
     pr = cProfile.Profile()
     pr.enable()
     run(cli, args)
     pr.disable()
     stats = pstats.Stats(pr)
+
+    def name(f, line, fn):
+        return f"{os.path.basename(f)}:{line} {fn}"
+
     rows = [(fn, ct) for fn, (_, _, _, ct, _) in stats.stats.items()
             if "historian_tpu_torch" in fn[0]]
     rows.sort(key=lambda r: -r[1])
-    return [dict(fn=f"{os.path.basename(f)}:{line} {name}", cum_s=ct)
-            for (f, line, name), ct in rows[:2 * TOP]]
+    own = sorted(stats.stats.items(), key=lambda r: -r[1][2])
+    return ([dict(fn=name(*fn), cum_s=ct) for fn, ct in rows[:2 * TOP]],
+            [dict(fn=name(*fn), own_s=st[2], cum_s=st[3], calls=st[1]) for fn, st in own[:2 * TOP]])
 
 
 def compare(parent: str, routes: list, cprofile: bool, args: list) -> int:
@@ -227,7 +236,7 @@ def main(argv=None) -> int:
                    warmup_wall_s=warm, timed_wall_s=run(cli, args),
                    profile=device_profile(cli, args))
         if opts.cprofile:
-            out["host_top"] = host_profile(cli, args)
+            out["host_top"], out["host_own"] = host_profile(cli, args)
         print(json.dumps(out), flush=True)
     return 0
 

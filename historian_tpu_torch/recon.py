@@ -27,8 +27,13 @@ device's full-band route; other chain-x merges fill and walk on the
 device, merges of a sampled or posterior x on the host (`MERGES` counts
 each route); all draw from the run's mt19937 in the reference's order.
 
+With `-refine` (the end of `-careful`) the root alignment is refined
+branch by branch (sampler/refiner.py) before it is written; counting
+while reconstructing keeps the merge's counts, as in the JAX package.
+`generate` simulates histories down a given tree (sampler/simulator.py).
+
 Paths that are not ported yet raise NotImplementedError naming their
-ROADMAP item: `-refine`, MCMC and `generate`.
+ROADMAP item: MCMC and the mesh.
 """
 
 from __future__ import annotations
@@ -83,12 +88,13 @@ DEFAULT_MAX_DISTANCE_FROM_GUIDE = 20
 DP_CELL_SIZE = 40
 DEFAULT_MAX_EM_ITERATIONS = 100
 DEFAULT_MIN_EM_IMPROVEMENT = 0.001
+DEFAULT_SIMULATOR_ROOT_SEQ_LEN = 100
 ANCESTRAL_POST_PROB_TAG = "PP"
 
 #: merges by the route of their fill (engine/forward.py `FILLS`): "device"
-#: (a chain x, planes resident), "fullband" (a chain x, band read back) or
-#: "host"
-MERGES = {"device": 0, "fullband": 0, "host": 0}
+#: (a chain x, planes resident), "fullband" (a chain x, band read back),
+#: "host" or "oversized" (a chain x too large for the card, on the host)
+MERGES = {"device": 0, "fullband": 0, "host": 0, "oversized": 0}
 
 FORMAT_FASTA = "fasta"
 FORMAT_NEXUS = "nexus"
@@ -199,6 +205,9 @@ class Reconstructor:
         self.min_dot_sub_post_prob = 0.01
         self.accumulate_subst_counts = False
         self.accumulate_indel_counts = False
+        self.refine_reconstruction = False
+        self.simulator_root_seq_len = -1
+        self.simulator_tree_filenames: list[str] = []
         self.predict_ancestral_sequence = False
         self.report_ancestral_sequence_probability = False
         self.got_prior = False
@@ -525,10 +534,40 @@ class Reconstructor:
         log_this_at(2, f"Final Forward log-likelihood is {lp_final}")
         dataset.reconstruction = self.make_alignment(dataset, path, tree.root())
         dataset.gapped_recon = dataset.reconstruction.gapped()
+        if self.refine_reconstruction:
+            self.refine(dataset)
         if self.accumulate_subst_counts:
             self.data_counts += dataset.eigen_counts.transform(model)
         elif self.accumulate_indel_counts:
             self.data_counts.indel += dataset.eigen_counts.indel
+
+    def refine(self, dataset: Dataset) -> None:
+        """Refine the reconstruction branch by branch (historian_tpu/
+        recon.py refine)."""
+        from historian_tpu_torch.sampler.refiner import Refiner
+
+        gapped = (dataset.gapped_ancestral_recon if dataset.gapped_ancestral_recon
+                  else dataset.gapped_recon)
+        new_tree, new_gapped = Refiner(self.model).refine(dataset.tree, gapped)
+        dataset.tree = new_tree
+        if dataset.gapped_ancestral_recon:
+            dataset.gapped_ancestral_recon = new_gapped
+        else:
+            dataset.gapped_recon = new_gapped
+
+    def simulate(self) -> None:
+        """`generate`: one simulated history down each tree (historian_tpu/
+        recon.py simulate)."""
+        from historian_tpu_torch.sampler.simulator import simulate_tree
+
+        for fn in self.simulator_tree_filenames:
+            with open(fn) as f:
+                tree = Tree(f.read())
+            ds = self._new_dataset(fn)
+            ds.tree = tree
+            root_len = (self.simulator_root_seq_len if self.simulator_root_seq_len >= 0
+                        else DEFAULT_SIMULATOR_ROOT_SEQ_LEN)
+            ds.gapped_recon = simulate_tree(self.generator, self.model, tree, root_len).gapped
 
     def _save_dot(self, backward: BackwardMatrix) -> None:
         """-savedot: the root's best (or, with -dotpost, posterior) profile

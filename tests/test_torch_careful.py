@@ -92,16 +92,16 @@ def test_careful_routes(tmp_path, monkeypatch):
     route, merges of a posterior profile x the host, and none stays
     resident; each full-band merge reads its band back once."""
     from historian_tpu_torch import cli, device, recon
-    from historian_tpu_torch.ops import devicedp
+    from historian_tpu_torch.ops import readback
 
     monkeypatch.setenv("HISTORIAN_MEMSIZE", MEMSIZE)
     monkeypatch.setenv("HISTORIAN_DEVICE_DTYPE", "f64")
     device.select("cpu")
-    before, n_read = dict(recon.MERGES), len(devicedp.READBACKS)
+    before, n_read = dict(recon.MERGES), len(readback.READBACKS)
     fa = write_small6(tmp_path)
     assert cli.main(["recon", "-platform", "cpu", "-careful", "-norefine", fa]) == 0
     merges = {k: recon.MERGES[k] - before[k] for k in recon.MERGES}
-    assert merges == dict(device=0, fullband=3, host=2)  # 3 leaf pairs, 2 above them
-    reads = devicedp.READBACKS[n_read:]
-    assert len(reads) == merges["fullband"]
+    assert merges == dict(device=0, fullband=3, host=2, oversized=0)  # 3 leaf pairs, 2 above them
+    reads = readback.READBACKS[n_read:]
+    assert len(reads) == merges["fullband"] and all(r["kind"] == "merge" for r in reads)
     assert all(r["bytes"] == r["cells"] * 5 * 8 for r in reads)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from historian_tpu.ops import devicedp as jax_devicedp
-from historian_tpu_torch.ops import devicedp
+from historian_tpu_torch.ops import devicedp, readback
 from tests.test_torch_backward import assert_cells_close, cpu64, root_merge  # noqa: F401
 from tests.torch_twins import JAX, PORT, PortHostForwardMatrix
 
@@ -27,8 +27,8 @@ def test_fullband_cells_match_jax_and_host(cpu64, kind, banded):  # noqa: F811
     nx, ny = fwd.x_size - 1, fwd.y_size - 1
     band = int(np.count_nonzero(fwd.env_mask[:nx, :ny]))
     assert (band < nx * ny) == banded
-    read = devicedp.READBACKS[-1]
-    assert read["cells"] == band and read["bytes"] == band * 5 * 8
+    read = readback.READBACKS[-1]
+    assert read["kind"] == "merge" and read["cells"] == band and read["bytes"] == band * 5 * 8
     got = fwd.cells[:nx, :ny]
     # the grid's last row and column (END) stay -inf, as in a host fill
     assert np.isneginf(fwd.cells[nx]).all() and np.isneginf(fwd.cells[:, ny]).all()
@@ -67,10 +67,10 @@ def test_read_band_takes_the_planes_at_the_band():
     np.testing.assert_array_equal(out[:nx, :ny][mask], full[mask])
     assert np.isneginf(out[:nx, :ny][~mask]).all() and np.isneginf(out[4, 3, 2])
     assert np.isneginf(out[nx]).all() and np.isneginf(out[:, ny]).all()
-    assert devicedp.READBACKS[-1]["cells"] == mask.sum()
+    assert readback.READBACKS[-1]["cells"] == mask.sum()
     Merge.env_vectors = None
     assert devicedp.band_index(Merge) is None
     out[:] = -np.inf
     devicedp.read_band(planes, Merge, out)
     np.testing.assert_array_equal(out[:nx, :ny], full)
-    assert devicedp.READBACKS[-1]["cells"] == nx * ny
+    assert readback.READBACKS[-1]["cells"] == nx * ny

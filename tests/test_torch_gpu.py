@@ -700,7 +700,7 @@ def test_fullband_gather_matches_full_readback(cuda, dtype):
     scattered into the host grid) against the whole planes copied to the
     host: the band's cells bit for bit (the semiring zero read as -inf),
     every other cell -inf; with no envelope, every cell."""
-    from historian_tpu_torch.ops import devicedp
+    from historian_tpu_torch.ops import devicedp, readback
 
     S = 1500
     args, _ = _k1_args(S, 4, dtype, cuda)
@@ -713,13 +713,14 @@ def test_fullband_gather_matches_full_readback(cuda, dtype):
 
     full = planes.permute(2, 1, 0).cpu().double().numpy()
     full[full < devicedp.NEG_CUTOFF] = -np.inf
-    n_read = len(devicedp.READBACKS)
+    n_read = len(readback.READBACKS)
     out = np.full((S + 1, S + 1, 5), -np.inf)
     devicedp.read_band(planes, Merge, out)
     np.testing.assert_array_equal(out[:S, :S][mask], full[mask])
     assert np.isneginf(out[:S, :S][~mask]).all() and np.isfinite(full[mask]).any()
-    read = devicedp.READBACKS[-1]
-    assert len(devicedp.READBACKS) == n_read + 1 and read["cells"] == mask.sum()
+    read = readback.READBACKS[-1]
+    assert len(readback.READBACKS) == n_read + 1 and read["cells"] == mask.sum()
+    assert read["kind"] == "merge"
     assert read["bytes"] == mask.sum() * 5 * planes.element_size() and read["ms"] > 0
     Merge.env_vectors = None
     out[:] = -np.inf
@@ -809,3 +810,87 @@ def test_card_backward_matches_cpu(cuda, kind):
         np.testing.assert_allclose(getattr(got["counts"], k), getattr(ref["counts"], k),
                                    rtol=1e-9, atol=1e-12)
     assert got["counts"].indel.ins == pytest.approx(ref["counts"].indel.ins, rel=1e-9)
+
+
+def _branch_inputs(X1, Y1, band, seed):
+    """Seeded (emit, ins, mask, trans) of a branch fill: NEG on row and
+    column 0, a cumulative-match band (-1: full; -2: a random mask with
+    holes), boundary lines in."""
+    rng = np.random.default_rng(seed)
+    emit = rng.normal(-4.0, 1.5, (X1, Y1))
+    emit[0, :] = emit[:, 0] = NEG
+    ins = np.concatenate([[NEG], rng.normal(-3.0, 0.5, Y1 - 1)])
+    if band == -2:  # holes anywhere
+        mask = rng.random((X1, Y1)) < 0.3
+    elif band < 0:
+        mask = np.ones((X1, Y1), dtype=bool)
+    else:
+        m1, m2 = np.cumsum(rng.random(X1) < 0.8), np.cumsum(rng.random(Y1) < 0.8)
+        mask = np.abs(m1[:, None] - m2[None, :]) <= band
+    mask[0, :] = mask[:, 0] = mask[-1, :] = mask[:, -1] = True
+    p = rng.dirichlet([8, 1, 1], 3)
+    trans = np.log(np.array([p[0, 0], p[0, 1], p[0, 2], p[1, 0], p[1, 1], p[1, 2],
+                             p[2, 0] + p[2, 1], p[2, 2]]))
+    return emit, ins, mask, trans
+
+
+BRANCH_SHAPES = [(1, 1, -1), (1, 40, -1), (40, 1, -1), (2, 2, -1), (3, 3, 0), (37, 53, -1),
+                 (130, 97, 6), (1100, 1300, 20), (2100, 90, 3), (1300, 1100, -1),
+                 (200, 230, -2)]
+
+
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+@pytest.mark.parametrize("shape", BRANCH_SHAPES, ids=[f"{a}x{b}b{c}" for a, b, c in BRANCH_SHAPES])
+def test_branchfill_kernel_matches_host_and_plain(cuda, shape, viterbi):
+    """Kernel (e) against csrc/fill.cpp `branch_fill` (Viterbi: bit for bit;
+    Forward: 1e-12 relative, the card's exp and log1p against glibc's) and
+    against its plain version (1e-12 relative); outside the mask every
+    state is NEG.  Diagonals longer than a block (1300 x 1100), a mask with
+    holes, grids of one row or column included."""
+    from historian_tpu_torch.native import get_native
+    from historian_tpu_torch.ops import branchdp
+
+    emit, ins, mask, trans = _branch_inputs(*shape, seed=sum(shape))
+    t = [torch.as_tensor(a, device=cuda) for a in (emit, ins, mask, trans)]
+    before = branchdp.LAUNCHES
+    got = branchdp.branch_fill(*t, viterbi)
+    torch.cuda.synchronize()
+    assert branchdp.LAUNCHES == before + 1
+    g = got.cpu().numpy()
+    host = np.empty((*emit.shape, 3))
+    get_native().branch_fill(emit.shape[0], emit.shape[1], emit, ins, mask.astype(np.uint8),
+                             trans, np.uint8(viterbi), host)
+    if viterbi:
+        assert np.array_equal(g.view(np.uint64), host.view(np.uint64))
+    else:
+        assert np.all(np.abs(g - host) <= 1e-12 * np.maximum(1.0, np.abs(host)))
+    plain = branchdp.branch_fill_plain(*t, viterbi).cpu().numpy()
+    assert np.all(np.abs(g - plain) <= 1e-12 * np.maximum(1.0, np.abs(plain)))
+    assert np.all(g[~mask] == NEG)
+
+
+def test_branchfill_band_readback(cuda):
+    """read_band on the card: the in-mask cells and their indices found
+    and gathered there, copied to pinned memory, and the rest read as
+    NEG."""
+    from historian_tpu_torch.ops import branchdp, readback
+
+    emit, ins, mask, trans = _branch_inputs(300, 280, 8, seed=5)
+    t = [torch.as_tensor(a, device=cuda) for a in (emit, ins, mask, trans)]
+    grid = branchdp.branch_fill(*t, True)
+    full = grid.cpu().numpy()
+    cells = branchdp.read_band(grid, t[2])
+    assert readback.READBACKS[-1]["bytes"] == mask.sum() * (24 + 8)
+    assert readback.READBACKS[-1]["kind"] == "branch"
+    rng = np.random.default_rng(0)
+    for x, y in zip(rng.integers(0, 300, 2000), rng.integers(0, 280, 2000)):
+        assert np.array_equal(cells[x, y], full[x, y])
+
+
+def test_branchfill_rejects_float32(cuda):
+    from historian_tpu_torch.ops import branchdp
+
+    t = [torch.as_tensor(a, device=cuda) for a in _branch_inputs(5, 5, -1, 0)]
+    t[0] = t[0].float()
+    with pytest.raises(ValueError, match="float64"):
+        branchdp.branch_fill(*t, True)

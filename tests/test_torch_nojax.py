@@ -1,7 +1,7 @@
 """The port's `recon` slice never imports jax or the JAX package: with
 every import of `jax`, `jaxlib` and `historian_tpu` refused (by the
 top-level name, so `historian_tpu_torch` still loads), the CLI still
-reconstructs small4 on the CPU
+reconstructs small4 on the CPU (also with the refiner, and `generate`)
 with a supplied tree, and small6 through the guide stage and the distance
 tree: neighbour joining on Jukes-Cantor distances, the fused route (K2's
 plain version), and ML distances (`-fast` without its `-jc`).
@@ -86,3 +86,18 @@ def test_ancseq_count_fit_without_jax(tmp_path):
     assert len(rows) == 7 and lp < 0 and "#=GS node3 PP" in outs["recon"]
     assert '"alphabet": "arndcqeghilkmfpstwyv"' in outs["count"]
     assert '"insrate"' in outs["fit"] and (tmp_path / "ck.json").exists()
+
+
+@pytest.mark.parametrize("command", ["refine", "generate"])
+def test_refine_and_generate_without_jax(tmp_path, command):
+    """`recon -refine -tree` on small4 (the refiner, the branch fill and
+    its treealign helpers) and `generate` (the simulator), with jax
+    refused."""
+    fa, nh = write_small4(tmp_path)
+    argv = (["recon", "-platform", "cpu", "-refine", "-tree", nh, fa] if command == "refine"
+            else ["generate", "-platform", "cpu", "-seed", "3", "-rootlen", "50", nh])
+    out = subprocess.run([sys.executable, "-c", BLOCKED, *argv], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows, lp = rows_and_lp(out.stdout)
+    assert len(rows) == 7 and lp < 0

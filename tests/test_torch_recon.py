@@ -107,19 +107,15 @@ def test_band_doubling_ladder_matches_jax(tmp_path, monkeypatch):
 
 
 def test_unported_paths_raise(small4):
-    """-refine (also from -careful, which ends in it) and -rootlen name
-    their ROADMAP items."""
+    """-mcmc names its ROADMAP item."""
     from historian_tpu_torch import cli
 
     args, _ = small4
-    for argv, item in ((args + ["-refine"], "item 6, MCMC/refiner"),
-                       (args + ["-rootlen", "50"], "item 5, generate"),
-                       (["-careful", *args[1:]], "item 6, MCMC/refiner")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["recon", "-platform", "cpu", *argv])
+    with pytest.raises(NotImplementedError, match="item 6, MCMC"):
+        cli.main(["recon", "-platform", "cpu", *args, "-mcmc"])
 
 
-@pytest.mark.parametrize("command,item", [("mcmc", "item 6"), ("generate", "item 5")])
+@pytest.mark.parametrize("command,item", [("mcmc", "item 6")])
 def test_unported_commands_name_their_item(command, item):
     """Each command that is not ported raises naming its own ROADMAP item."""
     from historian_tpu_torch import cli

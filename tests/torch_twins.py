@@ -17,6 +17,7 @@ MODULES = {
     "diagenv": "engine.diagenv", "forward": "engine.forward", "pairhmm": "engine.pairhmm",
     "profile": "engine.profile", "presets": "models.presets", "ratemodel": "models.ratemodel",
     "rng": "utils.rng", "seqgraph": "engine.seqgraph", "sumprod": "engine.sumprod",
+    "stockholm": "core.stockholm",
 }
 
 
