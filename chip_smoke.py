@@ -101,8 +101,9 @@ Phases, each fatal on failure (nothing is caught):
       run's saved guide and tree with `-norefine`, `#=GF LP` within 50
       nats of the float32 run's LP before refining.  The float32 run's
       refiner prints its refine steps and improvements, LP
-      before and after, kernel (e)'s launches (every step's fill) and ms,
-      each branch band's readback bytes and ms, and the refiner's seconds
+      before and after, kernel (e)'s launches (every step's fill) by design
+      and ms, each step's band upload (bytes, the copy's ms, the host's
+      packing ms) and band readback (bytes, ms), and the refiner's seconds
       by phase and on the host; and first the lane strips K1 and K2 hold
       resident at once (colforward_capacity_*, both dtypes).  Prints a
       {"readback": ...} JSON line;
@@ -113,8 +114,15 @@ Phases, each fatal on failure (nothing is caught):
       run; then the kernel against its plain version and against
       csrc/fill.cpp (Viterbi bit for bit) in both modes, at the forced
       small6 run's first fill and at (l)'s first long6 fill (6000-odd
-      squared), with ms, the plain version's and fill.cpp's ms and the
-      bound.  Prints a {"branchfill": ...} JSON line.
+      squared), through the full-grid entry and the band entry, with the
+      band entry's ms (the kernel alone) and us a diagonal, the design it
+      took, the plain version's and fill.cpp's ms, the band's byte bound
+      and the dependency floor (diagonals times one Delete step, timed on
+      the card); then both routes of a BranchMatrix around the route
+      rule's threshold.  With `--parent DIR` (a checkout of another
+      version unpacked there), kernel (e) of that version and of this one
+      at long6's first fill, in turns (historian_tpu_torch/branch_bench.py,
+      roots.compare_roots).  Prints a {"branchfill": ...} JSON line.
 Prints the Felsenstein times, the readbacks and the branch fills as JSON
 lines, the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A kernel's
@@ -815,7 +823,8 @@ def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
     none_oversized("recon")
     return dict(colforward=colforward.LAUNCHES, colforward_fused=colforward.FUSED_LAUNCHES,
                 pairtrace=tracedp.LAUNCHES, guidealign=guidedp.LAUNCHES,
-                branchfill=branchdp.LAUNCHES, merges=dict(recon.MERGES),
+                branchfill=branchdp.LAUNCHES, branch_designs=dict(branchdp.DESIGNS),
+                merges=dict(recon.MERGES),
                 fills=dict(forward.FILLS), sampled=dict(forward.SAMPLED),
                 branch_fills=dict(branchmatrix.FILLS))
 
@@ -826,7 +835,7 @@ def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
 
     colforward.LAUNCHES = colforward.FUSED_LAUNCHES = tracedp.LAUNCHES = guidedp.LAUNCHES = 0
     branchdp.LAUNCHES = 0
-    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS):
+    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS, branchdp.DESIGNS):
         for k in d:
             d[k] = 0
 
@@ -1395,8 +1404,9 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
     float32 run's saved guide and tree: its `#=GF LP` within F32_LP_DRIFT
     of the float32 run's before refining.  Returns the float32 run's
     launches, the fused small6 run's K2 launches and the float32 run's
-    first branch fill's arguments (emit, ins, mask, trans, on the card) and
-    its first BranchMatrix's (the refine step's PWMs and envelope)."""
+    first branch fill's arguments (its band layout and the host's emission,
+    mask, ins and trans) and its first BranchMatrix's (the refine step's
+    PWMs and envelope)."""
     from historian_tpu_torch import recon
     from historian_tpu_torch.engine import forward, quickalign
     from historian_tpu_torch.ops import branchdp, devicedp, readback
@@ -1459,16 +1469,16 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(*counters)
-        n_read = len(readback.READBACKS)
+        n_read, n_up = len(readback.READBACKS), len(branchdp.UPLOADS)
         devicedp.col_forward_cells = capture
         refiner.LAST.clear()
         t0 = time.perf_counter()
         try:
             with cuda_timed(quickalign, "guide_align") as guide_ev, \
                     cuda_timed(devicedp, "col_forward_planes") as k1_ev, \
-                    first_call(branchdp, "branch_fill") as branch_args, \
+                    first_call(branchdp, "upload_band") as branch_args, \
                     first_call(refiner, "BranchMatrix") as matrix_args, \
-                    cuda_timed(branchdp, "branch_fill") as branch_ev, \
+                    cuda_timed(branchdp, "branch_fill_band") as branch_ev, \
                     host_timed(forward.BackwardMatrix, "__init__") as bwd_t, \
                     host_timed(forward.BackwardMatrix, "post_prob_profile") as prof_t, \
                     peak_host_memory() as host_mem:
@@ -1483,8 +1493,8 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         if dtype == "f32":
             refine = refine_summary(refiner.LAST, counts, lp, branch_ev,
                                     [r for r in readback.READBACKS[n_read:]
-                                     if r["kind"] == "branch"])
-            branch_inputs = branch_args[0][:4]  # emit, ins, mask, trans
+                                     if r["kind"] == "branch"], branchdp.UPLOADS[n_up:])
+            branch_inputs = branch_args[0][:5]  # layout, emit, mask, ins, trans
             matrix_inputs = matrix_args[0]
         elif counts["branchfill"] or refiner.LAST:
             raise AssertionError(f"long6 -careful -norefine f64 refined: {counts}")
@@ -1576,64 +1586,97 @@ def first_call(module, name: str):
         setattr(module, name, fn)
 
 
-def refine_summary(last: dict, counts: dict, lp: float, branch_ev: list, reads: list) -> dict:
+def refine_summary(last: dict, counts: dict, lp: float, branch_ev: list, reads: list,
+                   uploads: list) -> dict:
     """The refiner's run in long6 `-careful` f32: steps, improvements, LP
-    before and after, kernel (e)'s launches and ms, the band readbacks,
-    the refiner's seconds by phase and its host seconds (its wall less
-    the kernel's and the copies' ms).  Every step's fill must be on the
-    card (a long6 branch is ~10^8 state-cells), the written LP the
-    refiner's last, and no lower than before it."""
+    before and after, kernel (e)'s launches by design and ms, the band
+    uploads and readbacks, the refiner's seconds by phase and its host
+    seconds (its wall less the kernel's and the copies' ms).  Every step's
+    fill must be on the card (a long6 branch is ~10^8 state-cells) with
+    one upload and one readback, the written LP the refiner's last, and no
+    lower than before it."""
     kernel_ms = [a.elapsed_time(b) for a, b in branch_ev]
     sec = last["seconds"]
     out = dict(steps=last["steps"], improvements=last["improvements"],
                lp_before=last["lp_before"], lp_after=last["lp_after"],
-               launches=counts["branchfill"], kernel_ms=sum(kernel_ms),
-               kernel_ms_each=kernel_ms, readbacks=len(reads),
+               launches=counts["branchfill"], designs=counts["branch_designs"],
+               kernel_ms=sum(kernel_ms), kernel_ms_each=kernel_ms, readbacks=len(reads),
                readback_bytes=sum(r["bytes"] for r in reads),
-               readback_ms=sum(r["ms"] for r in reads), seconds=sec)
-    out["host_s"] = sec["total"] - (out["kernel_ms"] + out["readback_ms"]) / 1e3
+               readback_ms=sum(r["ms"] for r in reads), uploads=len(uploads),
+               upload_bytes=sum(u["bytes"] for u in uploads),
+               upload_ms=sum(u["ms"] for u in uploads),
+               upload_pack_ms=sum(u["pack_ms"] for u in uploads), seconds=sec)
+    out["host_s"] = sec["total"] - (out["kernel_ms"] + out["readback_ms"]
+                                    + out["upload_ms"]) / 1e3
     if not (counts["branchfill"] == last["steps"] == counts["branch_fills"]["device"]
-            == len(reads) and last["steps"] >= 10):
+            == len(reads) == len(uploads) and last["steps"] >= 10):
         raise AssertionError(f"long6 -careful: {last['steps']} refine steps, routes {counts}, "
-                             f"{len(reads)} band readbacks")
+                             f"{len(reads)} band readbacks, {len(uploads)} uploads")
     if f"{last['lp_after']:.6f}" != f"{lp:.6f}" or last["lp_after"] < last["lp_before"]:
         raise AssertionError(f"long6 -careful: LP {lp}, refiner {last}")
     print(f"(l) long6 -careful f32 refiner: {out['steps']} steps, {out['improvements']} "
           f"improvements, LP {out['lp_before']!r} -> {out['lp_after']!r}; kernel (e) "
-          f"{out['launches']} launches, {out['kernel_ms']:.1f} ms in all "
-          f"({min(kernel_ms):.1f}-{max(kernel_ms):.1f} ms each); {len(reads)} band readbacks, "
+          f"{out['launches']} launches {out['designs']}, {out['kernel_ms']:.1f} ms in all "
+          f"({min(kernel_ms):.3f}-{max(kernel_ms):.3f} ms each); {len(uploads)} band uploads, "
+          f"{out['upload_bytes']} bytes, copies {out['upload_ms']:.2f} ms, packing "
+          f"{out['upload_pack_ms']:.1f} ms; {len(reads)} band readbacks, "
           f"{out['readback_bytes']} bytes in {out['readback_ms']:.2f} ms; refiner seconds "
           f"{ {k: round(v, 3) for k, v in sec.items()} }, host {out['host_s']:.2f} s", flush=True)
-    for k, r in enumerate(reads):
-        print(f"(l) long6 f32 branch readback {k}: {r['cells']} cells, {r['bytes']} bytes in "
-              f"{r['ms']:.3f} ms", flush=True)
+    for k, (r, u) in enumerate(zip(reads, uploads)):
+        print(f"(l) long6 f32 refine step {k}: upload {u['bytes']} bytes, copy {u['ms']:.3f} ms, "
+              f"packing {u['pack_ms']:.2f} ms; readback {r['cells']} cells, {r['bytes']} bytes "
+              f"in {r['ms']:.3f} ms", flush=True)
     return out
 
 
 def branch_host(args, viterbi: bool) -> tuple:
-    """csrc/fill.cpp `branch_fill` on host copies of a branch fill's
-    arguments: (cells, ms)."""
+    """csrc/fill.cpp `branch_fill` on a branch fill's host arguments (emit,
+    ins, mask, trans): (cells, ms)."""
     from historian_tpu_torch.native import get_native
 
-    emit, ins, mask, trans = (a.cpu().numpy() for a in args)
+    emit, ins, mask, trans = args
     cells = np.empty((*emit.shape, 3))
     t0 = time.perf_counter()
-    get_native().branch_fill(emit.shape[0], emit.shape[1], emit, ins, mask.astype(np.uint8),
-                             trans, np.uint8(viterbi), cells)
+    get_native().branch_fill(emit.shape[0], emit.shape[1], np.ascontiguousarray(emit), ins,
+                             np.ascontiguousarray(mask, dtype=np.uint8), trans, np.uint8(viterbi),
+                             cells)
     return cells, (time.perf_counter() - t0) * 1e3
 
 
-def branch_bound(args, viterbi: bool) -> dict:
-    """Kernel (e)'s bound: the mask, the insert vector and the transitions
-    read once, the emission at the in-mask cells only (a cell outside the
-    mask is NEG whatever its emission), the [X+1, Y+1, 3] float64 grid
-    written once; operations on the in-mask cells (a cell outside the mask
-    is only stored)."""
-    emit, ins, mask, trans = args
+def branch_bound(layout, mask: np.ndarray, viterbi: bool) -> dict:
+    """Kernel (e)'s bound on the band: each band cell's M, I, D written
+    once (24 B) and its emission and mask byte read once (9 B), the rows'
+    rowpos and off, the diagonals' (xa, xb), ins and trans read once;
+    operations on the in-mask cells (a cell outside the mask is only
+    stored).  Beside it the PR 11 form, which wrote the whole NEG grid."""
+    X1, Y1 = layout.shape
     in_mask = int(mask.sum())
-    n_bytes = nbytes(ins, mask, trans) + in_mask * emit.element_size() + emit.numel() * 3 * 8
+    n_bytes = (layout.n * (24 + 8 + 1) + 4 * X1 + 4 * (X1 + 1) + 8 * (X1 + Y1 - 1)
+               + 8 * Y1 + 8 * 8)
     ops = in_mask * (BRANCH_VITERBI_OPS if viterbi else BRANCH_FORWARD_OPS)
-    return bound(n_bytes, ops, torch.float64)
+    out = bound(n_bytes, ops, torch.float64)
+    grid_bytes = mask.size * (1 + 3 * 8) + in_mask * 8 + 8 * Y1 + 8 * 8
+    out["grid_bound_ms"] = grid_bytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def chain_step_ns(trans: np.ndarray, viterbi: bool) -> float:
+    """The dependency floor's step: one Delete step of kernel (e)'s
+    recurrence waiting on the one before (csrc/branchfill.cu
+    `branchfill_chain`, one thread), in ns, from CUDA events around
+    200000 steps, median of 3."""
+    from historian_tpu_torch.ops import _kernels
+
+    tr = torch.as_tensor(trans, dtype=torch.float64, device="cuda")
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    steps = 200_000
+
+    def run():
+        _kernels.check(_kernels.lib().branchfill_chain_f64(
+            tr.data_ptr(), steps, int(viterbi), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "branchfill_chain")
+
+    return cuda_ms_median(run, 3) * 1e6 / steps
 
 
 def branch_err(what: str, got, ref) -> float:
@@ -1658,9 +1701,9 @@ ROUTE_SWEEP = (500_000, 1_000_000, 2_000_000, 4_000_000, 8_000_000, 32_000_000)
 def branch_routes(matrix_args) -> list:
     """A BranchMatrix end to end, Viterbi, on each route: the host's
     emission and mask, then the fill and the best traceback, on fill.cpp
-    (HISTORIAN_DEVICE_BRANCH=0) or on the card (=1: the uploads, the NEG
-    grid, kernel (e), the band's search and readback, the traceback
-    through BandCells).  At long6's first refine branch cut to n x n for
+    (HISTORIAN_DEVICE_BRANCH=0) or on the card (=1: the band's hull, its
+    upload, kernel (e), its readback, the traceback through BandCells).
+    At long6's first refine branch cut to n x n for
     each of ROUTE_SWEEP's state-cells, and whole; the routes alternate,
     3 times each, median wall ms.  Both routes must give the same path."""
     from historian_tpu_torch import device
@@ -1700,17 +1743,23 @@ def branch_routes(matrix_args) -> list:
     return out
 
 
-def phase_branch(cli, colforward, tracedp, guidedp, long6_args, matrix_args) -> dict:
+def phase_branch(cli, colforward, tracedp, guidedp, long6_args, matrix_args,
+                 parent: str | None) -> dict:
     """(m) Kernel (e), the branch fill.  small6 `recon -careful` in float64
     on the card, once with HISTORIAN_DEVICE_BRANCH=1 (every refine step's
     fill on the kernel) and once on the automatic route (these small fills
-    on the host), each byte-identical to the CPU run.  Then the kernel
-    against its plain version (1e-12 relative) and against csrc/fill.cpp
-    (Viterbi bit for bit, Forward 1e-12 relative), in both modes, at the
-    first fill of the forced small6 run and at the first long6 fill of
-    (l): ms (CUDA events, median of 5 after a warm launch), the plain
-    version's ms and fill.cpp's, and the bound.  Then both routes of a
-    BranchMatrix around the route rule's threshold (`branch_routes`)."""
+    on the host), each byte-identical to the CPU run.  Then, at the first
+    fill of the forced small6 run and at the first long6 fill of (l), in
+    both modes: the full-grid entry `branch_fill` against its plain
+    version (1e-12 relative) and against csrc/fill.cpp (Viterbi bit for
+    bit, Forward 1e-12 relative), the band entry `branch_fill_band` on the
+    uploaded band against fill.cpp at the band; the band entry's ms (CUDA
+    events, median of 5 after a warm launch: the kernel alone) and us a
+    diagonal, its design, the plain version's and fill.cpp's ms, the
+    band's byte bound and the dependency floor.  Then both routes of a
+    BranchMatrix around the route rule's threshold (`branch_routes`), and
+    with `parent`, the parent's kernel (e) beside this one at long6's
+    first fill (`branch_parent`)."""
     from historian_tpu_torch import recon
     from historian_tpu_torch.engine import forward
     from historian_tpu_torch.ops import branchdp
@@ -1723,7 +1772,7 @@ def phase_branch(cli, colforward, tracedp, guidedp, long6_args, matrix_args) -> 
         for route, env in (("forced", "1"), ("automatic", "auto")):
             os.environ["HISTORIAN_DEVICE_BRANCH"] = env
             zero_counts(*counters)
-            with first_call(branchdp, "branch_fill") as small_args:
+            with first_call(branchdp, "upload_band") as small_args:
                 gpu = run_cli(cli, ["-platform", "gpu", "-careful", fa6], "f64")
             counts = recon_counts(*counters)
             steps = refiner.LAST["steps"]
@@ -1735,17 +1784,23 @@ def phase_branch(cli, colforward, tracedp, guidedp, long6_args, matrix_args) -> 
             if counts["branch_fills"] != want or counts["branchfill"] != want["device"]:
                 raise AssertionError(f"small6 -careful {route}: {steps} steps, {counts}")
             if route == "forced":
-                small = small_args[0][:4]  # emit, ins, mask, trans
+                small = small_args[0][:5]  # layout, emit, mask, ins, trans
             print(f"(m) small6 recon -careful f64, {route} branch route: card == cpu "
                   f"({len(gpu)} bytes, LP {stockholm_rows_lp(gpu)[1]}), {steps} refine steps, "
                   f"{refiner.LAST['improvements']} improvements, branch fills "
-                  f"{counts['branch_fills']}, kernel (e) launches {counts['branchfill']}",
-                  flush=True)
+                  f"{counts['branch_fills']}, kernel (e) launches {counts['branchfill']} "
+                  f"{counts['branch_designs']}", flush=True)
         del os.environ["HISTORIAN_DEVICE_BRANCH"]
 
+    dev = torch.device("cuda")
     out = {}
-    for name, args in (("small6", small), ("long6", long6_args)):
-        X1, Y1 = args[0].shape
+    for name, (layout, emit, mask, ins, trans) in (("small6", small), ("long6", long6_args)):
+        X1, Y1 = emit.shape
+        K = X1 + Y1 - 1
+        host_args = (emit, ins, mask, trans)
+        args = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in host_args]
+        band = branchdp.upload_band(layout, emit, mask, ins, trans, dev)
+        idx = layout.flat_index()
         for viterbi in (True, False):
             mode = "viterbi" if viterbi else "forward"
             got = branchdp.branch_fill(*args, viterbi)
@@ -1753,30 +1808,82 @@ def phase_branch(cli, colforward, tracedp, guidedp, long6_args, matrix_args) -> 
             plain, plain_ms = host_ms(lambda: branchdp.branch_fill_plain(*args, viterbi))
             err = branch_err(f"{name} {mode} kernel vs plain", got, plain)
             del plain
-            host, fill_cpp_ms = branch_host(args, viterbi)
+            host, fill_cpp_ms = branch_host(host_args, viterbi)
+            got = got.cpu().numpy()
+            before = dict(branchdp.DESIGNS)
+            got_band = branchdp.branch_fill_band(band, viterbi).cpu().numpy()
+            design = next(k for k in before if branchdp.DESIGNS[k] > before[k])
+            host_band = host.reshape(-1, 3)[idx]
             if viterbi:
-                if not np.array_equal(got.cpu().numpy().view(np.uint64), host.view(np.uint64)):
+                if not (np.array_equal(got.view(np.uint64), host.view(np.uint64))
+                        and np.array_equal(got_band.view(np.uint64), host_band.view(np.uint64))):
                     raise AssertionError(f"{name} viterbi: kernel cells differ from fill.cpp's")
-                vs_host = "bit-equal"
+                vs_host = "bit-equal (grid and band)"
             else:
-                vs_host = f"max abs err {branch_err(f'{name} forward vs fill.cpp', got, host):.3e}"
-            del got, host
-            ms = cuda_ms_median(lambda: branchdp.branch_fill(*args, viterbi))
-            bnd = branch_bound(args, viterbi)
-            print(f"(m) kernel (e) {name} {mode} {X1} x {Y1} ({int(args[2].sum())} in-mask "
-                  f"cells): {ms:.3f} ms, plain {plain_ms:.1f} ms, fill.cpp {fill_cpp_ms:.1f} ms; "
-                  f"vs plain max abs err {err:.3e}, vs fill.cpp {vs_host}; bound "
-                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
-            out[(name, mode)] = dict(ms=ms, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
-                                     err=err, **bnd)
+                e_grid = branch_err(f"{name} forward vs fill.cpp", got, host)
+                e_band = branch_err(f"{name} forward band vs fill.cpp", got_band, host_band)
+                vs_host = f"max abs err {max(e_grid, e_band):.3e}"
+            del got, host, got_band, host_band
+            ms = cuda_ms_median(lambda: branchdp.branch_fill_band(band, viterbi))
+            grid_ms = cuda_ms_median(lambda: branchdp.branch_fill(*args, viterbi))
+            bnd = branch_bound(layout, mask, viterbi)
+            step_ns = chain_step_ns(trans, viterbi)
+            floor_ms = K * step_ns / 1e6
+            print(f"(m) kernel (e) {name} {mode} {X1} x {Y1} ({int(mask.sum())} in-mask cells, "
+                  f"{layout.n} band cells, widest diagonal {layout.widest}, {design} design): "
+                  f"{ms:.3f} ms ({ms * 1e3 / K:.4f} us a diagonal over {K}), full-grid entry "
+                  f"{grid_ms:.3f} ms, plain {plain_ms:.1f} ms, fill.cpp {fill_cpp_ms:.1f} ms; vs "
+                  f"plain max abs err {err:.3e}, vs fill.cpp {vs_host}; bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; the NEG grid's "
+                  f"{bnd['grid_bound_ms']:.4f}), dependency floor {floor_ms:.3f} ms ({K} x "
+                  f"{step_ns:.2f} ns)", flush=True)
+            out[(name, mode)] = dict(ms=ms, us_per_diagonal=ms * 1e3 / K, grid_entry_ms=grid_ms,
+                                     plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms, err=err,
+                                     design=design, band_cells=layout.n,
+                                     dependency_floor_ms=floor_ms, step_ns=step_ns, **bnd)
+        del args, band
     main_path = out[("long6", "viterbi")]
     routes = branch_routes(matrix_args)
-    print(json.dumps({"branchfill": {f"{n} {m}": v for (n, m), v in out.items()},
-                      "routes": routes}), flush=True)
+    line = {"branchfill": {f"{n} {m}": v for (n, m), v in out.items()}, "routes": routes}
+    if parent:
+        line["parent"] = branch_parent(parent, long6_args)
+    print(json.dumps(line), flush=True)
     return dict(main_path, err=max(v["err"] for v in out.values()))
 
 
-def main() -> int:
+def branch_parent(parent: str, long6_args) -> dict:
+    """Kernel (e) of the checkout in `parent` and of this one at long6's
+    first refine fill, both modes: historian_tpu_torch/branch_bench.py in
+    fresh processes, parent, this, this, parent (roots.compare_roots);
+    returns each root's runs."""
+    from historian_tpu_torch.roots import compare_roots
+
+    _, emit, mask, ins, trans = long6_args
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "long6_branch.npz")
+        np.savez(path, match_emit=emit, ins_emit=ins, mask=mask, trans=trans)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            compare_roots(os.path.join(REPO, "historian_tpu_torch", "branch_bench.py"),
+                          ["--inputs", path, "--reps", "5"], [parent, REPO], 2, "branch_bench")
+    table = json.loads(buf.getvalue().splitlines()[-1])["compare"]
+    for root, runs in table.items():
+        tag = "parent" if root == os.path.abspath(parent) else "this"
+        for r in runs:
+            print(f"(m) kernel (e) at long6's first fill, {tag} ({root}): viterbi "
+                  f"{r['viterbi_ms']:.3f} ms, forward {r['forward_ms']:.3f} ms (kernel alone, "
+                  f"{r['design']}); wrapper {r['viterbi_wrapper_ms']:.3f} / "
+                  f"{r['forward_wrapper_ms']:.3f} ms", flush=True)
+    return table
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of historian_tpu_torch on one card.")
+    ap.add_argument("--parent", help="a checkout of another version (e.g. the parent commit "
+                    "unpacked under build/): time its kernel (e) beside this one in (m)")
+    opts = ap.parse_args(argv)
     from historian_tpu_torch import bench, cli
     from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
 
@@ -1813,7 +1920,7 @@ def main() -> int:
         routes_k = phase_counts(cli, work)
         launches_l = phase_careful(cli, colforward, tracedp, guidedp, work)
     branch = phase_branch(cli, colforward, tracedp, guidedp, launches_l.pop("branch_args"),
-                          launches_l.pop("matrix_args"))
+                          launches_l.pop("matrix_args"), opts.parent)
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",

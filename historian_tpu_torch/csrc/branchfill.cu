@@ -16,21 +16,57 @@
 // Viterbi and fill.cpp's lse2 for Forward.  Every sum is __dadd_rn, so
 // nothing is contracted.
 //
-// What bounds it on this card: the grid's bytes, 24 B a cell written once,
-// with the mask's byte a cell and the emission at the in-mask cells only
-// (0.90 GB at a 6000 x 6000 long6 branch, 0.27 ms at 3.35 TB/s), but the
-// recurrence allows parallel work only along an anti-diagonal, so the floor
-// in practice is one chain of dependent reads a diagonal, some 12 000 of
-// them.  Design: one block walks
-// the anti-diagonals x + y = k in order, one block barrier a diagonal.  The
-// wrapper fills the grid with BNEG first and gives each diagonal the rows
-// of its in-mask interior cells (`xa[k]..xb[k]`, ops/branchdp.py
-// `diagonal_ranges`); the block computes those and the diagonal's cells on
-// the four always-in boundary lines, and leaves the rest BNEG, as fill.cpp
-// writes them.  Under a band the block is one to four warps, sized by the
-// wrapper to the widest diagonal, so a barrier is cheap; the neighbours'
-// cells (diagonals k - 1 and k - 2) are read back from device memory, where
-// the 50 MB L2 still holds them.
+// The band.  The kernel reads and writes only the band (ops/branchdp.py
+// `band_layout`): rows 0 and X whole, and on each row 0 < x < X its
+// column 0, its hull [lo(x), hi(x)] (the in-mask interior columns, widened
+// where needed so that lo and hi never fall as x grows) and its column Y,
+// packed row after row.  The emission and the mask byte come in at the
+// band's cells, and M, I, D go out there; a hull cell outside the mask is
+// written BNEG, and a cell outside the band is BNEG by definition, as
+// fill.cpp has it.  Per row, `rowpos[x]` + y is the packed position of a
+// hull cell (of any cell of rows 0 and X), `off[x]` that of (x, 0) and
+// `off[x + 1] - 1` that of (x, Y); per anti-diagonal x + y = k, `diag[k]`
+// holds the first and the last hull row (xa > xb where none).  Since lo
+// and hi never fall, a diagonal's hull rows are contiguous, and its cells
+// are, in order of x: (0, k), (k - Y, Y), the hull rows xa..xb, (k, 0),
+// (X, k - X), each where it lies on the grid.
+//
+// What bounds it on this card.  Bytes: 24 B a band cell written, 9 B a
+// band cell read (~10 MB at a long6 branch, ~3 us at 3.35 TB/s).  But the
+// recurrence allows parallel work only along an anti-diagonal, and a
+// diagonal needs the two before it, so the floor is one chain of
+// dependent steps a diagonal (`branchfill_chain` times one), some 12 000
+// of them at a long6 branch.  The design shortens each diagonal's chain.
+//
+// Ring design (a diagonal of at most kRingMaxCells cells): two kernels.
+// The plan (`branchfill_plan`, a thread per cell slot of each diagonal,
+// all diagonals at once) writes a 32-byte record a cell, diagonal after
+// diagonal: the cell's packed position, its emission, ins[y] and mask
+// flag, and the ring slots of the cell and of its three neighbours.  The
+// fill (`branchfill_ring`) is one block of one to eight warps a state
+// group, a thread a cell of the diagonal: one group for Viterbi, three for
+// Forward, each computing one of the cell's states, since Forward's red2
+// (exp and log1p in float64) makes a cell's three chains long enough to be
+// worth three warps' schedulers.  The cells of diagonals k - 1 and k - 2
+// stay in shared memory, in a ring of three planes of row slots: row x of
+// the hull in slot x mod R (R a power of two no smaller than any
+// diagonal's hull rows), the four boundary lines in four slots of their
+// own, and a guard slot that always holds BNEG, which a neighbour outside
+// the band reads.  The records come in with cp.async kLead diagonals ahead
+// of the wavefront, into a shared-memory stage, one commit group a
+// diagonal.  So no device-memory load and no integer bookkeeping stands
+// on the chain, which is: the barrier, a shared-memory read of (x - 1, y),
+// the Delete step (an add and two red2), a shared-memory write.  The
+// barrier is __syncwarp for one warp and a named barrier over the block's
+// warps for more.  The band goes out to device memory, which the fill only
+// writes.  A cell's step has no branch (selects only, down to Forward's
+// log1p), so that a warp's lanes never split.
+//
+// Wide design (a diagonal wider than the ring's block, e.g. a full mask):
+// one block of up to 1024 threads strides over each diagonal's cells and
+// reads the neighbours back from the band it writes in device memory, one
+// block barrier a diagonal.  The wrapper chooses the design before the
+// launch and counts each (ops/branchdp.py DESIGNS).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,109 +75,406 @@ namespace {
 
 constexpr double kBNeg = -1e30;  // ops/branchdp.py NEG
 constexpr double kLog2 = 0.693147180559945309417232121458176568;  // fill.cpp LOG2
-constexpr int kThreads = 1024;
+constexpr int kMaxThreads = 1024;
+constexpr int kRingMaxCells = 256;  // ops/branchdp.py RING_MAX_CELLS
+constexpr int kRingMaxThreads = 3 * kRingMaxCells;  // three state groups (Forward)
+constexpr int kLead = 12;           // diagonals the records come in ahead
+constexpr int kStages = 16;         // the records' stage: a power of two > kLead
+
+enum Kind { kNone = 0, kRow0, kRowX, kCol0, kColY, kHull };
+
+struct Cell3 {
+  double m, i, d;
+};
+
+// log1p(exp(t)) for -708 <= t <= 0 with no branch: w = exp(t) in (0, 1],
+// log1p(w) = 2 atanh(s), s = w / (2 + w) <= 1/3, by its series in s^2 to
+// 17 terms (the 18th is under 2^-56 of the sum), so that a warp's lanes
+// do not split between a library log1p's paths.
+__device__ __forceinline__ double log1p_exp(double t) {
+  const double w = exp(t);
+  const double s = __ddiv_rn(w, __dadd_rn(2.0, w));
+  const double s2 = __dmul_rn(s, s);
+  double p = 1.0 / 33;
+#pragma unroll
+  for (int k = 15; k >= 0; --k) p = __fma_rn(p, s2, 1.0 / (2 * k + 1));
+  return __dmul_rn(__dadd_rn(s, s), p);
+}
 
 template <bool VIT>
 __device__ __forceinline__ double red2(double a, double b) {
   if (VIT) return a > b ? a : b;
-  // fill.cpp lse2
-  if (a == b) return __dadd_rn(a, kLog2);
+  // fill.cpp lse2, with selects for its branches so that a warp's lanes do
+  // not diverge: a == b gives a + LOG2; d > 0, a + log1p(exp(-d)); d <= 0,
+  // b + log1p(exp(d)); else (a NaN) a + b.  Below -708 (a BNEG beside a
+  // number, often) log1p(exp(t)) is under 1e-307, which leaves the sum
+  // unchanged, and exp is not called there, off its slow range.
   const double d = __dsub_rn(a, b);
-  if (d > 0) return __dadd_rn(a, log1p(exp(-d)));
-  if (d <= 0) return __dadd_rn(b, log1p(exp(d)));
-  return __dadd_rn(a, b);
+  const bool up = d > 0;
+  const double t = up ? -d : d;
+  const double r = __dadd_rn(up ? a : b, t < -708.0 ? 0.0 : log1p_exp(fmax(t, -708.0)));
+  return a == b ? __dadd_rn(a, kLog2) : (up || d <= 0) ? r : __dadd_rn(a, b);
 }
 
-// The rows x of the cells of diagonal k on the four boundary lines
-// (x = 0, y = 0, x = X, y = Y), each once; returns how many.
-__device__ __forceinline__ int boundary_rows(int k, int X, int Y, int (&bx)[4]) {
-  int n = 0;
-  if (k <= Y) bx[n++] = 0;                           // x = 0
-  if (k >= 1 && k <= X) bx[n++] = k;                 // y = 0
-  if (X >= 1 && k - X >= 1 && k - X <= Y) bx[n++] = X;  // x = X
-  if (Y >= 1 && k - Y >= 1 && k - Y <= X - 1) bx[n++] = k - Y;  // y = Y
-  return n;
+// The cell of rank t on diagonal k (hull rows r.x..r.y), in order of x:
+// its kind, and its row in x.
+__device__ __forceinline__ int cell_at(int t, int k, int2 r, int X, int Y, int& x) {
+  if (k <= Y) {
+    if (t == 0) { x = 0; return kRow0; }
+    --t;
+  }
+  if (Y >= 1 && k - Y >= 1 && k - Y <= X - 1) {
+    if (t == 0) { x = k - Y; return kColY; }
+    --t;
+  }
+  const int nh = r.y >= r.x ? r.y - r.x + 1 : 0;
+  if (t < nh) { x = r.x + t; return kHull; }
+  t -= nh;
+  if (k >= 1 && k <= X - 1) {
+    if (t == 0) { x = k; return kCol0; }
+    --t;
+  }
+  if (X >= 1 && k >= X && k - X <= Y && t == 0) { x = X; return kRowX; }
+  return kNone;
+}
+
+// The cells on diagonal k.
+__device__ __forceinline__ int diag_cells(int k, int2 r, int X, int Y) {
+  return (k <= Y) + (Y >= 1 && k - Y >= 1 && k - Y <= X - 1) + (r.y >= r.x ? r.y - r.x + 1 : 0)
+         + (k >= 1 && k <= X - 1) + (X >= 1 && k >= X && k - X <= Y);
+}
+
+// The kind of cell (x, y) (0 <= x <= X, 0 <= y <= Y) on a diagonal whose
+// hull rows are r.x..r.y; kNone outside the band.
+__device__ __forceinline__ int kind_of(int x, int y, int2 r, int X, int Y) {
+  if (x == 0) return kRow0;
+  if (x == X) return kRowX;
+  if (y == 0) return kCol0;
+  if (y == Y) return kColY;
+  return (x >= r.x && x <= r.y) ? kHull : kNone;
+}
+
+__device__ __forceinline__ int slot_of(int kind, int x, int R) {
+  return kind == kHull ? (x & (R - 1)) : R + kind - kRow0;
+}
+
+// The packed position of a band cell.
+__device__ __forceinline__ int pos_of(int kind, int x, int y, const int* rowpos, const int* off,
+                                      int offX) {
+  switch (kind) {
+    case kRow0: return y;
+    case kRowX: return offX + y;
+    case kCol0: return off[x];
+    case kColY: return off[x + 1] - 1;
+    default: return rowpos[x] + y;
+  }
+}
+
+// fill.cpp's cell (x, y) from its neighbours p (x-1, y-1), q (x, y-1),
+// u (x-1, y) (BNEG where they lie outside the band or the grid, and u
+// BNEG where x = 0); x_in is x > 0, y_in is y > 0.  The three states'
+// full forms are computed on every lane, in fill.cpp's order, and its
+// special cases chosen by selects, so that the lanes of a warp do not
+// diverge and the three chains interleave: where x = 0, fill.cpp's Delete
+// base red2(BNEG + md, BNEG + id) and run BNEG are the full form on u =
+// BNEG, and its Match is BNEG + emit.
+template <bool VIT>
+__device__ __forceinline__ double m_value(bool x_in, bool y_in, bool in_env, double e,
+                                          const Cell3& p, const double* tr) {
+  const double mr = red2<VIT>(red2<VIT>(__dadd_rn(p.m, tr[0]), __dadd_rn(p.i, tr[3])),
+                              __dadd_rn(p.d, tr[6]));
+  return !in_env ? kBNeg : !y_in ? (x_in ? kBNeg : 0.0) : __dadd_rn(x_in ? mr : kBNeg, e);
 }
 
 template <bool VIT>
-__global__ void __launch_bounds__(kThreads) branchfill_kernel(
-    int sx, int sy, const double* __restrict__ emit, const double* __restrict__ ins,
-    const uint8_t* __restrict__ mask, const double* __restrict__ trans8,
-    const int* __restrict__ xa, const int* __restrict__ xb, double* cells) {
-  const double mm = trans8[0], mi = trans8[1], md = trans8[2];
-  const double im = trans8[3], ii = trans8[4], id = trans8[5];
-  const double dm = trans8[6], dd = trans8[7];
-  const int ndiag = sx + sy - 1;
-  for (int k = 0; k < ndiag; ++k) {
-    int bx[4];
-    const int nb = boundary_rows(k, sx - 1, sy - 1, bx);
-    const int a = xa[k];
-    const int n_in = xb[k] >= a ? xb[k] - a + 1 : 0;
-    for (int t = static_cast<int>(threadIdx.x); t < n_in + nb; t += blockDim.x) {
-      const int x = t < n_in ? a + t : bx[t - n_in];
-      const int y = k - x;
-      const int64_t at = static_cast<int64_t>(x) * sy + y;
-      const bool in_env = mask[at] != 0;
-      double m, i;
-      if (y == 0) {
-        m = (x == 0 && in_env) ? 0.0 : kBNeg;
-        i = kBNeg;
-      } else if (in_env) {
-        if (x > 0) {
-          const double* p = cells + (at - sy - 1) * 3;
-          m = __dadd_rn(red2<VIT>(red2<VIT>(__dadd_rn(p[0], mm), __dadd_rn(p[1], im)),
-                                  __dadd_rn(p[2], dm)),
-                        emit[at]);
-        } else {
-          m = __dadd_rn(kBNeg, emit[y]);
-        }
-        const double* q = cells + (at - 1) * 3;
-        i = __dadd_rn(red2<VIT>(__dadd_rn(q[0], mi), __dadd_rn(q[1], ii)), ins[y]);
+__device__ __forceinline__ double i_value(bool y_in, bool in_env, double ins_y, const Cell3& q,
+                                          const double* tr) {
+  const double ir = __dadd_rn(red2<VIT>(__dadd_rn(q.m, tr[1]), __dadd_rn(q.i, tr[4])), ins_y);
+  return (in_env && y_in) ? ir : kBNeg;
+}
+
+template <bool VIT>
+__device__ __forceinline__ double d_value(bool in_env, const Cell3& u, const double* tr) {
+  const double dr = red2<VIT>(__dadd_rn(u.d, tr[7]),
+                              red2<VIT>(__dadd_rn(u.m, tr[2]), __dadd_rn(u.i, tr[5])));
+  return in_env ? dr : kBNeg;
+}
+
+template <bool VIT>
+__device__ __forceinline__ Cell3 cell_value(bool x_in, bool y_in, bool in_env, double e,
+                                            double ins_y, const Cell3& p, const Cell3& q,
+                                            const Cell3& u, const double* tr) {
+  return Cell3{m_value<VIT>(x_in, y_in, in_env, e, p, tr), i_value<VIT>(y_in, in_env, ins_y, q, tr),
+               d_value<VIT>(in_env, u, tr)};
+}
+
+__device__ __forceinline__ void store(double* cells, int pos, const Cell3& c) {
+  double* o = cells + static_cast<int64_t>(pos) * 3;
+  o[0] = c.m;
+  o[1] = c.i;
+  o[2] = c.d;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The block's barrier: the warp's for one warp, else named barrier 1 over
+// the block's threads.
+__device__ __forceinline__ void block_sync(int threads) {
+  if (threads == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+  }
+}
+
+// One cell of the ring design's plan (32 bytes).
+struct __align__(16) Rec {
+  double e;      // the emission at the cell
+  double ins;    // ins[y]
+  int pos;       // its packed position; -1: no cell in this slot
+  unsigned short self, p, q, u;  // ring slots of the cell and of p, q, u
+  int flags;     // 1: in the mask, 2: x > 0, 4: y > 0
+};
+static_assert(sizeof(Rec) == 32, "a plan record is two 16-byte copies");
+
+// The ring's planes: slots [0, R) the hull's rows, R..R+3 the boundary
+// lines, R + 4 the guard (BNEG); padded to 16 bytes.
+__host__ __device__ size_t ring_bytes(int R) {
+  return (sizeof(Cell3) * 3 * (R + 5) + 15) / 16 * 16;
+}
+
+size_t ring_smem_bytes(int lanes, int R) {
+  return ring_bytes(R) + sizeof(Rec) * kStages * lanes;
+}
+
+__global__ void branchfill_plan(const double* __restrict__ emit, const uint8_t* __restrict__ mask,
+                                const double* __restrict__ ins, const int* __restrict__ rowpos,
+                                const int* __restrict__ off, const int2* __restrict__ diag,
+                                Rec* __restrict__ plan, int sx, int sy, int T, int R) {
+  const int X = sx - 1, Y = sy - 1, K = sx + sy - 1;
+  const int64_t id = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (id >= static_cast<int64_t>(K) * T) return;
+  const int k = static_cast<int>(id / T), t = static_cast<int>(id % T);
+  const unsigned short guard = static_cast<unsigned short>(R + 4);
+  Rec rec{0.0, 0.0, -1, guard, guard, guard, guard, 0};
+  int x = 0;
+  const int kind = cell_at(t, k, diag[k], X, Y, x);
+  if (kind != kNone) {
+    const int y = k - x;
+    const int pos = pos_of(kind, x, y, rowpos, off, off[X]);
+    rec.pos = pos;
+    rec.e = emit[pos];
+    rec.ins = ins[y];
+    rec.flags = (mask[pos] != 0) | ((x > 0) << 1) | ((y > 0) << 2);
+    rec.self = static_cast<unsigned short>(slot_of(kind, x, R));
+    if (x >= 1 && y >= 1) {
+      const int kp = kind_of(x - 1, y - 1, diag[k - 2], X, Y);
+      if (kp != kNone) rec.p = static_cast<unsigned short>(slot_of(kp, x - 1, R));
+    }
+    if (y >= 1) {
+      const int kq = kind_of(x, y - 1, diag[k - 1], X, Y);
+      if (kq != kNone) rec.q = static_cast<unsigned short>(slot_of(kq, x, R));
+    }
+    if (x >= 1) {
+      const int ku = kind_of(x - 1, y, diag[k - 1], X, Y);
+      if (ku != kNone) rec.u = static_cast<unsigned short>(slot_of(ku, x - 1, R));
+    }
+  }
+  plan[id] = rec;
+}
+
+// The fill: `lanes` threads a state group, one a cell slot of the
+// diagonal.  Without SPLIT one group computes whole cells; with SPLIT
+// (Forward, whose red2 is long) three groups split a cell's states, group
+// g computing state g (M, I, D), so that the three chains run on three
+// warps' schedulers, and group 0 brings the records in.
+template <bool VIT, bool SPLIT>
+__global__ void __launch_bounds__(kRingMaxThreads) branchfill_ring(
+    const Rec* __restrict__ plan, const double* __restrict__ trans8, double* __restrict__ cells,
+    int K, int R, int lanes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x, t = threadIdx.x;
+  const int g = SPLIT ? t / lanes : 0, c = t - g * lanes;  // state group, cell slot
+  double tr[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) tr[j] = trans8[j];
+  Cell3* ring = reinterpret_cast<Cell3*>(smem);  // [3][R + 5]
+  Rec* stage = reinterpret_cast<Rec*>(smem + ring_bytes(R));  // [kStages][lanes]
+  if (t < 3) ring[t * (R + 5) + R + 4] = Cell3{kBNeg, kBNeg, kBNeg};
+  // diagonal d's records in, one commit group a diagonal
+  auto fetch = [&](int d) {
+    if (d < K) {
+      const Rec* src = plan + static_cast<int64_t>(d) * lanes + c;
+      Rec* dst = stage + (d & (kStages - 1)) * lanes + c;
+      cp_async16(dst, src);
+      cp_async16(reinterpret_cast<unsigned char*>(dst) + 16,
+                 reinterpret_cast<const unsigned char*>(src) + 16);
+    }
+    cp_commit();
+  };
+  if (g == 0) {
+    for (int d = 0; d < kLead; ++d) fetch(d);
+    cp_wait<kLead - 1>();  // diagonal 0's records
+  }
+  block_sync(T);
+  for (int k = 0; k < K; ++k) {
+    if (g == 0) fetch(k + kLead);
+    if (!SPLIT) cp_wait<kLead>();  // diagonal k's records, this thread's own
+    const Rec rec = stage[(k & (kStages - 1)) * lanes + c];
+    if (rec.pos >= 0) {
+      const Cell3* r1 = ring + ((k + 2) % 3) * (R + 5);  // diagonal k - 1
+      const Cell3* r2 = ring + ((k + 1) % 3) * (R + 5);  // diagonal k - 2
+      Cell3* out = ring + (k % 3) * (R + 5) + rec.self;
+      const bool x_in = rec.flags & 2, y_in = rec.flags & 4, in_env = rec.flags & 1;
+      if (!SPLIT) {
+        const Cell3 v = cell_value<VIT>(x_in, y_in, in_env, rec.e, rec.ins, r2[rec.p], r1[rec.q],
+                                        r1[rec.u], tr);
+        *out = v;
+        store(cells, rec.pos, v);
       } else {
-        m = kBNeg;
-        i = kBNeg;
+        const double v = g == 0 ? m_value<VIT>(x_in, y_in, in_env, rec.e, r2[rec.p], tr)
+                         : g == 1 ? i_value<VIT>(y_in, in_env, rec.ins, r1[rec.q], tr)
+                                  : d_value<VIT>(in_env, r1[rec.u], tr);
+        (&out->m)[g] = v;
+        cells[static_cast<int64_t>(rec.pos) * 3 + g] = v;
       }
-      double d = kBNeg;
-      if (in_env) {
-        double base, run;
-        if (x > 0) {
-          const double* u = cells + (at - sy) * 3;
-          base = red2<VIT>(__dadd_rn(u[0], md), __dadd_rn(u[1], id));
-          run = u[2];
-        } else {
-          base = red2<VIT>(__dadd_rn(kBNeg, md), __dadd_rn(kBNeg, id));
-          run = kBNeg;
-        }
-        d = red2<VIT>(__dadd_rn(run, dd), base);
-      }
-      double* c = cells + at * 3;
-      c[0] = m;
-      c[1] = i;
-      c[2] = d;
+    }
+    // with SPLIT, group 0 waits for diagonal k + 1's records before the
+    // barrier, which then shows them to the other groups
+    if (SPLIT && g == 0) cp_wait<kLead - 1>();
+    block_sync(T);
+  }
+}
+
+template <bool VIT>
+__global__ void __launch_bounds__(kMaxThreads) branchfill_wide(
+    const double* __restrict__ emit, const uint8_t* __restrict__ mask,
+    const double* __restrict__ ins, const double* __restrict__ trans8,
+    const int* __restrict__ rowpos, const int* __restrict__ off, const int2* __restrict__ diag,
+    double* cells, int sx, int sy) {
+  const int X = sx - 1, Y = sy - 1, K = sx + sy - 1;
+  const int offX = off[X];
+  double tr[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) tr[j] = trans8[j];
+  const Cell3 neg{kBNeg, kBNeg, kBNeg};
+  auto at = [&](int kind, int x, int y) -> Cell3 {
+    if (kind == kNone) return neg;
+    const double* c = cells + static_cast<int64_t>(pos_of(kind, x, y, rowpos, off, offX)) * 3;
+    return Cell3{c[0], c[1], c[2]};
+  };
+  for (int k = 0; k < K; ++k) {
+    const int2 r = diag[k];
+    const int2 r1 = k >= 1 ? diag[k - 1] : r;
+    const int2 r2 = k >= 2 ? diag[k - 2] : r;
+    const int n = diag_cells(k, r, X, Y);
+    for (int t = static_cast<int>(threadIdx.x); t < n; t += blockDim.x) {
+      int x = 0;
+      const int kind = cell_at(t, k, r, X, Y, x);
+      const int y = k - x;
+      const int pos = pos_of(kind, x, y, rowpos, off, offX);
+      Cell3 p = neg, q = neg, u = neg;
+      if (x >= 1 && y >= 1) p = at(kind_of(x - 1, y - 1, r2, X, Y), x - 1, y - 1);
+      if (y >= 1) q = at(kind_of(x, y - 1, r1, X, Y), x, y - 1);
+      if (x >= 1) u = at(kind_of(x - 1, y, r1, X, Y), x - 1, y);
+      store(cells, pos,
+            cell_value<VIT>(x > 0, y > 0, mask[pos] != 0, emit[pos], ins[y], p, q, u, tr));
     }
     __syncthreads();
   }
 }
 
+// The shortest dependent step of the recurrence, for the dependency floor:
+// one thread runs `steps` Delete steps in a chain, each waiting on the one
+// before as d(x, y) waits on cell (x - 1, y) of the diagonal before (an
+// add and red2 of two adds beside it, then red2 of the two), and writes
+// the last so that nothing is dropped.
+template <bool VIT>
+__global__ void branchfill_chain(const double* __restrict__ trans8, int steps, double* out) {
+  const double md = trans8[2], id = trans8[5], dd = trans8[7];
+  double d = trans8[0];
+  for (int s = 0; s < steps; ++s)
+    d = red2<VIT>(__dadd_rn(d, dd), red2<VIT>(__dadd_rn(d, md), __dadd_rn(d, id)));
+  *out = d;
+}
+
 }  // namespace
 
-// cells [sx, sy, 3] (sx = X + 1, sy = Y + 1; filled with BNEG by the
-// caller) from emit [sx, sy], ins [sy], mask [sx, sy] (0/1 bytes), trans8
-// (mm mi md im ii id dm dd) and each diagonal's interior rows xa, xb
-// [sx + sy - 1], all on the device, with `threads` (a multiple of 32, at
-// most 1024) in the block; returns the launch's cudaGetLastError().
-extern "C" int branchfill_f64(const double* emit, const double* ins, const uint8_t* mask,
-                              const double* trans8, const int* xa, const int* xb,
-                              double* cells, int sx, int sy, int viterbi, int threads,
-                              void* stream) {
+// The band's cells [n, 3] (M, I, D; `cells`) from the band's emission [n]
+// and mask bytes [n], ins [sy], trans8 (mm mi md im ii id dm dd), the rows'
+// `rowpos` [sx] and `off` [sx + 1] and the diagonals' (xa, xb)
+// [sx + sy - 1], all on the device (ops/branchdp.py `band_layout`), for a
+// grid of sx = X + 1 rows and sy = Y + 1 columns.  design 0 is the ring
+// (`threads` a multiple of 32 no larger than kRingMaxCells and no fewer
+// than any diagonal's cells; `ring_rows` a power of two no smaller than
+// any diagonal's hull rows; `plan` scratch of (sx + sy - 1) * threads * 32
+// bytes), design 1 the wide one (`threads` a multiple of 32, at most 1024;
+// `plan` unused).  Returns the launches' cudaGetLastError().
+extern "C" int branchfill_f64(const double* emit, const uint8_t* mask, const double* ins,
+                              const double* trans8, const int* rowpos, const int* off,
+                              const int* diag, double* cells, void* plan, int sx, int sy,
+                              int viterbi, int design, int threads, int ring_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads < 32 || threads > kThreads || threads % 32) return int(cudaErrorInvalidValue);
-  if (viterbi) {
-    branchfill_kernel<true><<<1, threads, 0, s>>>(sx, sy, emit, ins, mask, trans8, xa, xb,
-                                                  cells);
+  const int2* dg = reinterpret_cast<const int2*>(diag);
+  if (threads < 32 || threads % 32) return int(cudaErrorInvalidValue);
+  if (design == 0) {
+    if (threads > kRingMaxCells || ring_rows < 1 || (ring_rows & (ring_rows - 1)) || !plan)
+      return int(cudaErrorInvalidValue);
+    const int K = sx + sy - 1;
+    Rec* recs = static_cast<Rec*>(plan);
+    const int64_t n = static_cast<int64_t>(K) * threads;
+    branchfill_plan<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+        emit, mask, ins, rowpos, off, dg, recs, sx, sy, threads, ring_rows);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    const size_t bytes = ring_smem_bytes(threads, ring_rows);
+    if (viterbi) {
+      cudaFuncSetAttribute(branchfill_ring<true, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      branchfill_ring<true, false><<<1, threads, bytes, s>>>(recs, trans8, cells, K, ring_rows,
+                                                             threads);
+    } else {
+      cudaFuncSetAttribute(branchfill_ring<false, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      branchfill_ring<false, true><<<1, 3 * threads, bytes, s>>>(recs, trans8, cells, K,
+                                                                 ring_rows, threads);
+    }
+  } else if (design == 1) {
+    if (threads > kMaxThreads) return int(cudaErrorInvalidValue);
+    if (viterbi) {
+      branchfill_wide<true><<<1, threads, 0, s>>>(emit, mask, ins, trans8, rowpos, off, dg, cells,
+                                                  sx, sy);
+    } else {
+      branchfill_wide<false><<<1, threads, 0, s>>>(emit, mask, ins, trans8, rowpos, off, dg,
+                                                   cells, sx, sy);
+    }
   } else {
-    branchfill_kernel<false><<<1, threads, 0, s>>>(sx, sy, emit, ins, mask, trans8, xa, xb,
-                                                   cells);
+    return int(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `steps` dependent Delete steps in one thread (the dependency floor's
+// step; chip_smoke.py times it); out [1].
+extern "C" int branchfill_chain_f64(const double* trans8, int steps, int viterbi, double* out,
+                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (viterbi) {
+    branchfill_chain<true><<<1, 1, 0, s>>>(trans8, steps, out);
+  } else {
+    branchfill_chain<false><<<1, 1, 0, s>>>(trans8, steps, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

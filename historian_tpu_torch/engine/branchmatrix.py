@@ -6,11 +6,12 @@ BranchMatrixBase, Sampler::BranchMatrix and Refiner::BranchMatrix,
 sampler.h:183-223, sampler.cpp:1005-1160, refiner.cpp:10-103).  The
 emission and the envelope mask are built on the host as the JAX package
 builds them; the fill runs on the host (csrc/fill.cpp `branch_fill`) or,
-on the card, through kernel (e) (ops/branchdp.py, csrc/branchfill.cu),
-whose grid stays on the card while its band comes back once
-(`branchdp.read_band`).  The traceback (best or sampled, on the run's
-mt19937 in the reference's order) and the path scores walk the cells on
-the host.
+on the card, through kernel (e) (ops/branchdp.py, csrc/branchfill.cu) on
+the band alone: each row's hull taken from the envelope (`envelope_hull`),
+the emission and the mask at the band's cells uploaded in one pinned
+copy, the filled band read back in one (`branchdp.read_band`).  The
+traceback (best or sampled, on the run's mt19937 in the reference's
+order) and the path scores walk the cells on the host.
 """
 
 from __future__ import annotations
@@ -36,6 +37,30 @@ START, END = 0, 3  # Start aliases Match in transition lookups
 DEVICE_MIN_CELLS = 2_000_000
 #: fills by route: "host" (csrc/fill.cpp) or "device" (ops/branchdp.py)
 FILLS = {"host": 0, "device": 0}
+
+
+def envelope_hull(env: GuideAlignmentEnvelope, x_env_pos, y_env_pos, x_size: int,
+                  y_size: int):
+    """(lo, hi), int64 [X+1]: each interior row's in-mask interior columns
+    (0 < y < Y) as the envelope gives them, in `branchdp.interior_hull`'s
+    form.  The mask keeps |m1[x] - m2[y]| <= max_distance, and the child's
+    cumulative matches m2 never fall along y, so each row's columns are one
+    interval, found by binary search.  None for an uninitialised envelope
+    (the full mask) or where m2 falls, so that the hull is taken from the
+    mask."""
+    if not env.initialized or x_size < 3 or y_size < 3:
+        return None
+    m1 = env.cumulative_matches[env.row1_pos_to_col[np.asarray(x_env_pos)]][1:-1]
+    m2 = env.cumulative_matches[env.row2_pos_to_col[np.asarray(y_env_pos)]][1:-1]
+    if np.any(np.diff(m2) < 0):
+        return None
+    a = np.searchsorted(m2, m1 - env.max_distance, side="left")
+    b = np.searchsorted(m2, m1 + env.max_distance, side="right")
+    lo = np.full(x_size, y_size, dtype=np.int64)
+    hi = np.zeros(x_size, dtype=np.int64)
+    lo[1:-1] = np.where(b > a, a + 1, y_size)
+    hi[1:-1] = np.where(b > a, b, 0)
+    return lo, hi
 
 
 class BranchMatrix:
@@ -85,6 +110,7 @@ class BranchMatrix:
 
         # envelope mask [X+1, Y+1]: boundary rows and columns always in
         mask = np.zeros((self.x_size, self.y_size), dtype=bool)
+        hull = envelope_hull(env, x_env_pos, y_env_pos, self.x_size, self.y_size)
         if env.initialized:
             m1 = env.cumulative_matches[env.row1_pos_to_col[np.asarray(x_env_pos)]]
             m2 = env.cumulative_matches[env.row2_pos_to_col[np.asarray(y_env_pos)]]
@@ -111,7 +137,7 @@ class BranchMatrix:
         ins_emit = np.concatenate([[NEG], self.y_emit]) if len(y_pwm) else np.array([NEG])
 
         trans = np.array([self.mm, self.mi, self.md, self.im, self.ii, self.id, self.dm, self.dd])
-        self.cells = self._fill_cells(match_emit, ins_emit, mask, trans, viterbi)
+        self.cells = self._fill_cells(match_emit, ins_emit, mask, trans, viterbi, hull)
         end = self.cells[self.x_size - 1, self.y_size - 1]
         reduce3 = max if viterbi else lambda *v: logsumexp(list(v))
         self.lp_end = float(
@@ -131,10 +157,10 @@ class BranchMatrix:
         return devmod.current().type == "cuda" and shape[0] * shape[1] * 3 > DEVICE_MIN_CELLS
 
     @staticmethod
-    def _fill_cells(match_emit, ins_emit, mask, trans, viterbi: bool):
+    def _fill_cells(match_emit, ins_emit, mask, trans, viterbi: bool, hull=None):
         """The cells [X+1, Y+1, 3]: a numpy grid from the host fill, or a
-        BandCells from the device fill, whose grid never leaves the
-        device."""
+        BandCells from the device fill of the band, whose rows' hulls are
+        `hull` (lo, hi), else the mask's."""
         if not BranchMatrix.use_device(match_emit.shape):
             from historian_tpu_torch.native import get_native
 
@@ -153,14 +179,13 @@ class BranchMatrix:
             FILLS["host"] += 1
             return cells
         dev = devmod.current()
-        mask_t = torch.as_tensor(mask, device=dev)
-        grid = branchdp.branch_fill(
-            *(torch.as_tensor(a, dtype=torch.float64, device=dev)
-              for a in (match_emit, ins_emit)),
-            mask_t, torch.as_tensor(trans, dtype=torch.float64, device=dev), viterbi,
-        )
+        if hull is None:
+            hull = (t.numpy() for t in branchdp.interior_hull(torch.from_numpy(mask)))
+        layout = branchdp.band_layout(*hull, *match_emit.shape)
+        band = branchdp.branch_fill_band(
+            branchdp.upload_band(layout, match_emit, mask, ins_emit, trans, dev), viterbi)
         FILLS["device"] += 1
-        return branchdp.read_band(grid, mask_t)
+        return branchdp.read_band(band, layout)
 
     # ----------------------------------------------------------------- helpers
     def lp_trans(self, src: int, dest: int) -> float:

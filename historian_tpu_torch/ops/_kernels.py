@@ -56,11 +56,14 @@ _SIGNATURES = {
     "pairforward_lp_tiled": [_P] * 7 + [_I] * 4 + [_P],
     # tiled, Y1, out[5] (lanes a thread, warps, registers, local bytes, static smem)
     "pairforward_attrs": [_I, _I, _P],
-    # emit, ins, mask, trans8, xa, xb, cells, sx, sy, viterbi, threads, stream
-    "branchfill": [_P] * 7 + [_I] * 4 + [_P],
+    # emit, mask, ins, trans8, rowpos, off, diag, cells, plan, sx, sy, viterbi,
+    # design, threads, ring_rows, stream
+    "branchfill": [_P] * 9 + [_I] * 6 + [_P],
+    # trans8, steps, viterbi, out, stream: the dependency floor's step
+    "branchfill_chain": [_P, _I, _I, _P, _P],
 }
 #: the dtypes each kernel is built for, where not both
-_DTYPES = {"branchfill": ("f64",)}
+_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain")}
 
 _LIB: ctypes.CDLL | None = None
 

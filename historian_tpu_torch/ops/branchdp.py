@@ -6,19 +6,29 @@ Port of historian_tpu/ops/branchdp.py (`_branch_fill`, `branch_viterbi`,
 PyTorch: a scan over y columns, Match and Insert from the previous
 column, Delete as a segmented prefix scan over x (`_seg_scan`, the
 `_seg_combine_max` / `_seg_combine_lse` of the JAX package).
-`branch_fill` is the wrapper: the plain version for CPU tensors, the
-hand-written CUDA kernel csrc/branchfill.cu for CUDA tensors (float64),
-which keeps the host route's per-cell order (csrc/fill.cpp
-`branch_fill`), so its Viterbi cells equal the host's bit for bit.
 
-The grid [X+1, Y+1, 3] stays where it was filled; `read_band` finds and
-gathers the cells inside the mask there and copies them and their
-indices to the host, and `BandCells` answers the host traceback's cell
-reads from them (a cell outside the mask is NEG in all three states).
+The card fills the band only (`band_layout`): rows 0 and X whole, and on
+each row 0 < x < X its column 0, its hull [lo(x), hi(x)] of in-mask
+interior columns and its column Y, packed row after row.
+`branch_fill_band` is the band's entry: the hand-written CUDA kernel
+csrc/branchfill.cu for CUDA tensors (float64), which keeps the host
+route's per-cell order (csrc/fill.cpp `branch_fill`), so its Viterbi
+cells equal the host's bit for bit; `branch_fill_band_plain`, the plain
+full fill gathered at the band, for CPU tensors.  `upload_band` packs a
+host grid's band into one pinned buffer and copies it once;
+`read_band` copies the filled band back once, and `BandCells` answers
+the host traceback's cell reads from it (a cell outside the band is NEG
+in all three states, as it is outside the mask).  `branch_fill` keeps
+the JAX package's signature: the plain version on the CPU, and on the
+card the band of the mask taken where the mask lies, the kernel, and
+the band scattered into a NEG grid.
 """
 
 from __future__ import annotations
 
+
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -29,10 +39,23 @@ NEG = -1e30
 
 MATCH, INSERT, DELETE = 0, 1, 2
 
-#: kernel launches made by `branch_fill` (never by the plain version)
+#: kernel launches made by `branch_fill_band` (never by the plain version)
 LAUNCHES = 0
-#: the kernel's largest block (csrc/branchfill.cu kThreads)
+#: those launches by design (csrc/branchfill.cu): "ring", the previous two
+#: diagonals in shared memory, for a band whose diagonals hold at most
+#: RING_MAX_CELLS cells; "wide", the neighbours from device memory, for the
+#: rest (a full mask)
+DESIGNS = {"ring": 0, "wide": 0}
+#: the wide design's largest block (csrc/branchfill.cu kMaxThreads)
 MAX_THREADS = 1024
+#: the ring design's largest block, one thread a cell of a diagonal
+#: (csrc/branchfill.cu kRingMaxCells)
+RING_MAX_CELLS = 256
+#: the ring design's plan record (csrc/branchfill.cu Rec)
+PLAN_RECORD_BYTES = 32
+#: one entry a band upload (`upload_band` on the card): bytes, the copy's
+#: ms (CUDA events) and the host's ms packing the band into pinned memory
+UPLOADS: list = []
 
 
 def _seg_scan(z: torch.Tensor, flag: torch.Tensor, viterbi: bool) -> torch.Tensor:
@@ -104,82 +127,261 @@ def _check_inputs(match_emit, ins_emit, mask, trans) -> None:
         raise ValueError(f"branch fill mask must be bool, not {mask.dtype}")
 
 
-def diagonal_ranges(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(xa, xb), int32 [X+Y+1]: on each anti-diagonal x + y = k of the mask
-    [X+1, Y+1], the first and the last row x of an in-mask interior cell
-    (0 < x < X, 0 < y < Y); xa > xb where the diagonal has none.  Computed
-    where the mask lies, on a skewed copy whose column k is diagonal k."""
+def interior_hull(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi), int64 [X+1]: on each row of the mask [X+1, Y+1] the first
+    and the last in-mask interior column (0 < y < Y), computed where the
+    mask lies; (Y+1, 0) on a row with none and on rows 0 and X."""
     X1, Y1 = mask.shape
-    W = X1 + Y1 - 1
-    inner = mask.clone()
-    inner[0, :] = inner[-1, :] = False
-    inner[:, 0] = inner[:, -1] = False
-    skew = torch.zeros(X1 * W, dtype=torch.uint8, device=mask.device)
-    skew.as_strided((X1, Y1), (W + 1, 1)).copy_(inner)  # skew[x, x + y] = inner[x, y]
-    skew = skew.view(X1, W)
-    some = skew.amax(dim=0) > 0
-    xa = torch.where(some, skew.argmax(dim=0), 1).to(torch.int32)
-    xb = torch.where(some, X1 - 1 - skew.flip(0).argmax(dim=0), 0).to(torch.int32)
-    return xa, xb
+    lo = torch.full((X1,), Y1, dtype=torch.int64, device=mask.device)
+    hi = torch.zeros(X1, dtype=torch.int64, device=mask.device)
+    if X1 > 2 and Y1 > 2:
+        inner = mask[1:-1, 1:-1].to(torch.uint8)
+        some = inner.amax(dim=1) > 0
+        lo[1:-1] = torch.where(some, inner.argmax(dim=1) + 1, Y1)
+        hi[1:-1] = torch.where(some, Y1 - 2 - inner.flip(1).argmax(dim=1), 0)
+    return lo, hi
 
 
-def branch_fill(match_emit, ins_emit, mask, trans, viterbi: bool) -> torch.Tensor:
-    """Kernel (e): the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (float64 only).  Any other device or dtype raises.  The
-    kernel computes each diagonal's in-mask cells (`diagonal_ranges`) and
-    the boundary lines in a grid filled with NEG, with a block sized to the
-    widest diagonal."""
-    global LAUNCHES
-    _check_inputs(match_emit, ins_emit, mask, trans)
+@dataclass
+class BandLayout:
+    """The band of a [X+1, Y+1] grid (csrc/branchfill.cu), in numpy on the
+    host: per row its hull lo..hi (rows 0 and X: 0..Y), `off` [X+2] where
+    each row starts in the packed band, `rowpos` [X+1] with a hull cell
+    (x, y) at rowpos[x] + y, (x, 0) at off[x] and (x, Y) at off[x + 1] - 1;
+    per anti-diagonal k its first and last hull row `diag` [X+Y+1, 2]; n
+    cells in all, `widest` cells on the fullest diagonal, `span` hull rows
+    on the fullest."""
+
+    shape: tuple
+    lo: np.ndarray
+    hi: np.ndarray
+    off: np.ndarray
+    rowpos: np.ndarray
+    diag: np.ndarray
+    n: int
+    widest: int
+    span: int
+
+    def flat_index(self) -> np.ndarray:
+        """int64 [n]: x * (Y+1) + y of each band cell, in band order."""
+        X1, Y1 = self.shape
+        # a hull cell (or one of rows 0 and X) at rowpos[x] + y, then each
+        # other row's first and last cells, (x, 0) and (x, Y)
+        idx = np.arange(self.n) + np.repeat(np.arange(X1) * Y1 - self.rowpos, np.diff(self.off))
+        inner = np.arange(1, X1 - 1)
+        idx[self.off[inner]] = inner * Y1
+        idx[self.off[inner + 1] - 1] = inner * Y1 + Y1 - 1
+        return idx
+
+    def design(self) -> str:
+        return "ring" if self.widest <= RING_MAX_CELLS else "wide"
+
+
+def band_layout(lo: np.ndarray, hi: np.ndarray, X1: int, Y1: int) -> BandLayout:
+    """The band of a [X1, Y1] grid from each interior row's hull lo..hi
+    (int [X1], `interior_hull`'s form; rows 0 and X1-1 are ignored).  The
+    hulls are first widened where needed so that neither end ever falls as
+    x grows (lo to its suffix minimum, hi to its prefix maximum; an
+    envelope's hulls already are so), which makes each diagonal's hull
+    rows contiguous."""
+    X, Y = X1 - 1, Y1 - 1
+    lo, hi = np.array(lo, dtype=np.int64), np.array(hi, dtype=np.int64)
+    if X1 > 2:
+        lo[1:X] = np.minimum.accumulate(lo[1:X][::-1])[::-1]
+        hi[1:X] = np.maximum.accumulate(hi[1:X])
+    lo[0] = lo[X] = 0
+    hi[0] = hi[X] = Y
+    counts = np.maximum(hi - lo + 1, 0) + 1 + int(Y >= 1)
+    counts[0] = counts[X] = Y1
+    off = np.zeros(X1 + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    rowpos = off[:-1] + 1 - lo
+    rowpos[0], rowpos[X] = off[0], off[X]
+    k = np.arange(X1 + Y1 - 1)
+    if X1 > 2:
+        xs = np.arange(1, X)
+        xa = np.searchsorted(xs + hi[1:X], k) + 1  # first row whose hull reaches k
+        xb = np.searchsorted(xs + lo[1:X], k, side="right")  # last row whose hull starts by k
+    else:
+        xa, xb = np.ones_like(k), np.zeros_like(k)
+    rows = np.maximum(xb - xa + 1, 0)
+    cells = (rows + (k <= Y) + ((Y >= 1) & (k - Y >= 1) & (k - Y <= X - 1))
+             + ((k >= 1) & (k <= X - 1)) + ((X >= 1) & (k >= X) & (k - X <= Y)))
+    n = int(off[-1])
+    if n >= 2**31:
+        raise ValueError(f"a branch band of {n} cells is past the kernel's 32-bit positions")
+    return BandLayout((X1, Y1), lo, hi, off, rowpos, np.stack([xa, xb], 1), n,
+                      int(cells.max()), int(rows.max()))
+
+
+@dataclass
+class BandInputs:
+    """A band fill's inputs, all on one device: the emission [n] and the
+    mask bytes [n] at the band's cells, ins [Y+1], trans [8], and the
+    layout's rowpos, off and diag as int32."""
+
+    layout: BandLayout
+    emit: torch.Tensor
+    mask: torch.Tensor
+    ins: torch.Tensor
+    trans: torch.Tensor
+    rowpos: torch.Tensor
+    off: torch.Tensor
+    diag: torch.Tensor
+
+
+def band_inputs(layout: BandLayout, match_emit, mask, ins_emit, trans) -> BandInputs:
+    """The band's inputs gathered from full grids where they lie."""
     dev = match_emit.device
+    idx = torch.from_numpy(layout.flat_index()).to(dev)
+    return BandInputs(layout, match_emit.reshape(-1)[idx].to(torch.float64),
+                      mask.reshape(-1)[idx].to(torch.uint8),
+                      ins_emit.to(torch.float64), trans.to(torch.float64),
+                      *(torch.from_numpy(a.astype(np.int32)).to(dev)
+                        for a in (layout.rowpos, layout.off, layout.diag)))
+
+
+_TORCH_DTYPES = {np.float64: torch.float64, np.int32: torch.int32, np.uint8: torch.uint8}
+
+
+def upload_band(layout: BandLayout, match_emit: np.ndarray, mask: np.ndarray,
+                ins_emit: np.ndarray, trans: np.ndarray, device: torch.device) -> BandInputs:
+    """The band's inputs from host grids (a layout built on the host), on
+    `device`.  On the card: gathered straight into one pinned buffer and
+    copied in one piece (logged in UPLOADS); elsewhere `band_inputs`."""
+    if device.type != "cuda":
+        return band_inputs(layout, *(torch.from_numpy(np.ascontiguousarray(a))
+                                     for a in (match_emit, mask, ins_emit, trans)))
+    t0 = time.perf_counter()
+    X1, Y1 = layout.shape
+    n, K = layout.n, X1 + Y1 - 1
+    parts = {"emit": (np.float64, n), "ins": (np.float64, Y1), "trans": (np.float64, 8),
+             "rowpos": (np.int32, X1), "off": (np.int32, X1 + 1), "diag": (np.int32, 2 * K),
+             "mask": (np.uint8, n)}
+    spans, at = {}, 0
+    for name, (dt, count) in parts.items():
+        size = count * np.dtype(dt).itemsize
+        spans[name] = slice(at, at + size)
+        at += -(-size // 16) * 16  # each part 16-byte aligned
+    host = torch.empty(at, dtype=torch.uint8, pin_memory=True)
+    hv = {name: host.numpy()[sl].view(parts[name][0]) for name, sl in spans.items()}
+    idx = layout.flat_index()
+    np.take(np.ascontiguousarray(match_emit).reshape(-1), idx, out=hv["emit"])
+    np.take(np.ascontiguousarray(mask).reshape(-1).view(np.uint8), idx, out=hv["mask"])
+    hv["ins"][:] = ins_emit
+    hv["trans"][:] = trans
+    hv["rowpos"][:] = layout.rowpos
+    hv["off"][:] = layout.off
+    hv["diag"][:] = layout.diag.reshape(-1)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    buf = torch.empty(at, dtype=torch.uint8, device=device)
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    buf.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    UPLOADS.append(dict(bytes=at, ms=begin.elapsed_time(end), pack_ms=pack_ms))
+    dev = {name: buf[sl].view(_TORCH_DTYPES[parts[name][0]]) for name, sl in spans.items()}
+    return BandInputs(layout, dev["emit"], dev["mask"], dev["ins"], dev["trans"], dev["rowpos"],
+                      dev["off"], dev["diag"].view(K, 2))
+
+
+def branch_fill_band_plain(inp: BandInputs, viterbi: bool) -> torch.Tensor:
+    """The band's cells [n, 3]: the plain full fill (`branch_fill_plain`)
+    of the grids the band was gathered from, gathered at the band."""
+    X1, Y1 = inp.layout.shape
+    idx = torch.from_numpy(inp.layout.flat_index()).to(inp.emit.device)
+    emit = torch.full((X1 * Y1,), NEG, dtype=torch.float64, device=idx.device)
+    emit[idx] = inp.emit
+    mask = torch.zeros(X1 * Y1, dtype=torch.bool, device=idx.device)
+    mask[idx] = inp.mask != 0
+    grid = branch_fill_plain(emit.view(X1, Y1), inp.ins, mask.view(X1, Y1), inp.trans, viterbi)
+    return grid.reshape(-1, 3)[idx]
+
+
+def branch_fill_band(inp: BandInputs, viterbi: bool) -> torch.Tensor:
+    """Kernel (e) on the band: its cells [n, 3] (M, I, D), a hull cell
+    outside the mask NEG.  The plain version for CPU tensors; for CUDA
+    tensors (float64 only) the kernel, in the ring design where the
+    fullest diagonal fits its block, else in the wide design (DESIGNS);
+    any other device raises."""
+    global LAUNCHES
+    lay = inp.layout
+    dev = inp.emit.device
     if dev.type == "cpu":
-        return branch_fill_plain(match_emit, ins_emit, mask, trans, viterbi)
+        return branch_fill_band_plain(inp, viterbi)
     if dev.type != "cuda":
         raise RuntimeError(f"the branch fill has no kernel for device {dev}")
-    for t in (match_emit, ins_emit, trans):
+    for t in (inp.emit, inp.ins, inp.trans):
         if t.dtype != torch.float64:
             raise ValueError(f"the branch fill kernel takes float64, not {t.dtype}")
     from historian_tpu_torch.ops import _kernels
 
-    X1, Y1 = match_emit.shape
-    emit, ins, m, tr = (t.contiguous() for t in (match_emit, ins_emit, mask, trans))
-    xa, xb = diagonal_ranges(m)
-    widest = int((xb - xa + 1).clamp(min=0).max()) + 4  # and the boundary lines
-    threads = min(MAX_THREADS, -(-widest // 32) * 32)
-    cells = torch.full((X1, Y1, 3), NEG, dtype=torch.float64, device=dev)
+    design = lay.design()
+    threads = -(-lay.widest // 32) * 32
+    if design == "wide":
+        threads = min(MAX_THREADS, threads)
+    ring_rows = 1 << max(0, lay.span - 1).bit_length()
+    X1, Y1 = lay.shape
+    cells = torch.empty((lay.n, 3), dtype=torch.float64, device=dev)
+    # the ring design's plan: a 32-byte record a cell slot of each diagonal
+    plan = (torch.empty((X1 + Y1 - 1) * threads * PLAN_RECORD_BYTES, dtype=torch.uint8,
+                        device=dev) if design == "ring" else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _kernels.lib().branchfill_f64(emit.data_ptr(), ins.data_ptr(), m.data_ptr(),
-                                             tr.data_ptr(), xa.data_ptr(), xb.data_ptr(),
-                                             cells.data_ptr(), X1, Y1, int(bool(viterbi)),
-                                             threads, stream)
+        code = _kernels.lib().branchfill_f64(
+            inp.emit.data_ptr(), inp.mask.data_ptr(), inp.ins.data_ptr(), inp.trans.data_ptr(),
+            inp.rowpos.data_ptr(), inp.off.data_ptr(), inp.diag.data_ptr(), cells.data_ptr(),
+            None if plan is None else plan.data_ptr(), X1, Y1, int(bool(viterbi)),
+            int(design == "wide"), threads, ring_rows, stream)
     _kernels.check(code, "branchfill")
     LAUNCHES += 1
+    DESIGNS[design] += 1
     return cells
 
 
-class BandCells:
-    """A grid's cells inside its mask, on the host, read as the full grid
-    is: `cells[x, y, s]` and `cells[x, y]` ([3]); a cell outside the mask
-    is NEG in all three states, as the fill writes it."""
+def branch_fill(match_emit, ins_emit, mask, trans, viterbi: bool) -> torch.Tensor:
+    """Kernel (e) in the JAX package's signature: the cells [X+1, Y+1, 3].
+    The plain version for CPU tensors; for CUDA tensors (float64 only) the
+    band of the mask taken on the card (`interior_hull`, `band_layout`),
+    `branch_fill_band`, and the band scattered into a grid of NEG."""
+    _check_inputs(match_emit, ins_emit, mask, trans)
+    dev = match_emit.device
+    if dev.type == "cpu":
+        return branch_fill_plain(match_emit, ins_emit, mask, trans, viterbi)
+    for t in (match_emit, ins_emit, trans):
+        if t.dtype != torch.float64:
+            raise ValueError(f"the branch fill kernel takes float64, not {t.dtype}")
+    X1, Y1 = match_emit.shape
+    layout = band_layout(*(t.cpu().numpy() for t in interior_hull(mask)), X1, Y1)
+    band = branch_fill_band(band_inputs(layout, match_emit, mask, ins_emit, trans), viterbi)
+    grid = torch.full((X1 * Y1, 3), NEG, dtype=torch.float64, device=dev)
+    grid[torch.from_numpy(layout.flat_index()).to(dev)] = band
+    return grid.view(X1, Y1, 3)
 
-    def __init__(self, vals: np.ndarray, rows: np.ndarray, cols: np.ndarray, shape: tuple):
-        self.vals = vals  # [n, 3], the in-mask cells in row-major order
-        self.cols = cols  # [n] their y
-        self.row_ptr = np.searchsorted(rows, np.arange(shape[0] + 1))
-        self.shape = (*shape, 3)
+
+class BandCells:
+    """A band's cells on the host, read as the full grid is: `cells[x, y, s]`
+    and `cells[x, y]` ([3]); a cell outside the band is NEG in all three
+    states, as the fill writes it."""
+
+    def __init__(self, vals: np.ndarray, layout: BandLayout):
+        X1, Y1 = layout.shape
+        self.vals = vals  # [n, 3], in band order
+        self.lo, self.hi, self.off, self.rowpos = (
+            a.tolist() for a in (layout.lo, layout.hi, layout.off, layout.rowpos))
+        self.Y = Y1 - 1
+        self.shape = (X1, Y1, 3)
         self._neg = np.full(3, NEG)
-        self._last = (-1, -1, self._neg)  # a traceback reads a cell's 3 states in turn
 
     def _row(self, x: int, y: int):
-        lx, ly, row = self._last
-        if (lx, ly) == (x, y):
-            return row
-        lo, hi = self.row_ptr[x], self.row_ptr[x + 1]
-        k = lo + int(np.searchsorted(self.cols[lo:hi], y))
-        row = self.vals[k] if k < hi and self.cols[k] == y else self._neg
-        self._last = (x, y, row)
-        return row
+        if self.lo[x] <= y <= self.hi[x]:
+            return self.vals[self.rowpos[x] + y]
+        if y == 0:
+            return self.vals[self.off[x]]
+        if y == self.Y:
+            return self.vals[self.off[x + 1] - 1]
+        return self._neg
 
     def __getitem__(self, key):
         if len(key) == 3:
@@ -187,13 +389,9 @@ class BandCells:
         return self._row(int(key[0]), int(key[1])).copy()
 
 
-def read_band(cells: torch.Tensor, mask: torch.Tensor) -> BandCells:
-    """Find the cells where `mask` [X+1, Y+1] (bool) is set, where the grid
-    `cells` [X+1, Y+1, 3] lies; copy their values and flat indices to the
-    host once (`readback.gather_to_host`, logged in its READBACKS as a
-    "branch") and wrap them in a BandCells."""
-    X1, Y1 = mask.shape
-    idx = mask.reshape(-1).nonzero().squeeze(1)
-    vals, flat = gather_to_host("branch", cells.reshape(-1, 3), 0, idx, idx)
-    rows, cols = np.divmod(flat.numpy(), Y1)
-    return BandCells(vals.numpy(), rows, cols, (X1, Y1))
+def read_band(band: torch.Tensor, layout: BandLayout) -> BandCells:
+    """The filled band [n, 3] copied to the host once
+    (`readback.gather_to_host`, logged in its READBACKS as a "branch") and
+    wrapped in a BandCells."""
+    (vals,) = gather_to_host("branch", band, 0, None)
+    return BandCells(vals.numpy(), layout)

@@ -3,9 +3,12 @@ plain version (historian_tpu_torch/ops/branchdp.py) against the JAX
 package's `branch_viterbi` / `branch_forward` (jit on the CPU) to 1e-12
 relative, the port's csrc/fill.cpp `branch_fill` against the JAX
 package's native one bit for bit, the plain version against fill.cpp to
-1e-12, and the band readback against the full grid.  Inputs: seeded
-emissions and transitions, full or banded masks of the refiner's shape
-(boundary rows and columns always in)."""
+1e-12; the band the card fills (`band_layout`: each row's hull, the
+diagonals' hull rows, the packed order), the band entry's plain version
+against the full plain fill at every band cell, and the band readback
+against the full grid.  Inputs: seeded emissions and transitions, full,
+banded or holed masks of the refiner's shape (boundary rows and columns
+always in)."""
 
 import numpy as np
 import pytest
@@ -23,12 +26,15 @@ SHAPES = [(37, 53, -1), (130, 97, 6), (64, 64, 0), (2, 9, -1)]
 def inputs(X1, Y1, band, seed=0):
     """(match_emit, ins_emit, mask, trans): emissions of a PWM x PWM fill
     (NEG on row and column 0), a mask of cumulative-match offsets within
-    `band` of each other, and the 8 log transitions of a pair HMM."""
+    `band` of each other (-1: full; -2: random, with holes), and the 8 log
+    transitions of a pair HMM."""
     rng = np.random.default_rng(seed)
     emit = rng.normal(-4.0, 1.5, (X1, Y1))
     emit[0, :] = emit[:, 0] = branchdp.NEG
     ins = np.concatenate([[branchdp.NEG], rng.normal(-3.0, 0.5, Y1 - 1)])
-    if band < 0:
+    if band == -2:
+        mask = rng.random((X1, Y1)) < 0.3
+    elif band < 0:
         mask = np.ones((X1, Y1), dtype=bool)
     else:
         m1 = np.cumsum(rng.random(X1) < 0.8)
@@ -92,17 +98,29 @@ def test_wrapper_checks_and_counts():
         branchdp.branch_fill(emit, ins, mask.to(torch.uint8), trans, True)
 
 
-@pytest.mark.parametrize("band", [-1, 3])
+def hull(mask):
+    """The mask's interior hull (`interior_hull`) as numpy arrays."""
+    return tuple(t.numpy() for t in branchdp.interior_hull(torch.as_tensor(mask)))
+
+
+def band_of(emit, ins, mask, trans):
+    """The layout of the mask's band and the band's inputs (CPU tensors)."""
+    lay = branchdp.band_layout(*hull(mask), *mask.shape)
+    return lay, branchdp.band_inputs(lay, *(torch.as_tensor(a) for a in (emit, mask, ins, trans)))
+
+
+@pytest.mark.parametrize("band", [-1, 3, -2])
 def test_read_band_reads_as_the_grid(band):
-    """BandCells answers every cell as the full grid: in-mask cells from
-    the band copied back, the rest NEG in all three states."""
+    """BandCells answers every cell as the full grid: the band's cells from
+    the band copied back (one readback of its n x 3 values), the rest NEG
+    in all three states."""
     emit, ins, mask, trans = inputs(41, 33, band, seed=2)
-    grid = branchdp.branch_fill(*(torch.as_tensor(a) for a in (emit, ins, mask, trans)), True)
+    full = plain(emit, ins, mask, trans, True)
+    lay, inp = band_of(emit, ins, mask, trans)
     n = len(readback.READBACKS)
-    band_cells = branchdp.read_band(grid, torch.as_tensor(mask))
-    assert readback.READBACKS[n]["cells"] == mask.sum() and readback.READBACKS[n]["kind"] == "branch"
-    assert readback.READBACKS[n]["bytes"] == mask.sum() * (24 + 8)  # the values, their indices
-    full = grid.numpy()
+    band_cells = branchdp.read_band(branchdp.branch_fill_band(inp, True), lay)
+    assert readback.READBACKS[n]["cells"] == lay.n and readback.READBACKS[n]["kind"] == "branch"
+    assert readback.READBACKS[n]["bytes"] == lay.n * 24
     for x in range(41):
         for y in range(33):
             assert np.array_equal(band_cells[x, y], full[x, y])
@@ -113,19 +131,105 @@ def test_read_band_reads_as_the_grid(band):
 @pytest.mark.parametrize("shape", SHAPES + [(1, 1, -1), (1, 6, -1), (6, 1, -1), (3, 3, 0),
                                             (50, 40, -2)])
 def test_diagonal_ranges(shape):
-    """xa, xb cover every in-mask interior cell of each diagonal (first and
-    last row), and are empty (xa > xb) on a diagonal with none; band -2 is
-    a random mask with holes."""
+    """The layout's diagonals: on each anti-diagonal the hull rows are
+    exactly diag[k] = (xa, xb) (xa > xb where there are none), and they
+    hold every in-mask interior cell; band -2 is a random mask with
+    holes."""
     X1, Y1, band = shape
     if band == -2:
         mask = np.random.default_rng(3).random((X1, Y1)) < 0.3
     else:
         mask = inputs(*shape)[2]
-    xa, xb = (t.numpy() for t in branchdp.diagonal_ranges(torch.as_tensor(mask)))
-    assert xa.shape == xb.shape == (X1 + Y1 - 1,) and xa.dtype == np.int32
+    lay = branchdp.band_layout(*hull(mask), X1, Y1)
+    lo, hi, diag = lay.lo, lay.hi, lay.diag
+    assert diag.shape == (X1 + Y1 - 1, 2)
     for k in range(X1 + Y1 - 1):
-        rows = [x for x in range(1, X1 - 1) if 0 < k - x < Y1 - 1 and mask[x, k - x]]
+        rows = [x for x in range(1, X1 - 1) if lo[x] <= k - x <= hi[x]]
+        assert all(mask[x, k - x] <= (x in rows) for x in range(1, X1 - 1) if 0 < k - x < Y1 - 1)
         if rows:
-            assert (xa[k], xb[k]) == (min(rows), max(rows))
+            assert tuple(diag[k]) == (rows[0], rows[-1])
+            assert rows == list(range(rows[0], rows[-1] + 1))
         else:
-            assert xa[k] > xb[k]
+            assert diag[k, 0] > diag[k, 1]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 1, -1), (1, 6, -1), (6, 1, -1), (3, 3, 0),
+                                            (60, 50, -2), (2, 2, -1), (3, 40, -1)])
+def test_band_layout(shape):
+    """The hull of each interior row is the span of its in-mask interior
+    columns, widened only so that neither end falls as x grows; the band is
+    rows 0 and X whole and, on each other row, column 0, the hull and
+    column Y, packed row after row, where rowpos and off place them; the
+    fullest diagonal's cells and hull rows are `widest` and `span`."""
+    X1, Y1, band = shape
+    mask = inputs(X1, Y1, band, seed=4)[2]
+    lo_raw, hi_raw = hull(mask)
+    for x in range(1, X1 - 1):
+        cols = [y for y in range(1, Y1 - 1) if mask[x, y]]
+        assert (lo_raw[x], hi_raw[x]) == ((cols[0], cols[-1]) if cols else (Y1, 0))
+    lay = branchdp.band_layout(lo_raw, hi_raw, X1, Y1)
+    lo, hi, off, rowpos = lay.lo, lay.hi, lay.off, lay.rowpos
+    some = hi_raw[1:-1] > 0
+    if band != -2:  # a banded or full mask's hulls never fall: none is widened
+        assert np.array_equal(lo[1:-1][some], lo_raw[1:-1][some])
+        assert np.array_equal(hi[1:-1][some], hi_raw[1:-1][some])
+        assert np.all(lo[1:-1][~some] > hi[1:-1][~some])
+    assert np.all(np.diff(lo[1:-1]) >= 0) and np.all(np.diff(hi[1:-1]) >= 0)
+    assert np.all(lo[1:-1] <= np.where(some, lo_raw[1:-1], Y1))
+    assert np.all(hi[1:-1] >= hi_raw[1:-1])
+    cells = []
+    for x in range(X1):
+        if x in (0, X1 - 1):
+            cols = list(range(Y1))
+        else:
+            cols = sorted({0, Y1 - 1} | set(range(lo[x], hi[x] + 1)))
+        cells += [(x, y) for y in cols]
+        assert off[x + 1] - off[x] == len(cols)
+        for j, y in enumerate(cols):
+            at = off[x] + j
+            if lo[x] <= y <= hi[x]:
+                assert rowpos[x] + y == at
+            assert y != 0 or off[x] == at
+            assert y != Y1 - 1 or off[x + 1] - 1 == at
+    assert lay.n == len(cells)
+    assert np.array_equal(lay.flat_index(), [x * Y1 + y for x, y in cells])
+    per_diag = np.bincount([x + y for x, y in cells], minlength=X1 + Y1 - 1)
+    assert lay.widest == per_diag.max()
+    diag = lay.diag
+    assert lay.span == max(0, (diag[:, 1] - diag[:, 0] + 1).max())
+
+
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+@pytest.mark.parametrize("band", [-1, 6, -2], ids=["full", "band", "holes"])
+def test_band_plain_matches_plain_at_the_band(band, viterbi):
+    """The band entry on CPU tensors (the plain full fill gathered at the
+    band) equals `branch_fill_plain` at every band cell, a hull cell outside
+    the mask NEG; every cell outside the band is NEG in the full fill; it
+    launches nothing."""
+    emit, ins, mask, trans = inputs(70, 61, band, seed=7)
+    full = plain(emit, ins, mask, trans, viterbi).reshape(-1, 3)
+    lay, inp = band_of(emit, ins, mask, trans)
+    before = branchdp.LAUNCHES
+    got = branchdp.branch_fill_band(inp, viterbi).numpy()
+    assert branchdp.LAUNCHES == before and got.shape == (lay.n, 3)
+    idx = lay.flat_index()
+    assert np.array_equal(got, full[idx])
+    assert np.all(got[~mask.reshape(-1)[idx]] == branchdp.NEG)
+    outside = np.ones(len(full), dtype=bool)
+    outside[idx] = False
+    assert np.all(full[outside] == branchdp.NEG)
+
+
+def test_upload_band_on_the_cpu():
+    """`upload_band` off the card gathers the host grids' band as
+    `band_inputs` does, logs no upload, and the int32 tables carry the
+    layout."""
+    emit, ins, mask, trans = inputs(30, 45, 4, seed=9)
+    lay, ref = band_of(emit, ins, mask, trans)
+    n = len(branchdp.UPLOADS)
+    got = branchdp.upload_band(lay, emit, mask, ins, trans, torch.device("cpu"))
+    assert len(branchdp.UPLOADS) == n
+    for name in ("emit", "mask", "ins", "trans", "rowpos", "off", "diag"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert got.mask.shape == (lay.n,) and got.rowpos.dtype == torch.int32
+    assert np.array_equal(got.diag.numpy(), lay.diag)

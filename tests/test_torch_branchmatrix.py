@@ -11,8 +11,11 @@ cut at every branch as `Refiner.refine_node` cuts it.
   cells and lp_end exactly (both fill on the host, fill.cpp), `best`
   exactly, `sample` from one mt19937 seed exactly, `log_path_prob` and
   `log_post_prob` exactly;
+- the hull of each row that the port's device route takes from the
+  envelope (`envelope_hull`) against the mask's (`branchdp.interior_hull`);
 - the port's device route forced on the CPU (HISTORIAN_DEVICE_BRANCH=1:
-  the plain version and the band readback) against its host route:
+  the band entry's plain version and the band readback) against its host
+  route:
   lp_end to 1e-9, and a best path that scores, under the host's matrix,
   within 1e-9 of the host's best.  The paths themselves may differ at an
   exact tie: the plain version's Delete scan rounds otherwise than
@@ -25,11 +28,13 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from historian_tpu.engine import branchmatrix as jax_bm
 from historian_tpu.engine import treealign as jax_ta
 from historian_tpu_torch.engine import branchmatrix as port_bm
 from historian_tpu_torch.engine import treealign as port_ta
+from historian_tpu_torch.ops import branchdp
 from tests.test_torch_sampled import MEMSIZE, write_small6
 from tests.torch_twins import JAX, PORT
 
@@ -73,7 +78,7 @@ def branch(side, text, node, viterbi=True):
     bpath = ta.branch_path(path, tree, node)
     env = pkg.alignpath.GuideAlignmentEnvelope(bpath, parent, node, 20)
     out = dict(
-        parent=parent, bpath=bpath,
+        parent=parent, bpath=bpath, env=env,
         p_clade=ta.clade_path(path, tree, parent, node),
         n_clade=ta.clade_path(path, tree, node, parent),
         p_pos=ta.get_guide_seq_pos(path, parent, parent),
@@ -142,6 +147,21 @@ def test_forward_sample_and_scores(both, small6_recon):
         assert got.log_path_prob(path) == ref.log_path_prob(path)
         assert got.log_post_prob(path) == ref.log_post_prob(path)
     assert g_rng.next_u32() == r_rng.next_u32()
+
+
+def test_envelope_hull_equals_the_mask_hull(both):
+    """The device route's band: each interior row's hull found by binary
+    search on the envelope's cumulative matches equals the span of the
+    row's in-mask interior columns, and an uninitialised envelope leaves
+    the hull to the mask."""
+    node, _, got = both
+    m = got["matrix"]
+    hull = port_bm.envelope_hull(got["env"], got["p_pos"], got["n_pos"], m.x_size, m.y_size)
+    lo, hi = branchdp.interior_hull(torch.from_numpy(m.mask))
+    assert hull is not None and (hi[1:-1] > 0).any()
+    assert np.array_equal(hull[0], lo.numpy()) and np.array_equal(hull[1], hi.numpy())
+    blank = PORT.alignpath.GuideAlignmentEnvelope()
+    assert port_bm.envelope_hull(blank, got["p_pos"], got["n_pos"], m.x_size, m.y_size) is None
 
 
 def test_forced_device_route_on_cpu(both, small6_recon, monkeypatch):

@@ -836,7 +836,7 @@ def _branch_inputs(X1, Y1, band, seed):
 
 BRANCH_SHAPES = [(1, 1, -1), (1, 40, -1), (40, 1, -1), (2, 2, -1), (3, 3, 0), (37, 53, -1),
                  (130, 97, 6), (1100, 1300, 20), (2100, 90, 3), (1300, 1100, -1),
-                 (200, 230, -2)]
+                 (200, 230, -2), (700, 650, 200)]
 
 
 @pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
@@ -846,7 +846,8 @@ def test_branchfill_kernel_matches_host_and_plain(cuda, shape, viterbi):
     Forward: 1e-12 relative, the card's exp and log1p against glibc's) and
     against its plain version (1e-12 relative); outside the mask every
     state is NEG.  Diagonals longer than a block (1300 x 1100), a mask with
-    holes, grids of one row or column included."""
+    holes, grids of one row or column, a ring of seven warps (700 x 650)
+    included."""
     from historian_tpu_torch.native import get_native
     from historian_tpu_torch.ops import branchdp
 
@@ -869,22 +870,61 @@ def test_branchfill_kernel_matches_host_and_plain(cuda, shape, viterbi):
     assert np.all(g[~mask] == NEG)
 
 
+def _host_fill(emit, ins, mask, trans, viterbi):
+    from historian_tpu_torch.native import get_native
+
+    host = np.empty((*emit.shape, 3))
+    get_native().branch_fill(emit.shape[0], emit.shape[1], emit, ins, mask.astype(np.uint8),
+                             trans, np.uint8(viterbi), host)
+    return host
+
+
 def test_branchfill_band_readback(cuda):
-    """read_band on the card: the in-mask cells and their indices found
-    and gathered there, copied to pinned memory, and the rest read as
-    NEG."""
+    """The refiner's route on the card: a band's inputs packed into pinned
+    memory and uploaded in one copy (logged), kernel (e) on the band (the
+    ring design), the band read back in one copy of n x 24 bytes, and
+    BandCells reading every cell as csrc/fill.cpp's full grid, bit for
+    bit (Viterbi), NEG outside the band."""
     from historian_tpu_torch.ops import branchdp, readback
 
     emit, ins, mask, trans = _branch_inputs(300, 280, 8, seed=5)
-    t = [torch.as_tensor(a, device=cuda) for a in (emit, ins, mask, trans)]
-    grid = branchdp.branch_fill(*t, True)
-    full = grid.cpu().numpy()
-    cells = branchdp.read_band(grid, t[2])
-    assert readback.READBACKS[-1]["bytes"] == mask.sum() * (24 + 8)
+    hull = (t.numpy() for t in branchdp.interior_hull(torch.as_tensor(mask)))
+    lay = branchdp.band_layout(*hull, 300, 280)
+    n_up = len(branchdp.UPLOADS)
+    inp = branchdp.upload_band(lay, emit, mask, ins, trans, cuda)
+    assert len(branchdp.UPLOADS) == n_up + 1 and branchdp.UPLOADS[-1]["bytes"] >= lay.n * 9
+    rings = branchdp.DESIGNS["ring"]
+    cells = branchdp.read_band(branchdp.branch_fill_band(inp, True), lay)
+    assert branchdp.DESIGNS["ring"] == rings + 1
+    assert readback.READBACKS[-1]["bytes"] == lay.n * 24
     assert readback.READBACKS[-1]["kind"] == "branch"
-    rng = np.random.default_rng(0)
-    for x, y in zip(rng.integers(0, 300, 2000), rng.integers(0, 280, 2000)):
-        assert np.array_equal(cells[x, y], full[x, y])
+    full = _host_fill(emit, ins, mask, trans, True)
+    for x in range(300):
+        for y in range(280):
+            assert np.array_equal(cells[x, y].view(np.uint64), full[x, y].view(np.uint64))
+
+
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+def test_branchfill_full_mask_wider_than_the_ring(cuda, viterbi):
+    """A full mask (an uninitialised envelope) whose diagonals hold more
+    cells than the ring design's block: the wrapper picks the wide design
+    before the launch and counts it, and the cells equal fill.cpp's
+    (Viterbi bit for bit, Forward to 1e-12 relative)."""
+    from historian_tpu_torch.ops import branchdp
+
+    emit, ins, mask, trans = _branch_inputs(900, 700, -1, seed=6)
+    hull = (t.numpy() for t in branchdp.interior_hull(torch.as_tensor(mask)))
+    lay = branchdp.band_layout(*hull, 900, 700)
+    assert lay.widest > branchdp.RING_MAX_CELLS and lay.design() == "wide"
+    wides = branchdp.DESIGNS["wide"]
+    t = [torch.as_tensor(a, device=cuda) for a in (emit, ins, mask, trans)]
+    g = branchdp.branch_fill(*t, viterbi).cpu().numpy()
+    assert branchdp.DESIGNS["wide"] == wides + 1
+    host = _host_fill(emit, ins, mask, trans, viterbi)
+    if viterbi:
+        assert np.array_equal(g.view(np.uint64), host.view(np.uint64))
+    else:
+        assert np.all(np.abs(g - host) <= 1e-12 * np.maximum(1.0, np.abs(host)))
 
 
 def test_branchfill_rejects_float32(cuda):
