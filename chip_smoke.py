@@ -122,15 +122,41 @@ Phases, each fatal on failure (nothing is caught):
       rule's threshold.  With `--parent DIR` (a checkout of another
       version unpacked there), kernel (e) of that version and of this one
       at long6's first fill, in turns (historian_tpu_torch/branch_bench.py,
-      roots.compare_roots).  Prints a {"branchfill": ...} JSON line.
-Prints the Felsenstein times, the readbacks and the branch fills as JSON
-lines, the kernel table as one JSON line, the card line, and last
-{"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A kernel's
-`launches` sums the main-path runs that drive it, each counted from 0:
-K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32, K2 in (h) fused
-and (l) small6 fused, the guide kernel in (h) fused, (j) long12 f32 and
-(l) long6 f32, the walker in (e) and (j) long12 f32, kernel (e) in (l)
-long6 f32.
+      roots.compare_roots).  Prints a {"branchfill": ...} JSON line;
+  (n) MCMC with kernel (d), the sibling fill, and kernel (e) in Forward
+      mode: `mcmc -samples 3 -seed 7` on small6 in float64 (small4 if one
+      of small6's fills crosses the 2e6 state-cell route rule) on the CPU
+      and on the card's automatic route (every fill on the host), output
+      and -trace file byte-identical; then with every sibling and branch
+      fill forced onto the kernels, launches equal to fills, each fill held
+      against csrc/fill.cpp on the same inputs (1e-9), and whether the
+      output still equals the CPU's printed (an MH decision may turn at
+      round-off).  Kernel (d) at small6's node-align fill against its
+      plain version and fill.cpp.  Then the main path's run, `mcmc
+      -stockrecon <(l)'s long6 float32 reconstruction> -samples 2 -seed 7`
+      on the card: wall, steps, proposals, accepts and seconds by move,
+      the fills on each route, kernel (d)'s launches and kernel (e)'s by
+      mode and design, uploads and readbacks, peak device and host
+      memory; then one proposal of each alignment move on its history
+      from a seeded mt19937 (kernel (d) banded and full-mask, kernel (e)
+      Forward ring and wide, each fill held against fill.cpp), and kernel
+      (d) at long6's banded node-align fill (against the plain version and
+      fill.cpp) and a full-mask prune-and-regraft fill (against fill.cpp):
+      ms and us a diagonal, the plain version's and fill.cpp's ms, the
+      band's bytes up and back and the copies' ms, the bound and the
+      dependency floor; kernel (e) Forward's ms at a ring and a wide MCMC
+      fill; then both routes of the node-align proposal's SiblingMatrix
+      cut around the route rule's 2e6 in-mask state-cells, and whole.
+      Prints an {"mcmc": ...} JSON line.
+Prints the Felsenstein times, the readbacks, the branch fills and the
+MCMC as JSON lines, the kernel table as one JSON line, the card line,
+and last {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A
+kernel's `launches` sums the main-path runs that drive it, each counted
+from 0: K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32, K2 in
+(h) fused and (l) small6 fused, the guide kernel in (h) fused, (j)
+long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
+kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
+proposals), kernel (d) in (n) long6 (the same).
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -138,7 +164,9 @@ it must move (each input read once, each output written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (float32, outside the
 tensor cores) or 34 TFLOP/s (float64).  Operations are counted from the
 kernel's recurrence: each add, maximum or compare one operation, each
-log-sum-exp five (maximum, difference, exp, log1p, add).  No PyTorch
+log-sum-exp five (maximum, difference, exp, log1p, add); kernel (d)'s
+bytes are the band's 11 states written (88 B a cell) and its emission
+and mask byte read (9 B), its operations 98 an in-mask cell.  No PyTorch
 call computes these recurrences, so `library_ms` is null.  K2's band
 leaves most cells at NEG, so its operations are counted on the in-band
 cells only.
@@ -824,7 +852,7 @@ def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
     return dict(colforward=colforward.LAUNCHES, colforward_fused=colforward.FUSED_LAUNCHES,
                 pairtrace=tracedp.LAUNCHES, guidealign=guidedp.LAUNCHES,
                 branchfill=branchdp.LAUNCHES, branch_designs=dict(branchdp.DESIGNS),
-                merges=dict(recon.MERGES),
+                branch_modes=dict(branchdp.MODES), merges=dict(recon.MERGES),
                 fills=dict(forward.FILLS), sampled=dict(forward.SAMPLED),
                 branch_fills=dict(branchmatrix.FILLS))
 
@@ -835,7 +863,8 @@ def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
 
     colforward.LAUNCHES = colforward.FUSED_LAUNCHES = tracedp.LAUNCHES = guidedp.LAUNCHES = 0
     branchdp.LAUNCHES = 0
-    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS, branchdp.DESIGNS):
+    for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS, branchdp.DESIGNS,
+              branchdp.MODES):
         for k in d:
             d[k] = 0
 
@@ -1518,7 +1547,8 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         for k, r in enumerate(reads):
             print(f"(l) long6 {dtype} readback {k}: {r['cells']} cells, {r['bytes']} bytes in "
                   f"{r['ms']:.3f} ms, bound {r['bytes'] / rate * 1e3:.3f} ms", flush=True)
-        runs[dtype] = dict(lp=lp, counts=counts, wall=wall, guide_ms=guide_ms, k1_ms=k1_ms,
+        runs[dtype] = dict(lp=lp, out=out, counts=counts, wall=wall, guide_ms=guide_ms,
+                           k1_ms=k1_ms,
                            readback=readback_summary(reads, rate))
     drift = abs(refine["lp_before"] - runs["f64"]["lp"])
     if not drift < F32_LP_DRIFT:
@@ -1543,7 +1573,7 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         **{dtype: dict(run["readback"], wall_s=run["wall"], guide_ms=run["guide_ms"],
                        k1_ms=run["k1_ms"]) for dtype, run in runs.items()})}), flush=True)
     return dict(f32=runs["f32"]["counts"], fused_k2=k2, branch_args=branch_inputs,
-                matrix_args=matrix_inputs)
+                matrix_args=matrix_inputs, long6_recon=runs["f32"]["out"])
 
 
 def merge_reads(reads: list) -> list:
@@ -1877,6 +1907,580 @@ def branch_parent(parent: str, long6_args) -> dict:
     return table
 
 
+#: kernel (d), an in-mask cell of csrc/siblingfill.cu: 38 adds (31 transition
+#: sums, 7 emissions) and 12 log-sum-exps (5 lists, 7 pairs)
+SIBLING_OPS = 98
+#: kernel (d) against fill.cpp: absolute, on the cells that are not -inf
+#: (the same per-cell order; the card's exp and log against glibc's)
+SIBLING_TOL = 1e-9
+#: kernel (d) and fill.cpp against the plain version: relative, on the
+#: cells that are not -inf.  The plain version follows the JAX package's
+#: row scan, whose doubling steps along y associate the sums otherwise
+#: than the per-cell order, and the drift grows with the row: the JAX scan
+#: itself is 1.25e-9 from fill.cpp at 3000 columns (tests/sibling_drift.py).
+#: At long6 (6000 columns, cells near -5e4) the plain version is ~1.2e-8
+#: from the kernel and from fill.cpp alike, ~2e-13 relative, so 1e-9
+#: absolute holds there against fill.cpp only
+SIBLING_PLAIN_RTOL = 1e-12
+#: MCMC samples a node in (n)'s runs
+MCMC_SAMPLES = {"small": "3", "long6": "2"}
+
+
+def sibling_host(args) -> tuple:
+    """csrc/fill.cpp on a sibling fill's host arguments (match_emit, mask,
+    l_emit, r_emit, tmat), through sampler/sibling.py `native_fill`: (cells
+    [X+1, Y+1, 11], lp_end, the fill's ms, its -inf grid made before)."""
+    from historian_tpu_torch.sampler.sibling import native_fill
+
+    match, mask, l_emit, r_emit, tmat = args
+    cells = np.full(match.shape + (11,), -np.inf)
+    t0 = time.perf_counter()
+    _, lp = native_fill(l_emit, r_emit, match, mask, tmat, cells)
+    return cells, lp, (time.perf_counter() - t0) * 1e3
+
+
+def sibling_err(what: str, got: np.ndarray, ref: np.ndarray, rtol: float = 0.0) -> float:
+    """The same -inf cells, then SIBLING_TOL on the rest (with rtol: rtol
+    relative to max(1, |ref|)); the largest absolute error."""
+    if not np.array_equal(got == -np.inf, ref == -np.inf):
+        raise AssertionError(f"{what}: the -inf cells differ")
+    live = np.isfinite(ref)
+    diff = np.abs(got[live] - ref[live])
+    err = float(diff.max()) if live.any() else 0.0
+    ok = (np.all(diff <= rtol * np.maximum(1.0, np.abs(ref[live]))) if rtol
+          else err <= SIBLING_TOL)
+    if not ok:
+        raise AssertionError(f"{what}: off by {err}")
+    return err
+
+
+def band_of(mask: np.ndarray, hull=None):
+    from historian_tpu_torch.ops import branchdp
+
+    if hull is None:
+        hull = (t.numpy() for t in branchdp.interior_hull(torch.from_numpy(mask)))
+    return branchdp.band_layout(*hull, *mask.shape)
+
+
+@contextlib.contextmanager
+def watched_fills(check: tuple = (), keep: dict | None = None):
+    """Every SiblingMatrix and BranchMatrix fill while the block runs, one
+    record each: kind ("sibling", "branch"), its grid's and its mask's
+    state-cells, whether the mask is full, the route it took ("device",
+    "host") and, for a device fill of a kind in `check`, its largest
+    absolute error against csrc/fill.cpp on the same host inputs, compared
+    at the band (the same -inf cells; the rest within SIBLING_TOL, a branch
+    fill's within BRANCH_RTOL; a sibling lp_end within SIBLING_TOL
+    relative).  `keep` gets the host arguments of the first banded
+    ("banded") and the first full-mask ("full") device sibling fill.
+    Yields the list of records."""
+    from historian_tpu_torch.engine import branchmatrix
+    from historian_tpu_torch.ops import siblingdp
+    from historian_tpu_torch.sampler import sibling
+
+    fills = []
+    sib_fill, branch_fill = sibling.SiblingMatrix._fill, branchmatrix.BranchMatrix._fill_cells
+
+    def record(kind, mask, device, err):
+        states = 11 if kind == "sibling" else 3
+        fills.append(dict(kind=kind, state_cells=mask.size * states,
+                          in_mask=int(np.count_nonzero(mask)) * states, full=bool(mask.all()),
+                          route="device" if device else "host", err=err))
+
+    def sib(self):
+        before = sibling.FILLS["device"]
+        sib_fill(self)
+        device, err = sibling.FILLS["device"] > before, None
+        if device:
+            args = (self.match_emit, self.mask, self.l_emit, self.r_emit,
+                    siblingdp.transition_table(self))
+            if keep is not None:
+                keep.setdefault("full" if self.mask.all() else "banded", args)
+            if "sibling" in check:
+                host, lp, _ = sibling_host(args)
+                err = sibling_err("sibling fill vs fill.cpp", self.cells.vals,
+                                  host.reshape(-1, 11)[band_of(self.mask).flat_index()])
+                if not abs(self.lp_end - lp) <= SIBLING_TOL * max(1.0, abs(lp)):
+                    raise AssertionError(f"sibling fill lp_end {self.lp_end!r}, fill.cpp {lp!r}")
+        record("sibling", self.mask, device, err)
+
+    def branch(match_emit, ins_emit, mask, trans, viterbi, hull=None):
+        before = branchmatrix.FILLS["device"]
+        cells = branch_fill(match_emit, ins_emit, mask, trans, viterbi, hull)
+        device, err = branchmatrix.FILLS["device"] > before, None
+        if device and "branch" in check:
+            host, _ = branch_host((match_emit, ins_emit, mask, trans), viterbi)
+            err = branch_err("branch fill vs fill.cpp", cells.vals,
+                             host.reshape(-1, 3)[band_of(mask, hull).flat_index()])
+        record("branch", mask, device, err)
+        return cells
+
+    sibling.SiblingMatrix._fill = sib
+    branchmatrix.BranchMatrix._fill_cells = staticmethod(branch)
+    try:
+        yield fills
+    finally:
+        sibling.SiblingMatrix._fill = sib_fill
+        branchmatrix.BranchMatrix._fill_cells = staticmethod(branch_fill)
+
+
+def fill_summary(fills: list) -> dict:
+    """Of watched_fills' records: by kind, the fills on each route, the
+    device fills with a full mask, the largest grid and mask in
+    state-cells, and the largest error against fill.cpp."""
+    out = {}
+    for kind in ("sibling", "branch"):
+        mine = [f for f in fills if f["kind"] == kind]
+        errs = [f["err"] for f in mine if f["err"] is not None]
+        out[kind] = dict(
+            device=sum(f["route"] == "device" for f in mine),
+            host=sum(f["route"] == "host" for f in mine),
+            device_full=sum(f["route"] == "device" and f["full"] for f in mine),
+            largest=max((f["state_cells"] for f in mine), default=0),
+            largest_in_mask=max((f["in_mask"] for f in mine), default=0),
+            checked=len(errs), err=max(errs, default=None))
+    return out
+
+
+def mcmc_counts() -> dict:
+    from historian_tpu_torch.engine import branchmatrix
+    from historian_tpu_torch.ops import branchdp, siblingdp
+    from historian_tpu_torch.sampler import sibling
+
+    return dict(siblingfill=siblingdp.LAUNCHES, branchfill=branchdp.LAUNCHES,
+                branch_designs=dict(branchdp.DESIGNS), branch_modes=dict(branchdp.MODES),
+                sibling_fills=dict(sibling.FILLS), branch_fills=dict(branchmatrix.FILLS))
+
+
+def zero_mcmc_counts() -> None:
+    from historian_tpu_torch.engine import branchmatrix
+    from historian_tpu_torch.ops import branchdp, siblingdp
+    from historian_tpu_torch.sampler import sibling
+
+    siblingdp.LAUNCHES = branchdp.LAUNCHES = 0
+    for d in (branchdp.DESIGNS, branchdp.MODES, sibling.FILLS, branchmatrix.FILLS):
+        for k in d:
+            d[k] = 0
+
+
+def run_mcmc_cli(cli, args: list, trace_dir: str) -> tuple:
+    """stdout and the -trace file of `mcmc <args> -trace trace_dir/trace`."""
+    trace = os.path.join(trace_dir, "trace")
+    out = run_cli(cli, [*args, "-trace", trace], "f64", "mcmc")
+    with open(f"{trace}.1") as f:
+        return out, f.read()
+
+
+def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
+    """(n), small: `mcmc -samples 3 -seed 7` in float64 on small6 (small4 if
+    a fill of small6 takes the card under the route rule) from FASTA, on
+    the CPU, on the card's automatic route (every fill under the rule, so
+    on the host: output and -trace file byte-identical to the CPU's), and
+    with HISTORIAN_DEVICE_SIBLING=1 HISTORIAN_DEVICE_BRANCH=1 (every sibling
+    and branch fill on kernels (d) and (e), launches equal to fills, each
+    fill held against fill.cpp on the same inputs; whether the output still
+    equals the CPU's is printed, not required: an MH decision may turn on
+    the last bits)."""
+    fa6 = write_small6(d)
+    fa4, nh4 = write_small4(d)
+    base = ["-samples", MCMC_SAMPLES["small"], "-seed", "7"]
+    for name, inp in (("small6", [fa6]), ("small4", ["-tree", nh4, fa4])):
+        sub = {p: os.path.join(d, f"{name}-{p}") for p in ("cpu", "auto", "forced")}
+        for p in sub.values():
+            os.makedirs(p, exist_ok=True)
+        cpu = run_mcmc_cli(cli, ["-platform", "cpu", *base, *inp], sub["cpu"])
+        zero_mcmc_counts()
+        with watched_fills() as fills:
+            auto = run_mcmc_cli(cli, ["-platform", "gpu", *base, *inp], sub["auto"])
+        counts, seen = mcmc_counts(), fill_summary(fills)
+        if not seen["sibling"]["device"] and not seen["branch"]["device"]:
+            break
+        print(f"(n) {name}: a fill takes the card under the route rule ({seen}); small4 "
+              f"instead", flush=True)
+    else:
+        raise AssertionError("(n) small4's fills take the card too")
+    if auto != cpu:
+        raise AssertionError(f"(n) {name} mcmc f64 automatic route: the card's output or "
+                             f"-trace file differs from the CPU's")
+    if counts["siblingfill"] or counts["branchfill"] or counts["sibling_fills"]["device"] \
+            or counts["branch_fills"]["device"]:
+        raise AssertionError(f"(n) {name} automatic route took the card: {counts}")
+    print(f"(n) {name} mcmc -samples {MCMC_SAMPLES['small']} f64, automatic route: card == cpu "
+          f"(output {len(auto[0])} bytes, LP {stockholm_rows_lp(auto[0])[1]}, -trace "
+          f"{len(auto[1])} bytes); fills {seen}, routes {counts['sibling_fills']} "
+          f"{counts['branch_fills']}", flush=True)
+    os.environ["HISTORIAN_DEVICE_SIBLING"] = os.environ["HISTORIAN_DEVICE_BRANCH"] = "1"
+    try:
+        zero_mcmc_counts()
+        with watched_fills(("sibling", "branch"), sibling_args) as fills:
+            forced = run_mcmc_cli(cli, ["-platform", "gpu", *base, *inp], sub["forced"])
+        counts, seen = mcmc_counts(), fill_summary(fills)
+    finally:
+        del os.environ["HISTORIAN_DEVICE_SIBLING"], os.environ["HISTORIAN_DEVICE_BRANCH"]
+    if (any(f["route"] != "device" or f["err"] is None for f in fills)
+            or counts["siblingfill"] != seen["sibling"]["device"]
+            or counts["branchfill"] != seen["branch"]["device"] or not counts["siblingfill"]
+            or not counts["branchfill"]):
+        raise AssertionError(f"(n) {name} forced route: {counts}, fills {seen}")
+    same = forced == cpu
+    print(f"(n) {name} mcmc f64, HISTORIAN_DEVICE_SIBLING=1 HISTORIAN_DEVICE_BRANCH=1: kernel "
+          f"(d) {counts['siblingfill']} launches = sibling fills {counts['sibling_fills']}, "
+          f"kernel (e) {counts['branchfill']} launches = branch fills {counts['branch_fills']} "
+          f"{counts['branch_designs']} {counts['branch_modes']}; every fill within "
+          f"{max(f['err'] for f in fills):.3e} of fill.cpp (same -inf cells); output "
+          f"{'equals' if same else 'DIFFERS FROM'} the CPU's (LP {stockholm_rows_lp(forced[0])[1]}"
+          f" against {stockholm_rows_lp(cpu[0])[1]})", flush=True)
+    return dict(name=name, forced_equal=same, sibling_err=seen["sibling"]["err"],
+                branch_err=seen["branch"]["err"])
+
+
+def sibling_kernel_check(name: str, args) -> dict:
+    """Kernel (d) at one fill: its band uploaded (bytes, copy ms), the band
+    entry against fill.cpp and against the plain version, and the plain
+    version against fill.cpp, the kernel's ms (CUDA events, median of 5
+    after a warm launch) and us a diagonal, the plain version's and
+    fill.cpp's ms, the band read back (bytes, ms), the bound and the
+    dependency floor."""
+    from historian_tpu_torch.ops import readback, siblingdp
+
+    match, mask, l_emit, r_emit, tmat = args
+    X1, Y1 = match.shape
+    K = X1 + Y1 - 1
+    lay = band_of(mask)
+    idx = lay.flat_index()
+    dev = torch.device("cuda")
+    inp = siblingdp.upload_band(lay, match, mask, l_emit, r_emit, tmat, dev)
+    up = siblingdp.UPLOADS[-1]
+    cells, lp = siblingdp.sibling_fill_band(inp)
+    launch = dict(siblingdp.LAST_LAUNCH)
+    n_read = len(readback.READBACKS)
+    got, lp_end = siblingdp.read_band(cells, lp, lay)
+    got = got.vals
+    back = readback.READBACKS[n_read]
+    del cells
+    host, host_lp, fill_cpp_ms = sibling_host(args)
+    ref = host.reshape(-1, 11)[idx]
+    del host
+    err = sibling_err(f"{name} kernel (d) vs fill.cpp", got, ref)
+    live = np.isfinite(got)
+    bit_equal = float(np.mean(got[live] == ref[live]))
+    if not abs(lp_end - host_lp) <= SIBLING_TOL * abs(host_lp):
+        raise AssertionError(f"{name}: kernel (d) lp_end {lp_end!r}, fill.cpp {host_lp!r}")
+    (plain, plain_lp), plain_ms = host_ms(lambda: siblingdp.sibling_fill_band_plain(inp))
+    plain, plain_lp = plain.cpu().numpy(), plain_lp.item()
+    plain_err = sibling_err(f"{name} kernel (d) vs plain", got, plain, SIBLING_PLAIN_RTOL)
+    plain_host_err = sibling_err(f"{name} plain vs fill.cpp", plain, ref, SIBLING_PLAIN_RTOL)
+    for what, a, b in (("kernel", lp_end, plain_lp), ("fill.cpp", host_lp, plain_lp)):
+        if not abs(a - b) <= SIBLING_PLAIN_RTOL * abs(host_lp):
+            raise AssertionError(f"{name}: plain lp_end {b!r}, {what} {a!r}")
+    del got, ref, plain
+    ms = cuda_ms_median(lambda: siblingdp.sibling_fill_band(inp))
+    in_mask = int(mask.sum())
+    n_bytes = (lay.n * (88 + 8 + 1) + 8 * (X1 + Y1) + 144 * 8 + 4 * (2 * X1 + 1)
+               + 8 * K)
+    bnd = bound(n_bytes, in_mask * SIBLING_OPS, torch.float64)
+    step_ns = sibling_chain_ns(tmat)
+    floor_ms = K * step_ns / 1e6
+    print(f"(n) kernel (d) {name} {X1} x {Y1} ({in_mask} in-mask cells, {lay.n} band cells, "
+          f"widest diagonal {lay.widest}, {launch['blocks']} block(s) of {launch['threads']}): "
+          f"{ms:.3f} ms ({ms * 1e3 / K:.3f} us a diagonal over {K}), plain {plain_ms:.1f} ms, "
+          f"fill.cpp {fill_cpp_ms:.1f} ms; max abs err {err:.3e} against fill.cpp (cells "
+          f"bit-equal: {bit_equal:.4f}), {plain_err:.3e} against plain; plain against fill.cpp "
+          f"{plain_host_err:.3e}; upload {up['bytes']} bytes in {up['ms']:.3f} ms (packing "
+          f"{up['pack_ms']:.1f} ms), readback {back['bytes']} bytes in {back['ms']:.3f} ms; "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), dependency floor "
+          f"{floor_ms:.3f} ms ({K} x {step_ns:.1f} ns)", flush=True)
+    return dict(ms=ms, us_per_diagonal=ms * 1e3 / K, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
+                err=max(err, plain_err), fill_cpp_err=err, plain_err=plain_err,
+                plain_fill_cpp_err=plain_host_err, bit_equal_share=bit_equal, band_cells=lay.n,
+                in_mask=in_mask, upload_bytes=up["bytes"], upload_ms=up["ms"],
+                readback_bytes=back["bytes"], readback_ms=back["ms"],
+                dependency_floor_ms=floor_ms, step_ns=step_ns, blocks=launch["blocks"], **bnd)
+
+
+def sibling_chain_ns(tmat: np.ndarray) -> float:
+    """The dependency floor's step: one cell of kernel (d)'s recurrence
+    waiting on the one before (csrc/siblingfill.cu `siblingfill_chain`, one
+    thread), in ns, from CUDA events around 20000 steps, median of 3."""
+    from historian_tpu_torch.ops import _kernels
+
+    t = torch.as_tensor(tmat.reshape(-1), dtype=torch.float64, device="cuda")
+    out = torch.empty(11, dtype=torch.float64, device="cuda")
+    steps = 20_000
+
+    def run():
+        _kernels.check(_kernels.lib().siblingfill_chain_f64(
+            t.data_ptr(), steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "siblingfill_chain")
+
+    return cuda_ms_median(run, 3) * 1e6 / steps
+
+
+def branch_forward_check(name: str, args) -> dict:
+    """Kernel (e) in Forward mode at an MCMC branch fill (layout, emit,
+    mask, ins, trans): against fill.cpp, and its ms (median of 5)."""
+    from historian_tpu_torch.ops import branchdp
+
+    layout, emit, mask, ins, trans = args
+    band = branchdp.upload_band(layout, emit, mask, ins, trans, torch.device("cuda"))
+    before = dict(branchdp.DESIGNS)
+    got = branchdp.branch_fill_band(band, False).cpu().numpy()
+    design = next(k for k in before if branchdp.DESIGNS[k] > before[k])
+    host, fill_cpp_ms = branch_host((emit, ins, mask, trans), False)
+    err = branch_err(f"{name} forward vs fill.cpp", got, host.reshape(-1, 3)[layout.flat_index()])
+    ms = cuda_ms_median(lambda: branchdp.branch_fill_band(band, False))
+    K = sum(emit.shape) - 1
+    print(f"(n) kernel (e) Forward at {name} {emit.shape[0]} x {emit.shape[1]} ({layout.n} band "
+          f"cells, {design} design): {ms:.3f} ms ({ms * 1e3 / K:.3f} us a diagonal), fill.cpp "
+          f"{fill_cpp_ms:.1f} ms, max abs err {err:.3e}", flush=True)
+    return dict(ms=ms, design=design, fill_cpp_ms=fill_cpp_ms, err=err)
+
+
+@contextlib.contextmanager
+def captured_samplers():
+    """Sampler.run wrapped to keep the samplers it ran: yields the list."""
+    from historian_tpu_torch.sampler import sampler as sampler_mod
+
+    run = sampler_mod.Sampler.run
+    box = []
+
+    def keep(samplers, *args, **kw):
+        box.extend(samplers)
+        return run(samplers, *args, **kw)
+
+    sampler_mod.Sampler.run = staticmethod(keep)
+    try:
+        yield box
+    finally:
+        sampler_mod.Sampler.run = staticmethod(run)
+
+
+@contextlib.contextmanager
+def branch_uploads(keep: dict):
+    """branchdp.upload_band wrapped to keep the first Forward upload's host
+    arguments of each design (ring, wide) in keep."""
+    from historian_tpu_torch.ops import branchdp
+
+    fn = branchdp.upload_band
+
+    def up(layout, emit, mask, ins, trans, device):
+        keep.setdefault(layout.design(), (layout, emit, mask, ins, trans))
+        return fn(layout, emit, mask, ins, trans, device)
+
+    branchdp.upload_band = up
+    try:
+        yield
+    finally:
+        branchdp.upload_band = fn
+
+
+def direct_proposals(sampler, fills: list) -> list:
+    """One proposal of each alignment move on the long6 chain's history from
+    a seeded mt19937, so that kernel (d) banded (node-align) and full-mask
+    (prune-and-regraft), and kernel (e) Forward in the ring (branch-align)
+    and the wide design (the full-mask branches) run at full width whatever
+    the chain drew: each move's seed is the first of 1..8 whose proposal
+    launches what the move is there for.  `fills`: watched_fills' list."""
+    from historian_tpu_torch.ops import branchdp
+    from historian_tpu_torch.utils.rng import MT19937
+
+    history, lp = sampler.current_history, sampler.current_lp
+    out = []
+    for move in ("_branch_align_move", "_node_align_move", "_prune_regraft_move"):
+        for seed in range(1, 9):
+            designs, n = dict(branchdp.DESIGNS), len(fills)
+            t0 = time.perf_counter()
+            m = getattr(sampler, move)(history, lp, MT19937(seed))
+            sec = time.perf_counter() - t0
+            ring = branchdp.DESIGNS["ring"] - designs["ring"]
+            wide = branchdp.DESIGNS["wide"] - designs["wide"]
+            sib = [f["full"] for f in fills[n:] if f["kind"] == "sibling" and f["route"] == "device"]
+            done = {"_branch_align_move": ring > 0,
+                    "_node_align_move": not all(sib) and wide > 0,
+                    "_prune_regraft_move": any(sib) and wide > 0}[move]
+            print(f"(n) long6 {move.strip('_')} from seed {seed}: {sec:.2f} s, kernel (d) "
+                  f"{len(sib)} launches ({sum(sib)} full-mask), kernel (e) ring {ring} wide "
+                  f"{wide}, {'bypassed ' + m.comment if m.nullified else m.comment or 'proposed'}"
+                  f", log accept {m.log_accept_prob:.3f}", flush=True)
+            out.append(dict(move=move, seed=seed, seconds=sec, sibling=len(sib),
+                            sibling_full=sum(sib), ring=ring, wide=wide, nullified=m.nullified))
+            if done:
+                break
+        else:
+            raise AssertionError(f"(n) long6 {move}: no seed of 1..8 launched its kernels")
+    return out
+
+
+#: the cuts n x n of the long6 node-align proposal's SiblingMatrix at which
+#: sibling_routes times both routes (None: whole): under its guide envelope
+#: (in-mask state-cells 1.0e5 at 213 to 2.5e6 at 5000, 3.0e6 whole), and
+#: with a full mask (0.5e6 to 3.2e7 state-cells; fill.cpp's OpenMP
+#: wavefront starts between 240 and 270)
+SIBLING_ROUTE_CUTS = {"banded": (213, 301, 426, 603, 852, 1205, 1705, 2100, 2500, 3000, 3500,
+                                 4000, 5000, None),
+                      "full": (213, 240, 270, 301, 426, 603, 852, 1205, 1705)}
+
+
+def sibling_routes(matrix_args) -> list:
+    """A SiblingMatrix end to end on each route: the host's emission and
+    mask, the fill and one sampled path, on fill.cpp
+    (HISTORIAN_DEVICE_SIBLING=0) or on the card (=1: the band's hull, its
+    upload, kernel (d), its readback, the traceback through BandCells).  At
+    the long6 node-align proposal's matrix cut to n x n at each of
+    SIBLING_ROUTE_CUTS, banded and under an uninitialised envelope (a full
+    mask); the routes alternate, 3 times each, median wall ms.  Whether the
+    two routes sampled the same path from one seed is printed (the cells
+    differ in the last bits), and the route the rule takes."""
+    from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
+    from historian_tpu_torch.sampler.sibling import SiblingMatrix
+    from historian_tpu_torch.utils.rng import MT19937
+
+    model, l_pwm, r_pwm, l_dist, r_dist, env, l_pos, r_pos, *rows = matrix_args
+    out = []
+    for kind, cuts in SIBLING_ROUTE_CUTS.items():
+        for n in cuts:
+            nx, ny = (len(l_pwm), len(r_pwm)) if n is None else (min(n, len(l_pwm)),
+                                                                  min(n, len(r_pwm)))
+            args = (model, l_pwm[:nx], r_pwm[:ny], l_dist, r_dist,
+                    env if kind == "banded" else GuideAlignmentEnvelope(), l_pos[:nx + 1],
+                    r_pos[:ny + 1], *rows)
+            ms, paths = {"host": [], "device": []}, {}
+            for _ in range(3):
+                for route, flag in (("host", "0"), ("device", "1")):
+                    os.environ["HISTORIAN_DEVICE_SIBLING"] = flag
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = SiblingMatrix(*args)
+                    paths[route] = m.sample(MT19937(5))
+                    torch.cuda.synchronize()
+                    ms[route].append((time.perf_counter() - t0) * 1e3)
+            del os.environ["HISTORIAN_DEVICE_SIBLING"]
+            same = all(np.array_equal(paths["host"][r], paths["device"][r])
+                       for r in paths["host"])
+            row = dict(mask=kind, x=nx, y=ny, state_cells=(nx + 1) * (ny + 1) * 11,
+                       in_mask_state_cells=int(np.count_nonzero(m.mask)) * 11,
+                       rule="device" if m._want_device() else "host",
+                       host_ms=float(np.median(ms["host"])),
+                       device_ms=float(np.median(ms["device"])), same_path=same)
+            print(f"(n) SiblingMatrix + sample, long6 node-align cut to {nx} x {ny}, {kind} "
+                  f"({row['state_cells']} state-cells, {row['in_mask_state_cells']} in the "
+                  f"mask: the rule takes the {row['rule']}): fill.cpp route "
+                  f"{row['host_ms']:.2f} ms, kernel (d) route {row['device_ms']:.2f} ms (medians "
+                  f"of 3: {[round(t, 2) for t in ms['host']]}, "
+                  f"{[round(t, 2) for t in ms['device']]}); "
+                  f"{'the same' if same else 'another'} sampled path", flush=True)
+            out.append(row)
+    return out
+
+
+def phase_mcmc(cli, long6_recon: str) -> dict:
+    """(n) MCMC (`mcmc`, sampler/sampler.py) with kernel (d), the sibling
+    fill, and kernel (e) in Forward mode.  `small_mcmc` (small6 on the CPU,
+    the card's automatic and forced routes); kernel (d) at small6's
+    node-align fill against its plain version and fill.cpp.  Then the main
+    path's run, `mcmc -stockrecon <long6 float32 reconstruction> -samples 2
+    -seed 7` on the card, its counts from 0: wall, steps, proposals,
+    accepts and seconds by move type, fills on each route, kernel (d)'s
+    launches and kernel (e)'s by mode and design, uploads and readbacks,
+    peak device and host memory; it must launch both kernels.  Then, the
+    counts from 0 again, one proposal of each alignment move on its history
+    (`direct_proposals`), and kernel (d) at a long6 banded node-align fill
+    and a full-mask prune-and-regraft fill against its plain version and
+    fill.cpp, kernel (e) Forward at a ring and a wide MCMC fill, and both
+    routes of the node-align proposal's SiblingMatrix around the route rule
+    (`sibling_routes`).  The kernel line's launches are the long6 run's."""
+    from historian_tpu_torch.ops import branchdp, readback, siblingdp
+    from historian_tpu_torch.sampler.sampler import MOVE_NAMES
+    from historian_tpu_torch.sampler.sibling import SiblingMatrix
+
+    small_args = {}
+    with tempfile.TemporaryDirectory() as d:
+        small = small_mcmc(cli, d, small_args)
+    checks = {f"{small['name']} node-align": sibling_kernel_check(
+        f"{small['name']} node-align", small_args["banded"])}
+    del small_args
+
+    work = tempfile.mkdtemp()
+    path = os.path.join(work, "long6_recon.sto")
+    with open(path, "w") as f:
+        f.write(long6_recon)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_read, n_up = len(readback.READBACKS), (len(siblingdp.UPLOADS), len(branchdp.UPLOADS))
+    long6_branch = {}
+    zero_mcmc_counts()
+    t0 = time.perf_counter()
+    with captured_samplers() as samplers, peak_host_memory() as host_mem, \
+            branch_uploads(long6_branch), watched_fills() as fills:
+        out = run_cli(cli, ["-platform", "gpu", "-stockrecon", path, "-samples",
+                            MCMC_SAMPLES["long6"], "-seed", "7"], "f32", "mcmc")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = mcmc_counts()
+    peak_dev = torch.cuda.max_memory_allocated()
+    os.remove(path)
+    os.rmdir(work)
+    s = samplers[0]
+    steps = sum(s.moves_proposed)
+    rows, lp = stockholm_rows_lp(out)
+    if len(rows) != 11 or not math.isfinite(lp) or steps != 2 * 11:
+        raise AssertionError(f"(n) long6 mcmc: {len(rows)} rows, LP {lp}, {steps} steps")
+    if not (run_counts["siblingfill"] and run_counts["branch_modes"]["forward"]):
+        raise AssertionError(f"(n) long6 mcmc did not launch kernels (d) and (e): {run_counts}")
+    seen = fill_summary(fills)
+    moves = {MOVE_NAMES[k]: dict(proposed=s.moves_proposed[k], accepted=s.moves_accepted[k],
+                                 seconds=s.move_seconds[k]) for k in range(5)}
+    reads = readback.READBACKS[n_read:]
+    sib_up, br_up = siblingdp.UPLOADS[n_up[0]:], branchdp.UPLOADS[n_up[1]:]
+    print(f"(n) long6 mcmc -samples {MCMC_SAMPLES['long6']} -seed 7 on the card (the main path): "
+          f"wall {wall:.2f} s, {steps} steps, LP {lp}; moves {moves}; sibling fills "
+          f"{run_counts['sibling_fills']}, branch fills {run_counts['branch_fills']}, by mask "
+          f"{seen}; kernel (d) {run_counts['siblingfill']} launches, kernel (e) "
+          f"{run_counts['branchfill']} launches {run_counts['branch_modes']} "
+          f"{run_counts['branch_designs']}; uploads sibling "
+          f"{len(sib_up)} ({sum(u['bytes'] for u in sib_up)} bytes, "
+          f"{sum(u['ms'] for u in sib_up):.2f} ms), branch {len(br_up)} "
+          f"({sum(u['bytes'] for u in br_up)} bytes, {sum(u['ms'] for u in br_up):.2f} ms); "
+          f"readbacks sibling {sum(r['kind'] == 'sibling' for r in reads)} "
+          f"({sum(r['bytes'] for r in reads if r['kind'] == 'sibling')} bytes, "
+          f"{sum(r['ms'] for r in reads if r['kind'] == 'sibling'):.2f} ms), branch "
+          f"{sum(r['kind'] == 'branch' for r in reads)} "
+          f"({sum(r['bytes'] for r in reads if r['kind'] == 'branch')} bytes, "
+          f"{sum(r['ms'] for r in reads if r['kind'] == 'branch'):.2f} ms); peak device memory "
+          f"{peak_dev / 1e9:.2f} GB, peak host memory "
+          f"{host_mem['peak'] / 1e9:.2f} GB", flush=True)
+
+    keep = {}  # its sibling fills are held against fill.cpp below, at the same inputs
+    zero_mcmc_counts()
+    with watched_fills(("branch",), keep) as fills, branch_uploads(long6_branch), \
+            first_call(SiblingMatrix, "__init__") as sib_init:
+        proposals = direct_proposals(s, fills)
+    direct = mcmc_counts()
+    branch_errs = [f["err"] for f in fills if f["err"] is not None]
+    print(f"(n) long6 direct proposals, counted from 0: kernel (d) {direct['siblingfill']} "
+          f"launches, kernel (e) {direct['branchfill']} {direct['branch_modes']} "
+          f"{direct['branch_designs']}; their branch fills within {max(branch_errs):.3e} of "
+          f"fill.cpp", flush=True)
+    for kind, name in (("banded", "long6 node-align"), ("full", "long6 prune-regraft")):
+        checks[name] = sibling_kernel_check(name, keep.pop(kind))
+    forward = {d: branch_forward_check(f"long6 {d} branch", long6_branch[d])
+               for d in ("ring", "wide")}
+    routes = sibling_routes(sib_init[0][1:])  # the node-align proposal's, less self
+    main = checks["long6 node-align"]
+    line = {"mcmc": dict(small=small, long6=dict(wall_s=wall, steps=steps, lp=lp, moves=moves,
+                                                 counts=run_counts, fills=seen,
+                                                 peak_device_bytes=peak_dev,
+                                                 peak_host_bytes=host_mem["peak"]),
+                         direct=dict(counts=direct, proposals=proposals), siblingfill=checks,
+                         branch_forward=forward, routes=routes)}
+    print(json.dumps(line), flush=True)
+    return dict(launches=run_counts["siblingfill"], branch_launches=run_counts["branchfill"],
+                err=max(max(c["err"] for c in checks.values()), small["sibling_err"]),
+                branch_err=max(max(f["err"] for f in forward.values()), small["branch_err"],
+                               max(branch_errs)),
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1921,6 +2525,7 @@ def main(argv=None) -> int:
         launches_l = phase_careful(cli, colforward, tracedp, guidedp, work)
     branch = phase_branch(cli, colforward, tracedp, guidedp, launches_l.pop("branch_args"),
                           launches_l.pop("matrix_args"), opts.parent)
+    mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"))
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -1953,9 +2558,16 @@ def main(argv=None) -> int:
     ]
     kernels.append(dict(
         name="branchfill", route="cuda", source="historian_tpu_torch/csrc/branchfill.cu",
-        replaces="historian_tpu/ops/branchdp.py:41", launches=launches_l["f32"]["branchfill"],
-        max_abs_err=branch["err"], ms=branch["ms"], plain_ms=branch["plain_ms"],
-        bound_ms=branch["bound_ms"], bound_by=branch["bound_by"], library_ms=None))
+        replaces="historian_tpu/ops/branchdp.py:41",
+        launches=launches_l["f32"]["branchfill"] + mcmc["branch_launches"],
+        max_abs_err=max(branch["err"], mcmc["branch_err"]), ms=branch["ms"],
+        plain_ms=branch["plain_ms"], bound_ms=branch["bound_ms"], bound_by=branch["bound_by"],
+        library_ms=None))
+    kernels.append(dict(
+        name="siblingfill", route="cuda", source="historian_tpu_torch/csrc/siblingfill.cu",
+        replaces="historian_tpu/ops/siblingdp.py:70", launches=mcmc["launches"],
+        max_abs_err=mcmc["err"], ms=mcmc["ms"], plain_ms=mcmc["plain_ms"],
+        bound_ms=mcmc["bound_ms"], bound_by=mcmc["bound_by"], library_ms=None))
     for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
         kernels.append(dict(
             name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",

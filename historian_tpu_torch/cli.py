@@ -1,13 +1,13 @@
-"""Command-line interface of the port: `recon`, `count`, `sum`, `fit`
-and `generate` on PyTorch and CUDA.
+"""Command-line interface of the port: `recon`, `count`, `sum`, `fit`,
+`mcmc` and `generate` on PyTorch and CUDA.
 
 Same flags as historian_tpu/cli.py for these commands, the same `-fast`
 and `-careful` aliases, plus `-platform gpu|cpu` (or HISTORIAN_PLATFORM
 when it is not given): `gpu`, the default, needs CUDA and fails without
 it; `cpu` runs the kernels' plain PyTorch versions and is only ever
 chosen explicitly.  The guide, tree, profile, refinement, ancestral,
-count, EM, posterior-profile, `-savedot` and simulation flags have their
-JAX meaning; flags of paths that are not ported yet raise
+count, EM, posterior-profile, `-savedot`, MCMC and simulation flags have
+their JAX meaning; flags of paths that are not ported yet raise
 NotImplementedError naming their ROADMAP item, none is dropped silently.
 As in the JAX CLI, a missing file, a bad value or an unknown name ends
 the command with a one-line `historian-tpu-torch: <message>` (`-abort`
@@ -40,14 +40,15 @@ CAREFUL_ALIAS = ["-allspan", "-kmatchoff", "-band", "40", "-profminpost", ".001"
                  "-profmaxmem", "5", "-refine"]
 FAST_ALIAS = ["-rndspan", "-kmatchn", "3", "-band", "10", "-profmaxstates", "1", "-jc", "-norefine"]
 
-HELP = f"""{PROG}: historian-tpu's `recon`, `count`, `sum`, `fit` and `generate` on PyTorch and CUDA
+HELP = f"""{PROG}: historian-tpu's `recon`, `count`, `sum`, `fit`, `mcmc` and `generate` on PyTorch and CUDA
 
-Usage: {PROG} recon|count|fit|generate [options] [files]
+Usage: {PROG} recon|count|fit|mcmc|generate [options] [files]
        {PROG} sum <counts.json>...
 
   recon (r)          reconstruct ancestral sequence histories [default command]
   count (c)          expected event counts on a reconstruction (JSON)
   fit (f)            fit the model's rates by EM on reconstructions (model JSON)
+  mcmc (m)           sample trees and alignments by MCMC
   sum (s)            sum event-count JSON files
   generate (g)       simulate a history down a Newick tree (Stockholm)
 
@@ -90,26 +91,26 @@ Usage: {PROG} recon|count|fit|generate [options] [files]
   -counts <file>     prior pseudocounts  -nolaplace  no +1 pseudocounts
   -fixsubrates | -fixgaprates  leave those rates out of the fit
   -mininc <x> -maxiter <n>  EM stopping rule (defaults .001, 100)
-  -checkpoint <file> snapshot the fit after each EM iteration; resume from it
+  -checkpoint <file> snapshot the fit after each EM iteration, or the MCMC
+                     run every -ckptevery steps; resume from it
+  -mcmc              recon: sample from the reconstruction by MCMC
+  -samples <n>       MCMC samples per sequence (default 100)
+  -trace <file>      write every sampled history to <file>.<dataset>
+  -ckptevery <n>     MCMC steps between snapshots (default 100)
+  -fixtree | -fixalign  MCMC: leave the tree, or the alignment, as it is
+  -fixguide          MCMC: keep the branch moves' guide envelope fixed
   -rootlen <n>       generate: the root sequence's length (default 100)
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
   -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
              -refine)
 """
 
-_MCMC = "item 6, MCMC"
 #: flags of the JAX CLI whose paths are not ported yet, and their ROADMAP items
-_NOT_PORTED = {
-    **{flag: _MCMC for flag in ("-mcmc", "-samples", "-trace", "-ckptevery", "-fixtree",
-                                "-fixalign", "-fixguide")},
-    "-mesh": "item 7, multi-GPU",
-}
+_NOT_PORTED = {"-mesh": "item 7, multi-GPU"}
 #: the commands of the JAX CLI, by alias
 _COMMANDS = {"r": "recon", "recon": "recon", "reconstruct": "recon", "c": "count",
              "count": "count", "f": "fit", "fit": "fit", "s": "sum", "sum": "sum",
              "m": "mcmc", "mcmc": "mcmc", "g": "generate", "generate": "generate"}
-#: the commands that are not ported yet, and their ROADMAP items
-_COMMAND_ITEMS = {"mcmc": _MCMC}
 _MODEL_PARAMS = ("-insrate", "-delrate", "-insextprob", "-delextprob", "-inslen",
                  "-dellen", "-gaprate", "-gapextprob", "-gaplen", "-subscale",
                  "-indelscale", "-scale")
@@ -261,6 +262,20 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
             recon.fit_indel_rates = False
         elif arg == "-checkpoint":
             recon.checkpoint_filename = take()
+        elif arg == "-mcmc":
+            recon.run_mcmc = True
+        elif arg == "-samples":
+            recon.mcmc_samples_per_seq = int(take())
+        elif arg == "-trace":
+            recon.mcmc_trace_filename = take()
+        elif arg == "-ckptevery":
+            recon.checkpoint_every = int(take())
+        elif arg == "-fixtree":
+            recon.fix_tree_mcmc = True
+        elif arg == "-fixalign":
+            recon.fix_align_mcmc = True
+        elif arg == "-fixguide":
+            recon.fix_guide_mcmc = True
         elif arg == "-rootlen":
             recon.simulator_root_seq_len = int(take())
         elif not arg.startswith("-"):
@@ -288,8 +303,6 @@ def main(argv: list[str] | None = None) -> int:
     command, rest = _COMMANDS.get(argv[0]), argv[1:]
     if command is None:
         command, rest = "recon", argv  # no command word: reconstruct
-    if command in _COMMAND_ITEMS:
-        raise not_ported(f"the {command!r} command", _COMMAND_ITEMS[command])
     abort = "-abort" in rest  # debugging aid: raw tracebacks (reference optparser.cpp:35)
     rest = [a for a in rest if a != "-abort"]
     trace_dir = ""
@@ -343,6 +356,7 @@ def _dispatch(command: str, platform: str, rest: list[str]) -> int:
     if command in ("count", "fit"):
         recon.accumulate_subst_counts = recon.accumulate_indel_counts = True
         recon.use_laplace_pseudocounts = command == "fit"
+    recon.run_mcmc = command == "mcmc"
     _parse(recon, deque(rest))
     if command == "generate":
         # a bare Newick file lands in tree_filename (load_auto)
@@ -358,10 +372,16 @@ def _dispatch(command: str, platform: str, rest: list[str]) -> int:
     recon.load_seqs()
     if command == "recon":
         recon.reconstruct_all()
+        recon.sample_all()
         recon.predict_all_ancestors()
         recon.write_recon(out)
         return 0
     recon.load_recon()
+    if command == "mcmc":
+        recon.sample_all()  # reconstructs any dataset lacking a reconstruction
+        recon.predict_all_ancestors()
+        recon.write_recon(out)
+        return 0
     recon.load_counts()
     if command == "count":
         recon.count_all()

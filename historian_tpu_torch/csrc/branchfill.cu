@@ -71,7 +71,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "band.cuh"
+
 namespace {
+
+using namespace band;
 
 constexpr double kBNeg = -1e30;  // ops/branchdp.py NEG
 constexpr double kLog2 = 0.693147180559945309417232121458176568;  // fill.cpp LOG2
@@ -80,8 +84,6 @@ constexpr int kRingMaxCells = 256;  // ops/branchdp.py RING_MAX_CELLS
 constexpr int kRingMaxThreads = 3 * kRingMaxCells;  // three state groups (Forward)
 constexpr int kLead = 12;           // diagonals the records come in ahead
 constexpr int kStages = 16;         // the records' stage: a power of two > kLead
-
-enum Kind { kNone = 0, kRow0, kRowX, kCol0, kColY, kHull };
 
 struct Cell3 {
   double m, i, d;
@@ -116,58 +118,8 @@ __device__ __forceinline__ double red2(double a, double b) {
   return a == b ? __dadd_rn(a, kLog2) : (up || d <= 0) ? r : __dadd_rn(a, b);
 }
 
-// The cell of rank t on diagonal k (hull rows r.x..r.y), in order of x:
-// its kind, and its row in x.
-__device__ __forceinline__ int cell_at(int t, int k, int2 r, int X, int Y, int& x) {
-  if (k <= Y) {
-    if (t == 0) { x = 0; return kRow0; }
-    --t;
-  }
-  if (Y >= 1 && k - Y >= 1 && k - Y <= X - 1) {
-    if (t == 0) { x = k - Y; return kColY; }
-    --t;
-  }
-  const int nh = r.y >= r.x ? r.y - r.x + 1 : 0;
-  if (t < nh) { x = r.x + t; return kHull; }
-  t -= nh;
-  if (k >= 1 && k <= X - 1) {
-    if (t == 0) { x = k; return kCol0; }
-    --t;
-  }
-  if (X >= 1 && k >= X && k - X <= Y && t == 0) { x = X; return kRowX; }
-  return kNone;
-}
-
-// The cells on diagonal k.
-__device__ __forceinline__ int diag_cells(int k, int2 r, int X, int Y) {
-  return (k <= Y) + (Y >= 1 && k - Y >= 1 && k - Y <= X - 1) + (r.y >= r.x ? r.y - r.x + 1 : 0)
-         + (k >= 1 && k <= X - 1) + (X >= 1 && k >= X && k - X <= Y);
-}
-
-// The kind of cell (x, y) (0 <= x <= X, 0 <= y <= Y) on a diagonal whose
-// hull rows are r.x..r.y; kNone outside the band.
-__device__ __forceinline__ int kind_of(int x, int y, int2 r, int X, int Y) {
-  if (x == 0) return kRow0;
-  if (x == X) return kRowX;
-  if (y == 0) return kCol0;
-  if (y == Y) return kColY;
-  return (x >= r.x && x <= r.y) ? kHull : kNone;
-}
-
 __device__ __forceinline__ int slot_of(int kind, int x, int R) {
   return kind == kHull ? (x & (R - 1)) : R + kind - kRow0;
-}
-
-// The packed position of a band cell.
-__device__ __forceinline__ int pos_of(int kind, int x, int y, const int* rowpos, const int* off,
-                                      int offX) {
-  switch (kind) {
-    case kRow0: return y;
-    case kRowX: return offX + y;
-    case kCol0: return off[x];
-    case kColY: return off[x + 1] - 1;
-    default: return rowpos[x] + y;
-  }
 }
 
 // fill.cpp's cell (x, y) from its neighbours p (x-1, y-1), q (x, y-1),

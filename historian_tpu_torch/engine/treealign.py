@@ -1,10 +1,13 @@
 """Tree and alignment: the log-likelihood decomposition and the path
-surgery of the refiner.
+surgery of the refiner and the sampler.
 
 Port of historian_tpu/engine/treealign.py:
 
-  logLik = root geometric length + sum over branches of the indel path
-           + sum over columns of the substitution likelihood
+  logLik = [tree prior] + root geometric length + sum over branches of
+           the indel path + sum over columns of the substitution likelihood
+
+over a `History` (tree and gapped rows); `SimpleTreePrior` is the
+sampler's coalescent prior.
 
 The first two terms are host arithmetic over gap patterns (same walk,
 same float order as the JAX package); the third is the sum of the
@@ -21,6 +24,7 @@ turn a child's PWM into the branch fill's emissions
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 from scipy.special import logsumexp
@@ -34,9 +38,22 @@ from historian_tpu_torch.engine.sumprod import get_engine
 from historian_tpu_torch.models.ratemodel import ProbModel
 
 
-def root_log_likelihood(model, gapped, tree) -> float:
-    root_len = sum(1 for c in gapped[tree.root()].seq if c not in "-.")
-    ext = model.ins_ext_prob
+@dataclass
+class History:
+    """A tree and its gapped alignment, one row a node (the sampler's
+    state)."""
+
+    gapped: list
+    tree: object
+
+
+def root_ext_prob(model) -> float:
+    return model.ins_ext_prob
+
+
+def root_log_likelihood(model, history: History) -> float:
+    root_len = sum(1 for c in history.gapped[history.tree.root()].seq if c not in "-.")
+    ext = root_ext_prob(model)
     if ext > 0:
         return math.log(1 - ext) + math.log(ext) * root_len
     return math.log(1 - ext) if root_len == 0 else -math.inf
@@ -77,26 +94,84 @@ def _log_trans_table(pm: ProbModel) -> np.ndarray:
     return table
 
 
-def indel_log_likelihood(model, gapped, tree) -> float:
-    path = Alignment.from_gapped(gapped).path
+_INDEL_LP_CACHE: dict = {}
+_INDEL_LP_CACHE_MAX = 200_000
+_PAIR_STATES_CACHE: dict = {}
+_PAIR_STATES_CACHE_MAX = 50_000
+
+
+def indel_log_likelihood(model, history: History) -> float:
+    """Sum over branches of the transition walk over each branch's 2-row
+    path.  Two memo levels, both keeping the walk's float semantics: the
+    per-branch terms by (indel parameters, branch length, the two rows'
+    gap patterns), since an alignment move changes a few branches, and the
+    state sequences by gap patterns alone, since a tree move changes every
+    length and no path."""
+    align = Alignment.from_gapped(history.gapped)
+    tree = history.tree
     lp = 0.0
+    params = (model.ins_rate, model.del_rate, model.ins_ext_prob, model.del_ext_prob)
     for node in range(tree.root()):
         parent = tree.parent(node)
-        p = pair_path(path, parent, node)
-        src, dst = branch_path_states(p[parent], p[node])
-        terms = _log_trans_table(ProbModel(model, tree.branch_length(node)))[src, dst]
-        if len(terms):
-            lp += float(np.cumsum(terms)[-1])
+        t = tree.branch_length(node)
+        rows_key = (np.asarray(align.path[parent], dtype=bool).tobytes(),
+                    np.asarray(align.path[node], dtype=bool).tobytes())
+        key = (params, t, rows_key)
+        hit = _INDEL_LP_CACHE.get(key)
+        if hit is None:
+            st = _PAIR_STATES_CACHE.get(rows_key)
+            if st is None:
+                p = pair_path(align.path, parent, node)
+                st = branch_path_states(p[parent], p[node])
+                if len(_PAIR_STATES_CACHE) >= _PAIR_STATES_CACHE_MAX:
+                    _PAIR_STATES_CACHE.clear()
+                _PAIR_STATES_CACHE[rows_key] = st
+            terms = _log_trans_table(ProbModel(model, t))[st[0], st[1]]
+            hit = float(np.cumsum(terms)[-1]) if len(terms) else 0.0
+            if len(_INDEL_LP_CACHE) >= _INDEL_LP_CACHE_MAX:
+                _INDEL_LP_CACHE.clear()
+            _INDEL_LP_CACHE[key] = hit
+        lp += hit
     return lp
 
 
+def subst_log_likelihood(model, history: History) -> float:
+    """The sum-product engine's per-column likelihoods, memoized by column
+    (`log_likelihood_cached`), summed."""
+    return get_engine(model, history.tree).log_likelihood_cached(
+        [s.seq for s in history.gapped])
+
+
 def log_likelihood(model, tree, gapped) -> float:
-    subst = get_engine(model, tree).log_likelihood_cached([s.seq for s in gapped])
-    return (
-        root_log_likelihood(model, gapped, tree)
-        + indel_log_likelihood(model, gapped, tree)
-        + subst
-    )
+    history = History(gapped=gapped, tree=tree)
+    return (root_log_likelihood(model, history) + indel_log_likelihood(model, history)
+            + subst_log_likelihood(model, history))
+
+
+class SimpleTreePrior:
+    """Coalescent prior with rate C(k,2)/N (sampler.cpp:9-31)."""
+
+    def __init__(self, population_size: float = 1.0):
+        self.population_size = population_size
+
+    def tree_log_likelihood(self, tree) -> float:
+        # times between coalescences under the coalescent with k lineages
+        heights = tree.distance_from_root()
+        max_h = heights.max()
+        node_times = sorted(
+            (max_h - heights[n]) for n in range(tree.n_nodes()) if not tree.is_leaf(n)
+        )
+        n_leaves = sum(1 for n in range(tree.n_nodes()) if tree.is_leaf(n))
+        lp = 0.0
+        k = n_leaves
+        last_t = 0.0
+        for t in node_times:
+            rate = k * (k - 1) / 2 / self.population_size
+            dt = max(0.0, t - last_t)
+            lp += math.log(rate) - rate * dt
+            k -= 1
+            last_t = t
+        return lp
 
 
 def clade_path(path: AlignPath, tree, clade_root: int, clade_root_parent: int,

@@ -61,9 +61,17 @@ _SIGNATURES = {
     "branchfill": [_P] * 9 + [_I] * 6 + [_P],
     # trans8, steps, viterbi, out, stream: the dependency floor's step
     "branchfill_chain": [_P, _I, _I, _P, _P],
+    # emit, mask, l_emit, r_emit, t144, rowpos, off, diag, cells, lp_end,
+    # arrivals, sx, sy, blocks, threads, stream
+    "siblingfill": [_P] * 11 + [_I] * 4 + [_P],
+    # threads -> blocks that can be resident at once
+    "siblingfill_capacity": [_I],
+    # t144, steps, out, stream: the dependency floor's step
+    "siblingfill_chain": [_P, _I, _P, _P],
 }
 #: the dtypes each kernel is built for, where not both
-_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain")}
+_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingfill",
+                                       "siblingfill_capacity", "siblingfill_chain")}
 
 _LIB: ctypes.CDLL | None = None
 

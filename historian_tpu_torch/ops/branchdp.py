@@ -46,6 +46,8 @@ LAUNCHES = 0
 #: RING_MAX_CELLS cells; "wide", the neighbours from device memory, for the
 #: rest (a full mask)
 DESIGNS = {"ring": 0, "wide": 0}
+#: those launches by mode: the refiner's Viterbi, the sampler's Forward
+MODES = {"viterbi": 0, "forward": 0}
 #: the wide design's largest block (csrc/branchfill.cu kMaxThreads)
 MAX_THREADS = 1024
 #: the ring design's largest block, one thread a cell of a diagonal
@@ -244,35 +246,20 @@ def band_inputs(layout: BandLayout, match_emit, mask, ins_emit, trans) -> BandIn
 _TORCH_DTYPES = {np.float64: torch.float64, np.int32: torch.int32, np.uint8: torch.uint8}
 
 
-def upload_band(layout: BandLayout, match_emit: np.ndarray, mask: np.ndarray,
-                ins_emit: np.ndarray, trans: np.ndarray, device: torch.device) -> BandInputs:
-    """The band's inputs from host grids (a layout built on the host), on
-    `device`.  On the card: gathered straight into one pinned buffer and
-    copied in one piece (logged in UPLOADS); elsewhere `band_inputs`."""
-    if device.type != "cuda":
-        return band_inputs(layout, *(torch.from_numpy(np.ascontiguousarray(a))
-                                     for a in (match_emit, mask, ins_emit, trans)))
+def pinned_upload(parts: dict, write, device: torch.device, log: list) -> dict:
+    """Host arrays packed into one pinned buffer and copied to `device` in
+    one piece: `parts` maps a name to (numpy dtype, count), `write(views)`
+    fills each part's host view, each part starts 16-byte aligned.  Appends
+    the copy to `log` (bytes, the copy's ms by CUDA events, the host's ms
+    packing) and returns the parts on the device, as torch tensors."""
     t0 = time.perf_counter()
-    X1, Y1 = layout.shape
-    n, K = layout.n, X1 + Y1 - 1
-    parts = {"emit": (np.float64, n), "ins": (np.float64, Y1), "trans": (np.float64, 8),
-             "rowpos": (np.int32, X1), "off": (np.int32, X1 + 1), "diag": (np.int32, 2 * K),
-             "mask": (np.uint8, n)}
     spans, at = {}, 0
     for name, (dt, count) in parts.items():
         size = count * np.dtype(dt).itemsize
         spans[name] = slice(at, at + size)
-        at += -(-size // 16) * 16  # each part 16-byte aligned
+        at += -(-size // 16) * 16
     host = torch.empty(at, dtype=torch.uint8, pin_memory=True)
-    hv = {name: host.numpy()[sl].view(parts[name][0]) for name, sl in spans.items()}
-    idx = layout.flat_index()
-    np.take(np.ascontiguousarray(match_emit).reshape(-1), idx, out=hv["emit"])
-    np.take(np.ascontiguousarray(mask).reshape(-1).view(np.uint8), idx, out=hv["mask"])
-    hv["ins"][:] = ins_emit
-    hv["trans"][:] = trans
-    hv["rowpos"][:] = layout.rowpos
-    hv["off"][:] = layout.off
-    hv["diag"][:] = layout.diag.reshape(-1)
+    write({name: host.numpy()[sl].view(parts[name][0]) for name, sl in spans.items()})
     pack_ms = (time.perf_counter() - t0) * 1e3
     buf = torch.empty(at, dtype=torch.uint8, device=device)
     begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -280,8 +267,36 @@ def upload_band(layout: BandLayout, match_emit: np.ndarray, mask: np.ndarray,
     buf.copy_(host, non_blocking=True)
     end.record()
     end.synchronize()
-    UPLOADS.append(dict(bytes=at, ms=begin.elapsed_time(end), pack_ms=pack_ms))
-    dev = {name: buf[sl].view(_TORCH_DTYPES[parts[name][0]]) for name, sl in spans.items()}
+    log.append(dict(bytes=at, ms=begin.elapsed_time(end), pack_ms=pack_ms))
+    return {name: buf[sl].view(_TORCH_DTYPES[parts[name][0]]) for name, sl in spans.items()}
+
+
+def upload_band(layout: BandLayout, match_emit: np.ndarray, mask: np.ndarray,
+                ins_emit: np.ndarray, trans: np.ndarray, device: torch.device) -> BandInputs:
+    """The band's inputs from host grids (a layout built on the host), on
+    `device`.  On the card: gathered straight into one pinned buffer and
+    copied in one piece (`pinned_upload`, logged in UPLOADS); elsewhere
+    `band_inputs`."""
+    if device.type != "cuda":
+        return band_inputs(layout, *(torch.from_numpy(np.ascontiguousarray(a))
+                                     for a in (match_emit, mask, ins_emit, trans)))
+    X1, Y1 = layout.shape
+    n, K = layout.n, X1 + Y1 - 1
+    parts = {"emit": (np.float64, n), "ins": (np.float64, Y1), "trans": (np.float64, 8),
+             "rowpos": (np.int32, X1), "off": (np.int32, X1 + 1), "diag": (np.int32, 2 * K),
+             "mask": (np.uint8, n)}
+
+    def write(hv):
+        idx = layout.flat_index()
+        np.take(np.ascontiguousarray(match_emit).reshape(-1), idx, out=hv["emit"])
+        np.take(np.ascontiguousarray(mask).reshape(-1).view(np.uint8), idx, out=hv["mask"])
+        hv["ins"][:] = ins_emit
+        hv["trans"][:] = trans
+        hv["rowpos"][:] = layout.rowpos
+        hv["off"][:] = layout.off
+        hv["diag"][:] = layout.diag.reshape(-1)
+
+    dev = pinned_upload(parts, write, device, UPLOADS)
     return BandInputs(layout, dev["emit"], dev["mask"], dev["ins"], dev["trans"], dev["rowpos"],
                       dev["off"], dev["diag"].view(K, 2))
 
@@ -337,6 +352,7 @@ def branch_fill_band(inp: BandInputs, viterbi: bool) -> torch.Tensor:
     _kernels.check(code, "branchfill")
     LAUNCHES += 1
     DESIGNS[design] += 1
+    MODES["viterbi" if viterbi else "forward"] += 1
     return cells
 
 
@@ -362,17 +378,18 @@ def branch_fill(match_emit, ins_emit, mask, trans, viterbi: bool) -> torch.Tenso
 
 class BandCells:
     """A band's cells on the host, read as the full grid is: `cells[x, y, s]`
-    and `cells[x, y]` ([3]); a cell outside the band is NEG in all three
-    states, as the fill writes it."""
+    and `cells[x, y]` ([S]); a cell outside the band is `neg` in every
+    state, as the fill leaves it (NEG for the branch fill, -inf for the
+    sibling fill)."""
 
-    def __init__(self, vals: np.ndarray, layout: BandLayout):
+    def __init__(self, vals: np.ndarray, layout: BandLayout, neg: float = NEG):
         X1, Y1 = layout.shape
-        self.vals = vals  # [n, 3], in band order
+        self.vals = vals  # [n, S], in band order
         self.lo, self.hi, self.off, self.rowpos = (
             a.tolist() for a in (layout.lo, layout.hi, layout.off, layout.rowpos))
         self.Y = Y1 - 1
-        self.shape = (X1, Y1, 3)
-        self._neg = np.full(3, NEG)
+        self.shape = (X1, Y1, vals.shape[1])
+        self._neg = np.full(vals.shape[1], neg)
 
     def _row(self, x: int, y: int):
         if self.lo[x] <= y <= self.hi[x]:

@@ -1,0 +1,366 @@
+"""Sibling fill: the 11-state sibling-transducer Forward that aligns two
+sibling profiles (left x, right y) under their parent.
+
+Port of historian_tpu/ops/siblingdp.py (`pack_sibling_transitions`,
+`sibling_forward`).  `sibling_forward` is the JAX formulation in
+PyTorch, the plain version: a loop over x rows in which the states read
+from the row before are vector operations, IMI is an affine scan along y
+and the coupled (IDM, IDI) pair a scan of 2x2 log-matrix affine maps,
+both by doubling steps, with NEG = -1e30 as the semiring's zero.
+
+The card fills the band only (ops/branchdp.py `band_layout`: rows 0 and
+X whole, on each other row its column 0, its hull of in-mask interior
+columns and its column Y).  `sibling_fill_band` is the band's entry: the
+hand-written CUDA kernel csrc/siblingfill.cu for CUDA tensors (float64),
+which keeps the host route's per-cell order (csrc/fill.cpp
+`sibling_fill`), so its cells differ from the host's only by the card's
+exp and log; `sibling_fill_band_plain`, the plain full fill gathered at
+the band, for CPU tensors.  Both give -inf where the host fill does (a
+cell outside the mask, a state no path reaches).  `upload_band` packs a
+host grid's band into one pinned buffer and copies it once, `read_band`
+copies the filled band and lp_end back once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from historian_tpu_torch.ops.branchdp import BandCells, BandLayout, pinned_upload
+from historian_tpu_torch.ops.readback import gather_to_host
+
+NEG = -1e30
+N_STATES = 11
+#: state order of the cells (sampler/sibling.py)
+STATES = ("IMM", "IMD", "IDM", "IDD", "WWW", "WWX", "WXW", "IMI", "IIW", "IDI", "IIX")
+#: the transition table's states: STATES, then EEE
+_INDEX = {name: k for k, name in enumerate(STATES + ("EEE",))}
+
+# packed transition layout (see pack_sibling_transitions)
+_KEYS = [
+    ("IMM", "IIW"), ("IMI", "IIW"), ("IIW", "IIW"),
+    ("IMD", "IIX"), ("IIX", "IIX"),
+    ("WWW", "IMD"), ("WWX", "IMD"), ("WXW", "IMD"), ("IDD", "IMD"),
+    ("WWW", "IMM"), ("WWX", "IMM"), ("WXW", "IMM"), ("IDD", "IMM"),
+    ("IIW", "WWW"), ("IMI", "WWW"), ("IMM", "WWW"),
+    ("IIX", "WWX"), ("IMD", "WWX"),
+    ("IDI", "WXW"), ("IDM", "WXW"),
+    ("WWW", "IDD"), ("WWX", "IDD"), ("WXW", "IDD"),
+    ("IMM", "IMI"), ("IMI", "IMI"),
+    ("IDM", "IDI"), ("IDI", "IDI"),
+    ("WWW", "IDM"), ("WWX", "IDM"), ("WXW", "IDM"), ("IDD", "IDM"),
+    ("IDD", "EEE"), ("WWW", "EEE"), ("WWX", "EEE"), ("WXW", "EEE"),
+]
+
+#: kernel launches made by `sibling_fill_band` (never by the plain version)
+LAUNCHES = 0
+#: one entry a band upload (`upload_band` on the card): bytes, the copy's
+#: ms and the host's ms packing the band
+UPLOADS: list = []
+#: the last launch's blocks and threads a block
+LAST_LAUNCH: dict = {}
+#: threads a block of the kernel (csrc/siblingfill.cu, at most 256)
+THREADS = 256
+
+
+def transition_table(sib) -> np.ndarray:
+    """A SiblingMatrix's transitions as fill.cpp takes them: [12, 12],
+    t[src, dest], -inf where there is none."""
+    tmat = np.full((12, 12), -np.inf)
+    for (s, d), lp in sib.t.items():
+        tmat[s, d] = lp
+    return tmat
+
+
+def pack_sibling_transitions(sib) -> np.ndarray:
+    """Flatten a sampler.sibling.SiblingMatrix transition table."""
+    return pack_table(transition_table(sib))
+
+
+def pack_table(tmat: np.ndarray) -> np.ndarray:
+    """The [35] packed transitions of a [12, 12] table, NEG where none."""
+    out = np.array([tmat[_INDEX[a], _INDEX[b]] for a, b in _KEYS], dtype=np.float64)
+    return np.where(np.isfinite(out), out, NEG)
+
+
+def _lse(*xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.logaddexp(out, x)
+    return out
+
+
+def _scan(op, items: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along dim 1 of the stacked elements `items` [k, n]
+    under the associative `op(left, right)`, by doubling steps."""
+    d, n = 1, items.shape[1]
+    while d < n:
+        items = torch.cat([items[:, :d], op(items[:, :-d], items[:, d:])], dim=1)
+        d *= 2
+    return items
+
+
+def _aff(left, right):
+    # (a, b) o (a', b') = (lse(a', a + b'), b + b')
+    out = left + right[1:2]
+    out[0] = torch.logaddexp(right[0], out[0])
+    return out
+
+
+# _mataff's products: element k of the composition is lse(R[_RA[k]] +
+# L[_LA[k]], R[_RB[k]] + L[_LB[k]]), then (rows 4, 5, the constant terms)
+# lse with R[k]; the elements are (m00, m01, m10, m11, c0, c1)
+_RA, _LA = [0, 0, 2, 2, 0, 2], [0, 1, 0, 1, 4, 4]
+_RB, _LB = [1, 1, 3, 3, 1, 3], [2, 3, 2, 3, 5, 5]
+
+
+def _mataff(left, right):
+    # compose: (M_r, c_r) after (M_l, c_l)
+    out = torch.logaddexp(right[_RA] + left[_LA], right[_RB] + left[_LB])
+    out[4:] = torch.logaddexp(out[4:], right[4:])
+    return out
+
+
+def sibling_forward(l_emit, r_emit, match_emit, mask, trans):
+    """Returns (cells [X+1, Y+1, 11], lp_end).
+
+    l_emit: [X] left-insert scores; r_emit: [Y]; match_emit: [X+1, Y+1]
+    (1-based, row/col 0 = NEG); mask: [X+1, Y+1] bool; trans: [35]
+    packed by pack_sibling_transitions.  Every input finite (NEG for
+    -inf).  State order matches sampler.sibling: IMM IMD IDM IDD WWW WWX
+    WXW IMI IIW IDI IIX.  A cell no path reaches holds about NEG.
+    """
+    (tIMM_IIW, tIMI_IIW, tIIW_IIW,
+     tIMD_IIX, tIIX_IIX,
+     tWWW_IMD, tWWX_IMD, tWXW_IMD, tIDD_IMD,
+     tWWW_IMM, tWWX_IMM, tWXW_IMM, tIDD_IMM,
+     tIIW_WWW, tIMI_WWW, tIMM_WWW,
+     tIIX_WWX, tIMD_WWX,
+     tIDI_WXW, tIDM_WXW,
+     tWWW_IDD, tWWX_IDD, tWXW_IDD,
+     tIMM_IMI, tIMI_IMI,
+     tIDM_IDI, tIDI_IDI,
+     tWWW_IDM, tWWX_IDM, tWXW_IDM, tIDD_IDM,
+     tIDD_EEE, tWWW_EEE, tWWX_EEE, tWXW_EEE) = (trans[k] for k in range(35))
+
+    X1, Y1 = match_emit.shape
+    dtype, dev = match_emit.dtype, match_emit.device
+    neg_row = torch.full((Y1,), NEG, dtype=dtype, device=dev)
+    first_col = torch.arange(Y1, device=dev) == 0
+    neg1 = neg_row[:1]
+
+    def shift_right(v):
+        return torch.cat([neg1, v[:-1]])
+
+    # effective IDM source weights from the W states, folding the stored
+    # IDD[y-1] = lse_W(W + t(W,IDD)) value through t(IDD,IDM)
+    aWWW = torch.logaddexp(tWWW_IDM, tWWW_IDD + tIDD_IDM)
+    aWWX = torch.logaddexp(tWWX_IDM, tWWX_IDD + tIDD_IDM)
+    aWXW = torch.logaddexp(tWXW_IDM, tWXW_IDD + tIDD_IDM)
+
+    # pad emissions with a leading NEG (position 0 = start boundary)
+    le = torch.cat([neg1, l_emit.to(dtype)])   # [X1]
+    ren = torch.cat([neg1, r_emit.to(dtype)])  # [Y1]
+    m00 = ren + tIDM_WXW + aWXW
+    m01 = ren + tIDI_WXW + aWXW
+    m10 = ren + tIDM_IDI
+    m11 = ren + tIDI_IDI
+    b_imi_all = tIMI_IMI + ren
+
+    p = {k: neg_row for k in STATES}
+    out = torch.empty((X1, Y1, N_STATES), dtype=dtype, device=dev)
+    for i in range(X1):
+        mask_row = mask[i]
+        le_i = le[i]
+
+        def gate(v):
+            return torch.where(mask_row, v, neg_row)
+
+        # x-direction (previous row, same column)
+        iiw = gate(le_i + _lse(p["IMM"] + tIMM_IIW, p["IMI"] + tIMI_IIW, p["IIW"] + tIIW_IIW))
+        iix = gate(le_i + torch.logaddexp(p["IMD"] + tIMD_IIX, p["IIX"] + tIIX_IIX))
+        imd = gate(le_i + _lse(p["WWW"] + tWWW_IMD, p["WWX"] + tWWX_IMD,
+                               p["WXW"] + tWXW_IMD, p["IDD"] + tIDD_IMD))
+        # xy-diagonal
+        imm = match_emit[i] + shift_right(
+            _lse(p["WWW"] + tWWW_IMM, p["WWX"] + tWWX_IMM, p["WXW"] + tWXW_IMM,
+                 p["IDD"] + tIDD_IMM))
+        if i == 0:
+            imm = torch.where(first_col, torch.zeros_like(imm), imm)
+        imm = gate(imm)
+        wwx = torch.logaddexp(iix + tIIX_WWX, imd + tIMD_WWX)
+
+        # scan 1: IMI (sources IMM within the row)
+        imi = gate(_scan(_aff, torch.stack([gate(shift_right(imm + tIMM_IMI) + ren),
+                                            gate(b_imi_all)]))[0])
+        www = gate(_lse(iiw + tIIW_WWW, imi + tIMI_WWW, imm + tIMM_WWW))
+        wwx = gate(wwx)
+
+        # scan 2: coupled (IDM, IDI) as a 2x2 log-matrix affine scan,
+        # s[y] = M[y] (x) s[y-1] (+) c[y], s = (IDM, IDI)
+        c = torch.logaddexp(www + aWWW, wwx + aWWX)  # known W contribution
+        scanned = _scan(_mataff, torch.stack([m00, m01, m10, m11, ren + shift_right(c),
+                                              neg_row]).where(mask_row, neg_row))
+        idm, idi = gate(scanned[4]), gate(scanned[5])
+
+        wxw = gate(torch.logaddexp(idi + tIDI_WXW, idm + tIDM_WXW))
+        if i == 0:
+            www = torch.where(first_col, tIMM_WWW.expand(Y1), www)
+        idd = gate(_lse(www + tWWW_IDD, wwx + tWWX_IDD, wxw + tWXW_IDD))
+        p = {"IMM": imm, "IMD": imd, "IDM": idm, "IDD": idd, "WWW": www, "WWX": wwx,
+             "WXW": wxw, "IMI": imi, "IIW": iiw, "IDI": idi, "IIX": iix}
+        out[i] = torch.stack([p[k] for k in STATES], dim=-1)
+    lp_end = _lse(p["IDD"][Y1 - 1] + tIDD_EEE, p["WWW"][Y1 - 1] + tWWW_EEE,
+                  p["WWX"][Y1 - 1] + tWWX_EEE, p["WXW"][Y1 - 1] + tWXW_EEE)
+    return out, lp_end
+
+
+def _finite(a: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(a), a, torch.full_like(a, NEG))
+
+
+@dataclass
+class SiblingBandInputs:
+    """A band fill's inputs, all on one device: the match emission [n] and
+    the mask bytes [n] at the band's cells, l_emit [X], r_emit [Y], the
+    [12, 12] transition table (`transition_table`) flattened, and the
+    layout's rowpos, off and diag as int32."""
+
+    layout: BandLayout
+    emit: torch.Tensor
+    mask: torch.Tensor
+    l_emit: torch.Tensor
+    r_emit: torch.Tensor
+    trans: torch.Tensor
+    rowpos: torch.Tensor
+    off: torch.Tensor
+    diag: torch.Tensor
+
+
+def band_inputs(layout: BandLayout, match_emit, mask, l_emit, r_emit, tmat) -> SiblingBandInputs:
+    """The band's inputs gathered from full grids where they lie."""
+    dev = match_emit.device
+    idx = torch.from_numpy(layout.flat_index()).to(dev)
+    return SiblingBandInputs(layout, match_emit.reshape(-1)[idx].to(torch.float64),
+                             mask.reshape(-1)[idx].to(torch.uint8),
+                             l_emit.to(torch.float64), r_emit.to(torch.float64),
+                             tmat.reshape(-1).to(torch.float64),
+                             *(torch.from_numpy(a.astype(np.int32)).to(dev)
+                               for a in (layout.rowpos, layout.off, layout.diag)))
+
+
+def upload_band(layout: BandLayout, match_emit: np.ndarray, mask: np.ndarray,
+                l_emit: np.ndarray, r_emit: np.ndarray, tmat: np.ndarray,
+                device: torch.device) -> SiblingBandInputs:
+    """The band's inputs from host grids, on `device`: on the card in one
+    pinned copy (`branchdp.pinned_upload`, logged in UPLOADS), elsewhere
+    `band_inputs`."""
+    if device.type != "cuda":
+        return band_inputs(layout, *(torch.from_numpy(np.ascontiguousarray(a))
+                                     for a in (match_emit, mask, l_emit, r_emit, tmat)))
+    X1, Y1 = layout.shape
+    n, K = layout.n, X1 + Y1 - 1
+    parts = {"emit": (np.float64, n), "l_emit": (np.float64, X1 - 1),
+             "r_emit": (np.float64, Y1 - 1), "trans": (np.float64, 144),
+             "rowpos": (np.int32, X1), "off": (np.int32, X1 + 1), "diag": (np.int32, 2 * K),
+             "mask": (np.uint8, n)}
+
+    def write(hv):
+        idx = layout.flat_index()
+        np.take(np.ascontiguousarray(match_emit).reshape(-1), idx, out=hv["emit"])
+        np.take(np.ascontiguousarray(mask).reshape(-1).view(np.uint8), idx, out=hv["mask"])
+        hv["l_emit"][:] = l_emit
+        hv["r_emit"][:] = r_emit
+        hv["trans"][:] = tmat.reshape(-1)
+        hv["rowpos"][:] = layout.rowpos
+        hv["off"][:] = layout.off
+        hv["diag"][:] = layout.diag.reshape(-1)
+
+    dev = pinned_upload(parts, write, device, UPLOADS)
+    return SiblingBandInputs(layout, dev["emit"], dev["mask"], dev["l_emit"], dev["r_emit"],
+                             dev["trans"], dev["rowpos"], dev["off"], dev["diag"].view(K, 2))
+
+
+def sibling_fill_band_plain(inp: SiblingBandInputs) -> tuple:
+    """The band's cells [n, 11] and lp_end [1]: the plain full fill
+    (`sibling_forward`) of the grids the band was gathered from, gathered
+    at the band, with -inf where it holds NEG or less than -1e29."""
+    X1, Y1 = inp.layout.shape
+    dev = inp.emit.device
+    idx = torch.from_numpy(inp.layout.flat_index()).to(dev)
+    emit = torch.full((X1 * Y1,), NEG, dtype=torch.float64, device=dev)
+    emit[idx] = _finite(inp.emit)
+    mask = torch.zeros(X1 * Y1, dtype=torch.bool, device=dev)
+    mask[idx] = inp.mask != 0
+    trans = torch.from_numpy(pack_table(inp.trans.cpu().numpy().reshape(12, 12))).to(dev)
+    grid, lp_end = sibling_forward(_finite(inp.l_emit), _finite(inp.r_emit),
+                                   emit.view(X1, Y1), mask.view(X1, Y1), trans)
+    cells = grid.reshape(-1, N_STATES)[idx]
+    ninf = torch.tensor(-torch.inf, dtype=torch.float64, device=dev)
+    return (torch.where(cells < -1e29, ninf, cells),
+            torch.where(lp_end < -1e29, ninf, lp_end).reshape(1))
+
+
+def sibling_fill_band(inp: SiblingBandInputs) -> tuple:
+    """Kernel (d) on the band: its cells [n, 11] and lp_end [1], -inf
+    where fill.cpp leaves -inf.  The plain version for CPU tensors; for
+    CUDA tensors (float64 only) the kernel, in one block where the widest
+    diagonal fits it, else in as many blocks as that diagonal needs, all
+    resident; any other device raises."""
+    global LAUNCHES
+    lay = inp.layout
+    dev = inp.emit.device
+    if dev.type == "cpu":
+        return sibling_fill_band_plain(inp)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the sibling fill has no kernel for device {dev}")
+    X1, Y1 = lay.shape
+    n = lay.n
+    expect = {"emit": n, "mask": n, "l_emit": X1 - 1, "r_emit": Y1 - 1, "trans": 144,
+              "rowpos": X1, "off": X1 + 1, "diag": 2 * (X1 + Y1 - 1)}
+    for name, count in expect.items():
+        t = getattr(inp, name)
+        if t.device != dev or t.numel() != count or not t.is_contiguous():
+            raise ValueError(f"sibling fill input {name}: {t.numel()} elements on {t.device}, "
+                             f"contiguous {t.is_contiguous()}; expected {count} on {dev}")
+    for name in ("emit", "l_emit", "r_emit", "trans"):
+        if getattr(inp, name).dtype != torch.float64:
+            raise ValueError(f"the sibling fill kernel takes float64, not "
+                             f"{getattr(inp, name).dtype} ({name})")
+    if inp.mask.dtype != torch.uint8:
+        raise ValueError(f"the sibling fill mask must be uint8, not {inp.mask.dtype}")
+    from historian_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    threads = min(THREADS, max(32, -(-lay.widest // 32) * 32))
+    blocks = -(-lay.widest // threads)
+    if blocks > 1:
+        with torch.cuda.device(dev):
+            capacity = lib.siblingfill_capacity_f64(threads)
+        if capacity < 1:
+            raise RuntimeError("siblingfill: the card's resident-block capacity query failed")
+        blocks = min(blocks, capacity)
+    cells = torch.empty((n, N_STATES), dtype=torch.float64, device=dev)
+    lp_end = torch.empty(1, dtype=torch.float64, device=dev)
+    arrivals = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.siblingfill_f64(
+            inp.emit.data_ptr(), inp.mask.data_ptr(), inp.l_emit.data_ptr(),
+            inp.r_emit.data_ptr(), inp.trans.data_ptr(), inp.rowpos.data_ptr(),
+            inp.off.data_ptr(), inp.diag.data_ptr(), cells.data_ptr(), lp_end.data_ptr(),
+            arrivals.data_ptr(), X1, Y1, blocks, threads, stream)
+    _kernels.check(code, "siblingfill")
+    LAUNCHES += 1
+    LAST_LAUNCH.update(blocks=blocks, threads=threads)
+    return cells, lp_end
+
+
+def read_band(cells: torch.Tensor, lp_end: torch.Tensor, layout: BandLayout) -> tuple:
+    """The filled band [n, 11] and lp_end copied to the host once
+    (`readback.gather_to_host`, logged in its READBACKS as a "sibling"):
+    a BandCells (-inf outside the band) and lp_end as a float."""
+    vals, lp = gather_to_host("sibling", cells, 0, None, lp_end)
+    return BandCells(vals.numpy(), layout, neg=-np.inf), float(lp[0])

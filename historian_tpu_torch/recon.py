@@ -30,10 +30,13 @@ each route); all draw from the run's mt19937 in the reference's order.
 With `-refine` (the end of `-careful`) the root alignment is refined
 branch by branch (sampler/refiner.py) before it is written; counting
 while reconstructing keeps the merge's counts, as in the JAX package.
-`generate` simulates histories down a given tree (sampler/simulator.py).
+`mcmc` and `recon -mcmc` sample trees and alignments from the
+reconstruction (`sample_all`, sampler/sampler.py); their distance tree
+is UPGMA unless the tree is fixed.  `generate` simulates histories down
+a given tree (sampler/simulator.py).
 
 Paths that are not ported yet raise NotImplementedError naming their
-ROADMAP item: MCMC and the mesh.
+ROADMAP item: the mesh.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ DEFAULT_PROFILE_SAMPLES = 10
 DEFAULT_MAX_DISTANCE_FROM_GUIDE = 20
 DP_CELL_SIZE = 40
 DEFAULT_MAX_EM_ITERATIONS = 100
+DEFAULT_MCMC_SAMPLES_PER_SEQ = 100
 DEFAULT_MIN_EM_IMPROVEMENT = 0.001
 DEFAULT_SIMULATOR_ROOT_SEQ_LEN = 100
 ANCESTRAL_POST_PROB_TAG = "PP"
@@ -217,6 +221,13 @@ class Reconstructor:
         self.fit_subst_rates = True
         self.fit_indel_rates = True
         self.checkpoint_filename = ""
+        self.run_mcmc = False
+        self.fix_tree_mcmc = False
+        self.fix_align_mcmc = False
+        self.fix_guide_mcmc = False
+        self.mcmc_samples_per_seq = DEFAULT_MCMC_SAMPLES_PER_SEQ
+        self.mcmc_trace_filename = ""
+        self.checkpoint_every = 100  # MCMC steps between snapshots
         self.dp_memory_bytes = physical_memory_bytes()
         self.max_dp_memory_fraction = 0.05
         self.rnd_seed = DEFAULT_SEED
@@ -318,7 +329,10 @@ class Reconstructor:
 
     def build_tree(self, dataset: Dataset) -> None:
         """UPGMA or NJ on the guide's pairwise distances (Jukes-Cantor
-        under -jc, else ML with 100 golden-section steps)."""
+        under -jc, else ML with 100 golden-section steps); always UPGMA
+        for MCMC, unless the tree is fixed."""
+        if self.run_mcmc and not self.fix_tree_mcmc:
+            self.use_upgma = True
         dist = distance_matrix(
             self.model, dataset.gapped_guide,
             0 if self.jukes_cantor_distance_matrix else 100, devmod.current(),
@@ -649,6 +663,14 @@ class Reconstructor:
             raise ValueError("please supply some data")
         for ds in self.datasets:
             self.reconstruct(ds)
+
+    # -------------------------------------------------------------------- MCMC
+    def sample_all(self) -> None:
+        if not self.run_mcmc:
+            return
+        from historian_tpu_torch.sampler.sampler import run_mcmc_on_datasets
+
+        run_mcmc_on_datasets(self)
 
     # ----------------------------------------------------- ancestral prediction
     def predict_ancestors(self, dataset: Dataset) -> None:

@@ -1,1 +1,2 @@
-"""Host samplers of the port: the refiner and the simulator."""
+"""Host samplers of the port: the refiner, the simulator, and MCMC (the
+sampler and its sibling matrix)."""

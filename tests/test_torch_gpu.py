@@ -934,3 +934,131 @@ def test_branchfill_rejects_float32(cuda):
     t[0] = t[0].float()
     with pytest.raises(ValueError, match="float64"):
         branchdp.branch_fill(*t, True)
+
+
+def _sibling_case(X, Y, band, seed):
+    """Seeded sibling fill inputs (tests/test_torch_siblingdp.py's form)
+    and the band layout of their mask."""
+    from historian_tpu_torch.ops import branchdp, siblingdp
+
+    rng = np.random.default_rng(seed)
+    tmat = np.full((12, 12), -np.inf)
+    for a, b in siblingdp._KEYS:
+        tmat[siblingdp._INDEX[a], siblingdp._INDEX[b]] = np.log(rng.uniform(0.05, 0.9))
+    l_emit, r_emit = rng.uniform(-4, -1, X), rng.uniform(-4, -1, Y)
+    match = np.full((X + 1, Y + 1), -np.inf)
+    match[1:, 1:] = rng.uniform(-8, -2, (X, Y))
+    mask = np.ones((X + 1, Y + 1), bool)
+    if band == -2:  # holes anywhere
+        mask = rng.random((X + 1, Y + 1)) < 0.4
+    elif band >= 0:
+        m1, m2 = np.cumsum(rng.random(X + 1) < 0.8), np.cumsum(rng.random(Y + 1) < 0.8)
+        mask = np.abs(m1[:, None] - m2[None, :]) <= band
+    mask[0, :] = mask[-1, :] = mask[:, 0] = mask[:, -1] = True
+    hull = (t.numpy() for t in branchdp.interior_hull(torch.as_tensor(mask)))
+    return (match, mask, l_emit, r_emit, tmat), branchdp.band_layout(*hull, X + 1, Y + 1)
+
+
+SIBLING_SHAPES = [(1, 1, -1), (3, 2, -1), (1, 40, -1), (40, 1, -1), (120, 90, 6),
+                  (300, 340, -1), (1300, 1100, -1), (1100, 1300, 20), (200, 230, -2)]
+
+
+@pytest.mark.parametrize("shape", SIBLING_SHAPES,
+                         ids=[f"{a}x{b}b{c}" for a, b, c in SIBLING_SHAPES])
+def test_siblingfill_kernel_matches_host_and_plain(cuda, shape):
+    """Kernel (d) on the band against csrc/fill.cpp `sibling_fill` and its
+    plain version: the same -inf cells, the rest and lp_end within 1e-9
+    (the card's exp and log against glibc's); one block for a banded
+    fill, a cooperative launch of several for a full mask wider than a
+    block (300 x 340, 1300 x 1100), a mask with holes."""
+    from historian_tpu_torch.ops import siblingdp
+    from historian_tpu_torch.sampler.sibling import native_fill
+
+    (match, mask, l_emit, r_emit, tmat), lay = _sibling_case(*shape, seed=sum(shape))
+    host, lp = native_fill(l_emit, r_emit, match, mask, tmat)
+    ref = host.reshape(-1, 11)[lay.flat_index()]
+    inp = siblingdp.upload_band(lay, match, mask, l_emit, r_emit, tmat, cuda)
+    before = siblingdp.LAUNCHES
+    cells, lp_end = siblingdp.sibling_fill_band(inp)
+    torch.cuda.synchronize()
+    assert siblingdp.LAUNCHES == before + 1
+    assert siblingdp.LAST_LAUNCH["blocks"] == -(-lay.widest // siblingdp.THREADS) or \
+        siblingdp.LAST_LAUNCH["blocks"] == 1
+    g = cells.cpu().numpy()
+    assert np.array_equal(g == -np.inf, ref == -np.inf)
+    live = np.isfinite(ref)
+    assert np.all(np.abs(g[live] - ref[live]) <= 1e-9)
+    assert abs(lp_end.item() - lp) <= 1e-9 * max(1.0, abs(lp))
+    plain, plain_lp = siblingdp.sibling_fill_band_plain(inp)
+    p = plain.cpu().numpy()
+    assert np.array_equal(g == -np.inf, p == -np.inf)
+    assert np.all(np.abs(g[live] - p[live]) <= 1e-9)
+    assert abs(lp_end.item() - plain_lp.item()) <= 1e-9 * max(1.0, abs(lp))
+
+
+def test_siblingfill_band_readback(cuda):
+    """The sampler's route on the card: the band up in one pinned copy
+    (logged), kernel (d), the band and lp_end back in one copy of n x 88 +
+    8 bytes, and BandCells reading every cell as fill.cpp's grid, -inf
+    outside the band."""
+    from historian_tpu_torch.ops import readback, siblingdp
+    from historian_tpu_torch.sampler.sibling import native_fill
+
+    (match, mask, l_emit, r_emit, tmat), lay = _sibling_case(300, 280, 8, seed=5)
+    n_up = len(siblingdp.UPLOADS)
+    inp = siblingdp.upload_band(lay, match, mask, l_emit, r_emit, tmat, cuda)
+    assert len(siblingdp.UPLOADS) == n_up + 1 and siblingdp.UPLOADS[-1]["bytes"] >= lay.n * 9
+    cells, lp = siblingdp.read_band(*siblingdp.sibling_fill_band(inp), lay)
+    assert readback.READBACKS[-1]["bytes"] == lay.n * 88 + 8
+    assert readback.READBACKS[-1]["kind"] == "sibling"
+    host, hlp = native_fill(l_emit, r_emit, match, mask, tmat)
+    grid = np.array([[cells[x, y] for y in range(281)] for x in range(301)])
+    assert np.array_equal(grid == -np.inf, host == -np.inf)
+    live = np.isfinite(host)
+    assert np.all(np.abs(grid[live] - host[live]) <= 1e-9)
+    assert abs(lp - hlp) <= 1e-9 * abs(hlp)
+
+
+def test_siblingfill_rejects_float32(cuda):
+    from historian_tpu_torch.ops import siblingdp
+
+    (match, mask, l_emit, r_emit, tmat), lay = _sibling_case(5, 5, -1, 0)
+    inp = siblingdp.upload_band(lay, match, mask, l_emit, r_emit, tmat, cuda)
+    inp.emit = inp.emit.float()
+    with pytest.raises(ValueError, match="float64"):
+        siblingdp.sibling_fill_band(inp)
+
+
+def test_branch_matrix_full_envelope_takes_the_wide_design(cuda):
+    """An MCMC branch fill under an uninitialised envelope (the full mask
+    of a node-align or prune-and-regraft move) on the card: kernel (e) in
+    Forward mode in the wide design, cells within 1e-9 of fill.cpp's."""
+    from historian_tpu_torch import device
+    from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
+    from historian_tpu_torch.engine import branchmatrix
+    from historian_tpu_torch.models.presets import named_model
+    from historian_tpu_torch.ops import branchdp
+
+    rng = np.random.default_rng(4)
+    model = named_model("lg")
+
+    def pwm(n):
+        z = rng.normal(0, 2, (n, model.components, model.alphabet_size))
+        return z - np.log(np.exp(z).sum(axis=(1, 2), keepdims=True))
+
+    x_pwm, y_pwm = pwm(900), pwm(800)
+    env = GuideAlignmentEnvelope()
+    args = (model, x_pwm, y_pwm, 0.3, env, np.arange(901), np.arange(801), 0, 1)
+    device.select("gpu")
+    os.environ["HISTORIAN_DEVICE_BRANCH"] = "1"
+    try:
+        wides = branchdp.DESIGNS["wide"]
+        dev = branchmatrix.BranchMatrix(*args)
+        assert branchdp.DESIGNS["wide"] == wides + 1
+        os.environ["HISTORIAN_DEVICE_BRANCH"] = "0"
+        host = branchmatrix.BranchMatrix(*args)
+    finally:
+        del os.environ["HISTORIAN_DEVICE_BRANCH"]
+    g = np.array([[dev.cells[x, y] for y in range(801)] for x in range(901)])
+    assert np.all(np.abs(g - host.cells) <= 1e-9 * np.maximum(1.0, np.abs(host.cells)))
+    assert abs(dev.lp_end - host.lp_end) <= 1e-9 * abs(host.lp_end)

@@ -1,7 +1,7 @@
 """The port's `recon` slice never imports jax or the JAX package: with
 every import of `jax`, `jaxlib` and `historian_tpu` refused (by the
 top-level name, so `historian_tpu_torch` still loads), the CLI still
-reconstructs small4 on the CPU (also with the refiner, and `generate`)
+reconstructs small4 on the CPU (also with the refiner, `mcmc` and `generate`)
 with a supplied tree, and small6 through the guide stage and the distance
 tree: neighbour joining on Jukes-Cantor distances, the fused route (K2's
 plain version), and ML distances (`-fast` without its `-jc`).
@@ -101,3 +101,16 @@ def test_refine_and_generate_without_jax(tmp_path, command):
     assert out.returncode == 0, out.stderr[-2000:]
     rows, lp = rows_and_lp(out.stdout)
     assert len(rows) == 7 and lp < 0
+
+
+def test_mcmc_without_jax(tmp_path):
+    """`mcmc` on small4 (the sampler's five moves, the sibling fill and the
+    branch fill in Forward mode, the checkpoint) with jax refused."""
+    fa, nh = write_small4(tmp_path)
+    out = subprocess.run([sys.executable, "-c", BLOCKED, "mcmc", "-platform", "cpu",
+                          "-samples", "2", "-seed", "3", "-checkpoint", str(tmp_path / "ck.json"),
+                          "-ckptevery", "5", "-fast", "-noband", "-tree", nh, fa],
+                         capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows, lp = rows_and_lp(out.stdout)
+    assert len(rows) == 7 and lp < 0 and (tmp_path / "ck.json").exists()

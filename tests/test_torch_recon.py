@@ -9,6 +9,7 @@ must stay within tests/test_f32_drift.py's bound of 50 nats.  Without
 CUDA, `-platform gpu` (the default) fails instead of falling back."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -107,21 +108,43 @@ def test_band_doubling_ladder_matches_jax(tmp_path, monkeypatch):
 
 
 def test_unported_paths_raise(small4):
-    """-mcmc names its ROADMAP item."""
+    """-mesh names its ROADMAP item, in `recon` and in `mcmc`."""
     from historian_tpu_torch import cli
 
     args, _ = small4
-    with pytest.raises(NotImplementedError, match="item 6, MCMC"):
-        cli.main(["recon", "-platform", "cpu", *args, "-mcmc"])
+    for command in ("recon", "mcmc"):
+        with pytest.raises(NotImplementedError, match="item 7, multi-GPU"):
+            cli.main([command, "-platform", "cpu", *args, "-mesh", "2"])
 
 
-@pytest.mark.parametrize("command,item", [("mcmc", "item 6")])
-def test_unported_commands_name_their_item(command, item):
-    """Each command that is not ported raises naming its own ROADMAP item."""
+@pytest.mark.parametrize("command", [["recon", "-mcmc"], ["mcmc"], ["m"]],
+                         ids=["recon -mcmc", "mcmc", "m"])
+def test_mcmc_commands_take_the_flags(small4, tmp_path, command):
+    """`recon -mcmc`, `mcmc` and its alias `m` sample small4 on the CPU and
+    take every MCMC flag: one sample a node (7 steps, a -trace history
+    each, a snapshot after every 3), the tree, the alignment and the guide
+    fixed.  With every move's rate 0 the move drawn is the last, Rescale,
+    as in the JAX package, so the alignment stays the reconstruction's
+    and the tree keeps its shape."""
+    import contextlib
+    import io
+
     from historian_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match=f"'{command}' command .*{item},"):
-        cli.main([command, "-platform", "cpu"])
+    args, (ref_rows, _) = small4
+    trace, ck = str(tmp_path / "trace"), str(tmp_path / "ck.json")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main([*command, "-platform", "cpu", *args, "-samples", "1", "-trace", trace,
+                         "-checkpoint", ck, "-ckptevery", "3", "-fixtree", "-fixalign",
+                         "-fixguide", "-seed", "5"]) == 0
+    rows, lp = rows_and_lp(out.getvalue())
+    assert rows == ref_rows and lp < 0
+    assert re.search(r"#=GF NH \(\(t1:[0-9.]+,t2:[0-9.]+\)node3:[0-9.]+,"
+                     r"\(t3:[0-9.]+,t4:[0-9.]+\)node6:[0-9.]+\)root;", out.getvalue())
+    with open(f"{trace}.1") as f:
+        assert f.read().count("# STOCKHOLM") == 7
+    assert os.path.exists(ck)
 
 
 @pytest.fixture(scope="module")
