@@ -7,7 +7,7 @@ Phases, each fatal on failure (nothing is caught):
   (b) build: compiles every kernel in historian_tpu_torch/csrc, timed;
   (c) K1, the column fill, against its plain PyTorch version on the card,
       float32 and float64: a DAG y (KY = 4, null states, a diagonal band)
-      at SX = SY = 3072, a chain y over the full grid at the shape of
+      at SX = SY = 2048, a chain y over the full grid at the shape of
       long12's first merge (t01 x t02, ~6100 x 6100), the main path's,
       and a chain y with a diagonal band at that shape.  Each line gives
       the strips, their width NS and the share of (strip, column) pairs
@@ -28,10 +28,10 @@ Phases, each fatal on failure (nothing is caught):
       on tests/data/long12 (12 x ~6000 aa, 11 merges) in float32, whose
       kernel launches are counted;
   (f) K2, the fused column fill, against its plain version on the card:
-      float32 and float64 on a DAG y (KY = 4) at 3072 x 3072 with a band
+      float32 and float64 on a DAG y (KY = 4) at 2048 x 2048 with a band
       (m1 = i, m2 = j, distance 10, a few lanes near the start of x and
-      rows near the end of y), and on a chain y at long12's first-merge
-      shape with 20 emission factors; active share below 0.5;
+      rows near the end of y), and in float32 on a chain y at long12's
+      first-merge shape with 20 emission factors; active share below 0.5;
   (g) the guide kernel against its plain version, float32 and float64, on
       8 pairs of long12's sequences cut to 3000 aa with the sparse
       `-kmatchn 3` envelopes: steps, ends, lead cells and scores
@@ -64,9 +64,9 @@ Phases, each fatal on failure (nothing is caught):
       prints its merges and fills on each route, its launches of K1, K2,
       the walker and the guide kernel, its sampled walks and the mt19937
       draws they took; K1 (K2) launches must equal the fills whose x is a
-      chain and the host fills those whose x is a sampled profile (a log
-      of every fill's x, kept apart from the routes' counters), and some
-      sampled walks must run on the card;
+      chain, and kernel (a)'s launches plus the host fills those whose x
+      is a sampled profile (a log of every fill's x, kept apart from the
+      routes' counters), and some sampled walks must run on the card;
   (k) counts, EM and ancestral prediction on (j)'s long12 float32
       reconstruction (23 rows, more than 6166 columns, so the device fill):
       `count -stockrecon` and `fit -stockrecon -maxiter 2` on the card and
@@ -146,17 +146,36 @@ Phases, each fatal on failure (nothing is caught):
       band's bytes up and back and the copies' ms, the bound and the
       dependency floor; kernel (e) Forward's ms at a ring and a wide MCMC
       fill; then both routes of the node-align proposal's SiblingMatrix
-      cut around the route rule's 2e6 in-mask state-cells, and whole.
-      Prints an {"mcmc": ...} JSON line.
-Prints the Felsenstein times, the readbacks, the branch fills and the
-MCMC as JSON lines, the kernel table as one JSON line, the card line,
-and last {"ok": true, "device": {...}}.  Exits non-zero without CUDA.  A
-kernel's `launches` sums the main-path runs that drive it, each counted
-from 0: K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32, K2 in
-(h) fused and (l) small6 fused, the guide kernel in (h) fused, (j)
+      cut at the sizes that bracket the route rule's crossings, banded
+      and with a full mask.
+      Prints an {"mcmc": ...} JSON line;
+  (o) kernel (a), the DAG x DAG merge fill: small6 default and small6
+      `-careful -norefine` in float64 with every merge of a sampled or
+      posterior x forced onto the kernel, each byte-identical to (j)'s and
+      (l)'s CPU run, kernel (a)'s launches equal to those merges' fills;
+      then the main path's run, long12 default in float32 from (j)'s guide
+      and tree on the automatic route (wall, merges and fills by route,
+      kernel (a)'s launches, at least one and equal to FILLS["dag"], and
+      ms) and with every such merge on fill.cpp (wall; whether the two
+      outputs are equal is printed, not required: a sampled pick may turn
+      at round-off); kernel (a) at that run's first sampled-x merge against
+      fill.cpp (1e-9) and its plain version (1e-12 relative): in-envelope
+      cells, band cells, wavefronts, blocks, ms and us a wavefront, the
+      plain version's and fill.cpp's ms, the plan's host ms, the copies,
+      the bound and the dependency floor; then both routes of whole
+      ForwardMatrix builds at small6's first sampled-x merge and at long6's
+      t1-t4 cut to 500-4000 aa (the sweep behind DAG_DEVICE_MIN_CELLS).
+      Prints a {"dagfill": ...} JSON line.
+Prints the Felsenstein times, the readbacks, the branch fills, the MCMC
+and kernel (a) as JSON lines, the kernel table as one JSON line, the card
+line, and last {"ok": true, "device": {...}}.  Exits non-zero without
+CUDA.  A kernel's `launches` sums the main-path runs that drive it, each
+counted from 0: K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32,
+K2 in (h) fused and (l) small6 fused, the guide kernel in (h) fused, (j)
 long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
 kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
-proposals), kernel (d) in (n) long6 (the same).
+proposals), kernel (d) in (n) long6 (the same), kernel (a) in (o)'s
+long12 run on the automatic route.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -166,7 +185,10 @@ tensor cores) or 34 TFLOP/s (float64).  Operations are counted from the
 kernel's recurrence: each add, maximum or compare one operation, each
 log-sum-exp five (maximum, difference, exp, log1p, add); kernel (d)'s
 bytes are the band's 11 states written (88 B a cell) and its emission
-and mask byte read (9 B), its operations 98 an in-mask cell.  No PyTorch
+and mask byte read (9 B), its operations 98 an in-mask cell; kernel
+(a)'s bytes are the band's 5 states written (40 B a cell), each
+in-envelope cell's absorb value and plan entry read (16 B) and the
+per-state arrays, its operations DAG_OPS by each cell's in-edges.  No PyTorch
 call computes these recurrences, so `library_ms` is null.  K2's band
 leaves most cells at NEG, so its operations are counted on the in-band
 cells only.
@@ -346,7 +368,7 @@ def strips_line(launch: dict) -> str:
 
 
 def phase_k1(colforward) -> dict:
-    """K1 against its plain version: a banded DAG y at 3072 x 3072, a chain
+    """K1 against its plain version: a banded DAG y at 2048 x 2048, a chain
     y over the full grid at the shape of long12's first merge, and a
     banded chain y at that shape.  A banded case runs with the mask's
     lanes (timed; fewer than half the strips work in a column) and with
@@ -356,7 +378,7 @@ def phase_k1(colforward) -> dict:
     long12's shape)."""
     SX, SY = long12_first_merge()
     err, times, walk_planes = 0.0, {}, {}
-    for name, sx, sy, KY, banded in (("dag", 3072, 3072, 4, True),
+    for name, sx, sy, KY, banded in (("dag", 2048, 2048, 4, True),
                                      ("long12", SX, SY, 1, False),
                                      ("long12 band", SX, SY, 1, True)):
         for dtype in (torch.float32, torch.float64):
@@ -580,15 +602,16 @@ def k2_inputs(SX: int, SY: int, KY: int, seed: int, dtype, CA: int = 20,
 
 def phase_k2(colforward) -> dict:
     """K2 against its plain version (the emission and band planes built in
-    torch, then K1's plain version): a banded DAG y at 3072 x 3072 and a
-    banded chain y at long12's first-merge shape, the main path's, in
-    float32 and float64; fewer than half the strips may work in a column.
+    torch, then K1's plain version): a banded DAG y at 2048 x 2048 in
+    float32 and float64, and a banded chain y at long12's first-merge
+    shape, the main path's, in float32; fewer than half the strips may work
+    in a column.
     Returns the largest error and the long12-shape times; the bound counts
     the recurrence on the in-band cells only (the others are NEG)."""
     SX, SY = long12_first_merge()
     err, times = 0.0, {}
-    for name, sx, sy, KY in (("dag", 3072, 3072, 4), ("long12", SX, SY, 1)):
-        for dtype in (torch.float32, torch.float64):
+    for name, sx, sy, KY in (("dag", 2048, 2048, 4), ("long12", SX, SY, 1)):
+        for dtype in (torch.float32, torch.float64) if name == "dag" else (torch.float32,):
             args = k2_inputs(sx, sy, KY, 23, dtype)
             got = colforward.col_forward_planes_fused(*args)
             launch = last_launch(colforward)
@@ -846,11 +869,12 @@ def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
     """The launch and route counters since `zero_counts`; fails if a merge
     took the oversized route."""
     from historian_tpu_torch.engine import branchmatrix
-    from historian_tpu_torch.ops import branchdp
+    from historian_tpu_torch.ops import branchdp, dagforward
 
     none_oversized("recon")
     return dict(colforward=colforward.LAUNCHES, colforward_fused=colforward.FUSED_LAUNCHES,
                 pairtrace=tracedp.LAUNCHES, guidealign=guidedp.LAUNCHES,
+                dagfill=dagforward.LAUNCHES,
                 branchfill=branchdp.LAUNCHES, branch_designs=dict(branchdp.DESIGNS),
                 branch_modes=dict(branchdp.MODES), merges=dict(recon.MERGES),
                 fills=dict(forward.FILLS), sampled=dict(forward.SAMPLED),
@@ -859,10 +883,10 @@ def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
 
 def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
     from historian_tpu_torch.engine import branchmatrix
-    from historian_tpu_torch.ops import branchdp
+    from historian_tpu_torch.ops import branchdp, dagforward
 
     colforward.LAUNCHES = colforward.FUSED_LAUNCHES = tracedp.LAUNCHES = guidedp.LAUNCHES = 0
-    branchdp.LAUNCHES = 0
+    branchdp.LAUNCHES = dagforward.LAUNCHES = 0
     for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS, branchdp.DESIGNS,
               branchdp.MODES):
         for k in d:
@@ -870,13 +894,15 @@ def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
 
 
 def check_routes(what: str, counts: dict, log: list, fused: bool) -> None:
-    """K1 (or K2) launches are the chain-x fills, the host fills the fills
-    of a sampled x, and sampled walks were made."""
+    """K1 (or K2) launches are the chain-x fills, the fills of a sampled x
+    are kernel (a)'s launches and the host fills, and sampled walks were
+    made."""
     chain, dag = sum(log), len(log) - sum(log)
     fill, other = (("colforward_fused", "colforward") if fused
                    else ("colforward", "colforward_fused"))
     if (counts[fill] != chain or counts[other] != 0 or counts["fills"]["device"] != chain
-            or counts["fills"]["host"] != dag or dag < 1
+            or counts["fills"]["host"] + counts["fills"]["dag"] != dag or dag < 1
+            or counts["dagfill"] != counts["fills"]["dag"]
             or counts["sampled"]["device_walks"] < 1 or counts["pairtrace"] < 1):
         raise AssertionError(f"{what}: {chain} chain-x and {dag} sampled-x fills, counts {counts}")
 
@@ -887,8 +913,8 @@ def phase_default_recon(cli, colforward, tracedp, guidedp, work: str) -> dict:
     and no profile flags on the card, default route (K1), in float32 and in
     float64 from the float32 run's guide and tree, whose `#=GF LP` must
     agree within F32_LP_DRIFT.  Each run's K1
-    (K2) launches must equal its chain-x fills and its host fills the
-    fills whose x is a sampled profile.  The float32 run's reconstruction
+    (K2) launches must equal its chain-x fills and its kernel (a) launches
+    plus host fills the fills whose x is a sampled profile.  The float32 run's reconstruction
     and its guide stay in `work` (work/long12_f32.sto, work/long12_guide.sto)
     for phase (k).  Returns the float32 run's counts."""
     from historian_tpu_torch import recon
@@ -896,62 +922,61 @@ def phase_default_recon(cli, colforward, tracedp, guidedp, work: str) -> dict:
 
     counters = (recon, forward, colforward, tracedp, guidedp)
     runs = {}
-    with tempfile.TemporaryDirectory() as d:
-        small = [write_small6(d)]
-        os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
-        cpu = run_cli(cli, ["-platform", "cpu", *small], "f64")
-        for fused in ("0", "1"):
-            os.environ["HISTORIAN_PALLAS_FUSED"] = fused
-            zero_counts(*counters)
-            with fill_log(forward) as log:
-                gpu = run_cli(cli, ["-platform", "gpu", *small], "f64")
-            counts = recon_counts(*counters)
-            if gpu != cpu:
-                raise AssertionError(f"small6 default f64 fused={fused}: card output differs "
-                                     "from the CPU output")
-            check_routes(f"small6 fused={fused}", counts, log, fused == "1")
-            rows, lp = stockholm_rows_lp(gpu)
-            print(f"(j) small6 default recon f64 fused={fused}: card == cpu, {len(rows)} rows, "
-                  f"LP {lp}, {counts}", flush=True)
-        os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
-        # the float64 run takes the float32 run's guide and tree, so that the
-        # two differ in their merges only
-        guide = os.path.join(work, "long12_guide.sto")
-        inputs = {"f32": ["-saveguide", guide, os.path.join(REPO, "tests", "data", "long12.fa")],
-                  "f64": ["-stockholm", guide]}
-        source = {"f32": "its guide stage and tree", "f64": "the f32 run's guide and tree"}
-        for dtype in ("f32", "f64"):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts(*counters)
-            t0 = time.perf_counter()
-            with fill_log(forward) as log:
-                out = run_cli(cli, ["-platform", "gpu", *inputs[dtype]], dtype)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = recon_counts(*counters)
-            rows, lp = stockholm_rows_lp(out)
-            if len(rows) != 23 or not math.isfinite(lp) or "#=GF NH" not in out:
-                raise AssertionError(f"long12 default {dtype}: {len(rows)} rows, LP {lp}")
-            check_routes(f"long12 default {dtype}", counts, log, False)
-            print(f"(j) long12 default recon (no profile flags; {source[dtype]}) "
-                  f"{dtype}: {len(rows)} rows, LP {lp}, wall {wall:.2f} s, merges "
-                  f"{counts['merges']}, fills {counts['fills']}, launches K1 "
-                  f"{counts['colforward']} K2 {counts['colforward_fused']} walker "
-                  f"{counts['pairtrace']} guide {counts['guidealign']}, sampled walks and "
-                  f"draws {counts['sampled']}, peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-            runs[dtype] = (lp, counts)
-            if dtype == "f32":
-                with open(os.path.join(work, "long12_f32.sto"), "w") as f:
-                    f.write(out)
+    small = [write_small6(work)]
+    os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
+    cpu = run_cli(cli, ["-platform", "cpu", *small], "f64")
+    for fused in ("0", "1"):
+        os.environ["HISTORIAN_PALLAS_FUSED"] = fused
+        zero_counts(*counters)
+        with fill_log(forward) as log:
+            gpu = run_cli(cli, ["-platform", "gpu", *small], "f64")
+        counts = recon_counts(*counters)
+        if gpu != cpu:
+            raise AssertionError(f"small6 default f64 fused={fused}: card output differs "
+                                 "from the CPU output")
+        check_routes(f"small6 fused={fused}", counts, log, fused == "1")
+        rows, lp = stockholm_rows_lp(gpu)
+        print(f"(j) small6 default recon f64 fused={fused}: card == cpu, {len(rows)} rows, "
+              f"LP {lp}, {counts}", flush=True)
+    os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
+    # the float64 run takes the float32 run's guide and tree, so that the
+    # two differ in their merges only
+    guide = os.path.join(work, "long12_guide.sto")
+    inputs = {"f32": ["-saveguide", guide, os.path.join(REPO, "tests", "data", "long12.fa")],
+              "f64": ["-stockholm", guide]}
+    source = {"f32": "its guide stage and tree", "f64": "the f32 run's guide and tree"}
+    for dtype in ("f32", "f64"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(*counters)
+        t0 = time.perf_counter()
+        with fill_log(forward) as log:
+            out = run_cli(cli, ["-platform", "gpu", *inputs[dtype]], dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = recon_counts(*counters)
+        rows, lp = stockholm_rows_lp(out)
+        if len(rows) != 23 or not math.isfinite(lp) or "#=GF NH" not in out:
+            raise AssertionError(f"long12 default {dtype}: {len(rows)} rows, LP {lp}")
+        check_routes(f"long12 default {dtype}", counts, log, False)
+        print(f"(j) long12 default recon (no profile flags; {source[dtype]}) "
+              f"{dtype}: {len(rows)} rows, LP {lp}, wall {wall:.2f} s, merges "
+              f"{counts['merges']}, fills {counts['fills']}, launches K1 "
+              f"{counts['colforward']} K2 {counts['colforward_fused']} walker "
+              f"{counts['pairtrace']} guide {counts['guidealign']}, sampled walks and "
+              f"draws {counts['sampled']}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        runs[dtype] = (lp, counts)
+        if dtype == "f32":
+            with open(os.path.join(work, "long12_f32.sto"), "w") as f:
+                f.write(out)
     del os.environ["HISTORIAN_PALLAS_FUSED"]
     drift = abs(runs["f32"][0] - runs["f64"][0])
     if not drift < F32_LP_DRIFT:
         raise AssertionError(f"long12 default: f32 LP is {drift} nats off f64")
     print(f"(j) long12 default f32 LP - f64 LP: {drift:.6f} nats (limit {F32_LP_DRIFT})",
           flush=True)
-    return runs["f32"][1]
+    return dict(runs["f32"][1], small6_cpu=cpu)
 
 
 #: the card's counts and fitted model against the CPU's (phase (k)): both in
@@ -1446,15 +1471,15 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
     print(f"(l) strips resident at once: {caps}", flush=True)
     rate = d2h_bytes_per_s()
     print(f"(l) card-to-host copy into pinned memory: {rate / 1e9:.2f} GB/s", flush=True)
+    fa6 = write_small6(work)
     with tempfile.TemporaryDirectory() as d:
-        fa6 = write_small6(d)
         dots = {p: os.path.join(d, f"{p}.dot") for p in ("cpu", "gpu")}
         cases = (("recon -careful -norefine", "recon", ["-careful", "-norefine", fa6], "0"),
                  ("recon -careful -norefine fused", "recon", ["-careful", "-norefine", fa6], "1"),
                  ("recon -profminpost 0.01 -savedot -dotpost 0.02", "recon",
                   ["-profminpost", "0.01", "-savedot", "{dot}", "-dotpost", "0.02", fa6], "0"),
                  ("count (unaligned)", "count", [fa6], "0"))
-        k2 = 0
+        k2, cpu_outs = 0, {}
         for what, command, args, fused in cases:
             os.environ["HISTORIAN_PALLAS_FUSED"] = fused
             outs = {}
@@ -1470,6 +1495,7 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
             reads = merge_reads(readback.READBACKS[n_read:])
             if outs["gpu"] != outs["cpu"]:
                 raise AssertionError(f"small6 {what} f64: card output differs from the CPU's")
+            cpu_outs.setdefault(what, outs["cpu"])
             fill = "colforward_fused" if fused == "1" else "colforward"
             if counts["merges"]["fullband"] < 1 or counts[fill] < counts["merges"]["fullband"]:
                 raise AssertionError(f"small6 {what}: no full-band merge on the card, {counts}")
@@ -1573,7 +1599,8 @@ def phase_careful(cli, colforward, tracedp, guidedp, work: str) -> dict:
         **{dtype: dict(run["readback"], wall_s=run["wall"], guide_ms=run["guide_ms"],
                        k1_ms=run["k1_ms"]) for dtype, run in runs.items()})}), flush=True)
     return dict(f32=runs["f32"]["counts"], fused_k2=k2, branch_args=branch_inputs,
-                matrix_args=matrix_inputs, long6_recon=runs["f32"]["out"])
+                matrix_args=matrix_inputs, long6_recon=runs["f32"]["out"],
+                small6_careful_cpu=cpu_outs["recon -careful -norefine"])
 
 
 def merge_reads(reads: list) -> list:
@@ -1725,7 +1752,7 @@ def branch_err(what: str, got, ref) -> float:
 
 #: state-cells of the branches on which branch_routes times both routes,
 #: around branchmatrix.DEVICE_MIN_CELLS (2e6)
-ROUTE_SWEEP = (500_000, 1_000_000, 2_000_000, 4_000_000, 8_000_000, 32_000_000)
+ROUTE_SWEEP = (500_000, 1_000_000, 2_000_000, 4_000_000, 8_000_000)
 
 
 def branch_routes(matrix_args) -> list:
@@ -2312,13 +2339,12 @@ def direct_proposals(sampler, fills: list) -> list:
 
 
 #: the cuts n x n of the long6 node-align proposal's SiblingMatrix at which
-#: sibling_routes times both routes (None: whole): under its guide envelope
-#: (in-mask state-cells 1.0e5 at 213 to 2.5e6 at 5000, 3.0e6 whole), and
-#: with a full mask (0.5e6 to 3.2e7 state-cells; fill.cpp's OpenMP
-#: wavefront starts between 240 and 270)
-SIBLING_ROUTE_CUTS = {"banded": (213, 301, 426, 603, 852, 1205, 1705, 2100, 2500, 3000, 3500,
-                                 4000, 5000, None),
-                      "full": (213, 240, 270, 301, 426, 603, 852, 1205, 1705)}
+#: sibling_routes times both routes: those that bracket the rule's
+#: crossings (PERF.md has the whole sweep) under its guide envelope (in-mask
+#: state-cells 1.0e6 at 2100 to 1.5e6 at 3000), and with a full mask (0.6e6
+#: to 1.0e6 state-cells; fill.cpp's OpenMP wavefront starts between 240 and
+#: 270)
+SIBLING_ROUTE_CUTS = {"banded": (2100, 2500, 3000), "full": (240, 270, 301)}
 
 
 def sibling_routes(matrix_args) -> list:
@@ -2339,8 +2365,7 @@ def sibling_routes(matrix_args) -> list:
     out = []
     for kind, cuts in SIBLING_ROUTE_CUTS.items():
         for n in cuts:
-            nx, ny = (len(l_pwm), len(r_pwm)) if n is None else (min(n, len(l_pwm)),
-                                                                  min(n, len(r_pwm)))
+            nx, ny = min(n, len(l_pwm)), min(n, len(r_pwm))
             args = (model, l_pwm[:nx], r_pwm[:ny], l_dist, r_dist,
                     env if kind == "banded" else GuideAlignmentEnvelope(), l_pos[:nx + 1],
                     r_pos[:ny + 1], *rows)
@@ -2481,6 +2506,302 @@ def phase_mcmc(cli, long6_recon: str) -> dict:
                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
+#: kernel (a)'s cells against fill.cpp's (absolute, as the sibling fill's)
+DAG_TOL = 1e-9
+#: kernel (a) against its plain version on the card, relative: both keep
+#: fill.cpp's per-cell order with the card's exp and log1p, so they agree to
+#: round-off; a float32 or a wrong kernel does not
+DAG_PLAIN_RTOL = 1e-12
+#: kernel (a)'s operations a cell with kx x and ky y in-edges: each
+#: x-edge 44 (IMD's and IIW's sums and their log-sum-exps, a log-sum-exp 5),
+#: each y-edge 38, each (x, y) pair 32
+DAG_OPS = (44, 38, 32)
+#: the route sweep beyond small6's first sampled-x merge: long6's first
+#: four sequences cut to these lengths, the root merge ((t1, t2), (t3, t4))
+#: of two sampled profiles (below 500 aa its x is a chain: the sampled
+#: traces agree)
+DAG_SWEEP = (500, 1000, 2000, 4000)
+
+
+@contextlib.contextmanager
+def dag_threshold(value):
+    """engine/forward.py DAG_DEVICE_MIN_CELLS["cuda"] set to `value` (0: every
+    merge of a sampled x on kernel (a); None: every one on fill.cpp)."""
+    from historian_tpu_torch.engine import forward
+
+    old = forward.DAG_DEVICE_MIN_CELLS["cuda"]
+    forward.DAG_DEVICE_MIN_CELLS["cuda"] = value
+    try:
+        yield
+    finally:
+        forward.DAG_DEVICE_MIN_CELLS["cuda"] = old
+
+
+@contextlib.contextmanager
+def dag_merges():
+    """The ForwardMatrix arguments (x, y, hmm, row, env) of every merge of a
+    non-chain x that the block fills on kernel (a), in order."""
+    from historian_tpu_torch.engine import forward
+
+    fill, box = forward.ForwardMatrix._fill_dag, []
+
+    def keep(self):
+        filled = fill(self)
+        if filled:
+            box.append((self.x, self.y, self.hmm, self.parent_row, self.env))
+        return filled
+
+    forward.ForwardMatrix._fill_dag = keep
+    try:
+        yield box
+    finally:
+        forward.ForwardMatrix._fill_dag = fill
+
+
+def host_merge(args):
+    """The merge filled by csrc/fill.cpp, and fill.cpp's ms (the native call
+    alone)."""
+    from historian_tpu_torch import native
+    from historian_tpu_torch.engine import forward
+
+    class HostFill(forward.ForwardMatrix):
+        def _fill_device(self):
+            return False
+
+    with host_timed(native.get_native(), "forward_fill") as calls:
+        fwd = HostFill(*args)
+    return fwd, calls[0][0] * 1e3
+
+
+def dag_chain_ns(trans: np.ndarray) -> float:
+    """The dependency floor's step: one emitting cell of kernel (a) waiting
+    on the one before (csrc/dagfill.cu `dagfill_chain`, one thread), in ns,
+    from CUDA events around 20000 steps, median of 3."""
+    from historian_tpu_torch.ops import _kernels
+
+    t = torch.as_tensor(trans, dtype=torch.float64, device="cuda")
+    out = torch.empty(5, dtype=torch.float64, device="cuda")
+    steps = 20_000
+
+    def run():
+        _kernels.check(_kernels.lib().dagfill_chain_f64(
+            t.data_ptr(), steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "dagfill_chain")
+
+    return cuda_ms_median(run, 3) * 1e6 / steps
+
+
+def dag_err(what: str, got: np.ndarray, ref: np.ndarray, rtol: float = 0.0) -> float:
+    """The same -inf cells, the rest within DAG_TOL (or rtol relative);
+    returns the largest absolute difference."""
+    if not np.array_equal(got == -np.inf, ref == -np.inf):
+        raise AssertionError(f"{what}: the -inf cells differ")
+    live = np.isfinite(ref)
+    diff = np.abs(got[live] - ref[live])
+    limit = rtol * np.maximum(1.0, np.abs(ref[live])) if rtol else DAG_TOL
+    if not np.all(diff <= limit):
+        raise AssertionError(f"{what}: largest difference {diff.max():.3e}")
+    return float(diff.max(initial=0.0))
+
+
+def dag_kernel_check(name: str, args) -> dict:
+    """Kernel (a) at one merge: the plan (in-envelope cells, band cells,
+    wavefronts) and its upload, the band against fill.cpp (DAG_TOL) and the
+    plain version (DAG_PLAIN_RTOL), the kernel's ms (CUDA events, median of
+    5 after a warm launch), the plain version's and fill.cpp's ms, the band
+    read back (bytes, ms), the bound and the dependency floor."""
+    from historian_tpu_torch.ops import dagforward, readback
+
+    host, fill_cpp_ms = host_merge(args)
+    nx, ny = host.x_size - 1, host.y_size - 1
+    t0 = time.perf_counter()
+    p = dagforward.plan(host)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    inp = dagforward.upload_band(p, torch.device("cuda"))
+    up = dagforward.UPLOADS[-1]
+    out = np.full((host.x_size, host.y_size, 5), -np.inf)
+    n_read = len(readback.READBACKS)
+    dagforward.read_band(dagforward.dag_fill_band(inp), p.layout, out)
+    launch = dict(dagforward.LAST_LAUNCH)
+    back = readback.READBACKS[n_read]
+    idx = p.layout.flat_index()
+    got = out[:nx, :ny].reshape(-1, 5)[idx]
+    ref = host.cells[:nx, :ny].reshape(-1, 5)[idx]
+    del out
+    err = dag_err(f"{name} kernel (a) vs fill.cpp", got, ref)
+    live = np.isfinite(ref)
+    bit_equal = float(np.mean(got[live] == ref[live]))
+    plain, plain_ms = host_ms(lambda: dagforward.dag_fill_band_plain(inp))
+    plain = plain.cpu().numpy()
+    plain_err = dag_err(f"{name} kernel (a) vs plain", got, plain, DAG_PLAIN_RTOL)
+    plain_host_err = dag_err(f"{name} plain vs fill.cpp", plain, ref)
+    del got, ref, plain
+    ms = cuda_ms_median(lambda: dagforward.dag_fill_band(inp))
+    N, W = len(p.cells), len(p.wave) - 1
+    kx = np.diff(p.x_csr[0])[p.cells[:, 0]]
+    ky = np.diff(p.y_csr[0])[p.cells[:, 1]]
+    ops = float(np.sum(DAG_OPS[0] * kx + DAG_OPS[1] * ky + DAG_OPS[2] * kx * ky))
+    n_bytes = (p.layout.n * 40 + N * (8 + 8) + (nx + ny) * (8 * 3 + 4 + 1)
+               + 12 * (len(p.x_csr[1]) + len(p.y_csr[1])) + 4 * (3 * nx + 2 * ny) + 4 * W)
+    bnd = bound(n_bytes, ops, torch.float64)
+    step_ns = dag_chain_ns(p.trans)
+    floor_ms = W * step_ns / 1e6
+    print(f"(o) kernel (a) {name} {nx} x {ny} ({N} in-envelope cells, {p.layout.n} band cells, "
+          f"{W} wavefronts, widest {p.widest}, {launch['blocks']} block(s) of "
+          f"{launch['threads']}): {ms:.3f} ms ({ms * 1e3 / W:.3f} us a wavefront), plain "
+          f"{plain_ms:.1f} ms, fill.cpp {fill_cpp_ms:.1f} ms; max abs err {err:.3e} against "
+          f"fill.cpp (cells bit-equal: {bit_equal:.4f}), {plain_err:.3e} against plain, plain "
+          f"against fill.cpp {plain_host_err:.3e}; plan {plan_ms:.1f} ms on the host, upload "
+          f"{up['bytes']} bytes in {up['ms']:.3f} ms (packing {up['pack_ms']:.1f} ms), readback "
+          f"{back['bytes']} bytes in {back['ms']:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), dependency floor {floor_ms:.3f} ms ({W} x {step_ns:.1f} ns)",
+          flush=True)
+    return dict(ms=ms, us_per_wavefront=ms * 1e3 / W, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
+                err=max(err, plain_err), fill_cpp_err=err, plain_err=plain_err,
+                plain_fill_cpp_err=plain_host_err, bit_equal_share=bit_equal, shape=[nx, ny],
+                in_envelope=N, band_cells=p.layout.n, wavefronts=W, widest=p.widest,
+                blocks=launch["blocks"], plan_ms=plan_ms, upload_bytes=up["bytes"],
+                upload_ms=up["ms"], readback_bytes=back["bytes"], readback_ms=back["ms"],
+                dependency_floor_ms=floor_ms, step_ns=step_ns, **bnd)
+
+
+def dag_routes(work: str, small6_merge) -> list:
+    """Both routes of merges of a sampled x: small6's first (its ForwardMatrix
+    arguments), then at DAG_SWEEP's sizes the root merge of `recon -tree`
+    over long6's t1-t4 cut to n, f32 (that merge in float64 on either
+    route): its ForwardMatrix built on fill.cpp and on kernel (a) in turns,
+    3 each, median ms, with its in-envelope state-cells (what the route rule
+    counts)."""
+    from historian_tpu_torch import cli
+    from historian_tpu_torch.engine import forward
+
+    seqs = read_fasta(os.path.join(REPO, "tests", "data", "long6.fa"))[:4]
+    tree = os.path.join(work, "four.nh")
+    with open(tree, "w") as f:
+        f.write("((t1:0.1,t2:0.1):0.08,(t3:0.1,t4:0.1):0.08)root;\n")
+    rows = []
+    for n in ("small6", *DAG_SWEEP):
+        merges = [small6_merge]
+        if n != "small6":
+            fa = os.path.join(work, f"four_{n}.fa")
+            with open(fa, "w") as f:
+                for name, s in seqs:
+                    f.write(f">{name}\n{s[:n]}\n")
+            with dag_threshold(0), dag_merges() as merges:
+                run_cli(cli, ["-platform", "gpu", "-tree", tree, fa], "f32")
+            if not merges:
+                raise AssertionError(f"(o) route sweep {n}: no merge of a non-chain x")
+        args = merges[0]
+        ms = {"host": [], "card": []}
+        for _ in range(3):
+            for route, value in (("host", None), ("card", 0)):
+                with dag_threshold(value):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fwd = forward.ForwardMatrix(*args, defer_cells=True)
+                    torch.cuda.synchronize()
+                    ms[route].append((time.perf_counter() - t0) * 1e3)
+                if fwd.route != ("dag" if value == 0 else "host"):
+                    raise AssertionError(f"dag route sweep {n}: route {fwd.route}")
+                nx, ny = fwd.x_size - 1, fwd.y_size - 1
+                cells = int(np.count_nonzero(fwd.env_mask[:nx, :ny])) * 5
+                del fwd
+        row = dict(n=n, shape=[nx, ny], state_cells=cells,
+                   host_ms=float(np.median(ms["host"])), card_ms=float(np.median(ms["card"])))
+        rows.append(row)
+        what = "small6's first" if n == "small6" else f"long6's t1-t4 cut to {n} aa, root"
+        print(f"(o) route sweep: {what} merge {nx} x {ny}, "
+              f"{cells} in-envelope state-cells: fill.cpp {row['host_ms']:.2f} ms, kernel (a) "
+              f"{row['card_ms']:.2f} ms (whole ForwardMatrix, medians of 3)", flush=True)
+    return rows
+
+
+def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str) -> dict:
+    """(o) Kernel (a), the DAG x DAG merge fill: small6 default and small6
+    `-careful -norefine` in float64 with every merge of a sampled or
+    posterior x forced onto the kernel (DAG_DEVICE_MIN_CELLS["cuda"] = 0),
+    each byte-identical to the CPU's run ((j)'s and (l)'s, on the same
+    file in `work`, whose path the output names), kernel (a)'s launches
+    equal to the fills of a non-chain x.  Then the main path's run: long12
+    default in float32 from (j)'s guide and tree (in `work`) on the
+    automatic route, its counts from 0: wall, merges and fills by route,
+    kernel (a)'s launches (equal to FILLS["dag"], at least one) and ms;
+    then the same with every merge on fill.cpp, its wall and whether its
+    output equals the automatic run's (reported: a sampled pick may turn at
+    round-off).  Kernel (a) at that run's first sampled-x merge
+    (`dag_kernel_check`), and the route sweep (`dag_routes`)."""
+    from historian_tpu_torch import recon
+    from historian_tpu_torch.engine import forward
+    from historian_tpu_torch.ops import colforward, dagforward, guidedp, tracedp
+
+    counters = (recon, forward, colforward, tracedp, guidedp)
+    fa6 = write_small6(work)
+    os.environ["HISTORIAN_PALLAS_FUSED"] = "0"
+    small, small_merge = {}, None
+    for what, flags, cpu in (("default", [], small6_cpu),
+                             ("-careful -norefine", ["-careful", "-norefine"], careful_cpu)):
+        zero_counts(*counters)
+        with dag_threshold(0), fill_log(forward) as log, dag_merges() as merges:
+            gpu = run_cli(cli, ["-platform", "gpu", *flags, fa6], "f64")
+        small_merge = small_merge or merges[0]
+        counts = recon_counts(*counters)
+        dag = len(log) - sum(log)
+        if gpu != cpu:
+            raise AssertionError(f"(o) small6 {what} f64, every sampled-x merge on kernel (a): "
+                                 "card output differs from the CPU's")
+        if not (dag >= 1 and counts["dagfill"] == dag == counts["fills"]["dag"]):
+            raise AssertionError(f"(o) small6 {what}: {dag} fills of a non-chain x, {counts}")
+        small[what] = dict(merges=counts["merges"], fills=counts["fills"],
+                           dagfill=counts["dagfill"])
+        print(f"(o) small6 {what} f64, every merge of a non-chain x on kernel (a): card == cpu, "
+              f"kernel (a) {counts['dagfill']} launches, merges {counts['merges']}, fills "
+              f"{counts['fills']}", flush=True)
+    guide = os.path.join(work, "long12_guide.sto")
+    runs = {}
+    for route, value in (("auto", forward.DAG_DEVICE_MIN_CELLS["cuda"]), ("host", None)):
+        zero_counts(*counters)
+        n_up = len(dagforward.UPLOADS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dag_threshold(value), dag_merges() as merges, \
+                cuda_timed(dagforward, "dag_fill_band") as dag_ev:
+            out = run_cli(cli, ["-platform", "gpu", "-stockholm", guide], "f32")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = recon_counts(*counters)
+        rows, lp = stockholm_rows_lp(out)
+        if len(rows) != 23 or not math.isfinite(lp):
+            raise AssertionError(f"(o) long12 default {route}: {len(rows)} rows, LP {lp}")
+        kernel_ms = [a.elapsed_time(b) for a, b in dag_ev]
+        ups = dagforward.UPLOADS[n_up:]
+        runs[route] = dict(wall_s=wall, lp=lp, out=out, merges=counts["merges"],
+                           fills=counts["fills"], dagfill=counts["dagfill"], dagfill_ms=kernel_ms,
+                           upload_bytes=sum(u["bytes"] for u in ups),
+                           upload_ms=sum(u["ms"] for u in ups), first=merges[:1])
+        print(f"(o) long12 default f32 from (j)'s guide, {route} route for the merges of a "
+              f"sampled x: wall {wall:.2f} s, LP {lp}, merges {counts['merges']}, fills "
+              f"{counts['fills']}, kernel (a) {counts['dagfill']} launches "
+              f"{[round(t, 3) for t in kernel_ms]} ms, uploads {len(ups)} "
+              f"({runs[route]['upload_bytes']} bytes)", flush=True)
+    auto = runs["auto"]
+    if not (auto["fills"]["dag"] >= 1 and auto["dagfill"] == auto["fills"]["dag"]
+            and runs["host"]["dagfill"] == 0):
+        raise AssertionError(f"(o) long12 default routes: {runs}")
+    same = auto["out"] == runs["host"]["out"]
+    print(f"(o) long12 default f32: automatic route == fill.cpp route: {same} (LP "
+          f"{auto['lp']} vs {runs['host']['lp']}); walls {auto['wall_s']:.2f} s vs "
+          f"{runs['host']['wall_s']:.2f} s", flush=True)
+    check = dag_kernel_check("long12 first sampled-x merge", auto["first"][0])
+    routes = dag_routes(work, small_merge)
+    del os.environ["HISTORIAN_PALLAS_FUSED"]
+    long12 = {route: {k: v for k, v in run.items() if k not in ("out", "first")}
+              for route, run in runs.items()}
+    print(json.dumps({"dagfill": dict(small6=small, long12=long12, same_output=same,
+                                      kernel=check, routes=routes)}), flush=True)
+    return dict(launches=auto["dagfill"], err=check["err"],
+                **{k: check[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2523,9 +2844,13 @@ def main(argv=None) -> int:
         launches_j = phase_default_recon(cli, colforward, tracedp, guidedp, work)
         routes_k = phase_counts(cli, work)
         launches_l = phase_careful(cli, colforward, tracedp, guidedp, work)
-    branch = phase_branch(cli, colforward, tracedp, guidedp, launches_l.pop("branch_args"),
-                          launches_l.pop("matrix_args"), opts.parent)
-    mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"))
+        branch = phase_branch(cli, colforward, tracedp, guidedp,
+                              launches_l.pop("branch_args"), launches_l.pop("matrix_args"),
+                              opts.parent)
+        mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"))
+        # (j) and (l) ran small6 from work, and (o) compares with their outputs
+        dag = phase_dag(cli, work, launches_j.pop("small6_cpu"),
+                        launches_l.pop("small6_careful_cpu"))
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -2568,6 +2893,11 @@ def main(argv=None) -> int:
         replaces="historian_tpu/ops/siblingdp.py:70", launches=mcmc["launches"],
         max_abs_err=mcmc["err"], ms=mcmc["ms"], plain_ms=mcmc["plain_ms"],
         bound_ms=mcmc["bound_ms"], bound_by=mcmc["bound_by"], library_ms=None))
+    kernels.append(dict(
+        name="dagfill", route="cuda", source="historian_tpu_torch/csrc/dagfill.cu",
+        replaces="historian_tpu/ops/dagforward.py:55", launches=dag["launches"],
+        max_abs_err=dag["err"], ms=dag["ms"], plain_ms=dag["plain_ms"],
+        bound_ms=dag["bound_ms"], bound_by=dag["bound_by"], library_ms=None))
     for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
         kernels.append(dict(
             name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",

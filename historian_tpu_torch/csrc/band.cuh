@@ -1,5 +1,6 @@
 // The band of a grid's fill, as ops/branchdp.py `band_layout` packs it,
-// shared by kernel (e) (branchfill.cu) and kernel (d) (siblingfill.cu):
+// shared by kernel (e) (branchfill.cu), kernel (d) (siblingfill.cu) and
+// kernel (a) (dagfill.cu):
 // rows 0 and X whole, and on each row 0 < x < X its column 0, its hull of
 // columns and its column Y, packed row after row.  `rowpos[x]` + y is the
 // packed position of a hull cell (of any cell of rows 0 and X), `off[x]`
@@ -64,6 +65,28 @@ __device__ __forceinline__ int pos_of(int kind, int x, int y, const int* rowpos,
     case kColY: return off[x + 1] - 1;
     default: return rowpos[x] + y;
   }
+}
+
+constexpr long long kSpinLimit = 1ll << 26;  // a grid barrier's polls before __trap()
+
+// Every block's threads past step k of a fill (a diagonal, a wavefront):
+// __syncthreads for one block, else a grid barrier on a counter that each
+// block adds one to a step (all blocks resident: a cooperative launch).
+__device__ __forceinline__ void step_sync(unsigned* arrivals, int k) {
+  __syncthreads();
+  if (gridDim.x == 1) return;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrivals, 1u);
+    const unsigned target = static_cast<unsigned>(k + 1) * gridDim.x;
+    long long spins = 0;
+    while (atomicAdd(arrivals, 0u) < target) {
+      if (++spins > kSpinLimit) __trap();
+      __nanosleep(20);
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 }  // namespace band

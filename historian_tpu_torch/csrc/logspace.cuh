@@ -1,6 +1,7 @@
 // Log-space helpers of the Forward kernels: the column fills K1 and K2
-// (colforward_step.cuh) use all of them, the pair-Forward kernels K3 and
-// K4 (pairforward.cu) NEG and cmax.
+// (colforward_step.cuh) use all of them but lse2, the pair-Forward kernels
+// K3 and K4 (pairforward.cu) NEG and cmax, the sibling fill (d)
+// (siblingfill.cu) and the DAG fill (a) (dagfill.cu) lse2.
 //
 // NEG = -1e30 is the finite semiring zero.  lse never forms
 // (-inf) - (-inf).  The block scan solves the affine recurrence
@@ -37,6 +38,20 @@ __device__ __forceinline__ T lse(T a, T b) {
 
 template <typename T>
 __device__ __forceinline__ T cmax(T a, T b) { return a > b ? a : b; }
+
+constexpr double kLog2 = 0.693147180559945309417232121458176568;  // fill.cpp LOG2
+
+// csrc/fill.cpp lse2 (the host fills' log-sum-exp of two, numpy's
+// logaddexp formulation) with every sum rounded as the host rounds it
+// (__dadd_rn, never contracted), so a kernel that keeps fill.cpp's order
+// differs from it only where the card's exp and log1p round otherwise.
+__device__ __forceinline__ double lse2(double x, double y) {
+  if (x == y) return __dadd_rn(x, kLog2);  // also both -inf
+  const double d = __dsub_rn(x, y);
+  if (d > 0) return __dadd_rn(x, log1p(exp(-d)));
+  if (d <= 0) return __dadd_rn(y, log1p(exp(d)));
+  return __dadd_rn(x, y);  // nan propagation
+}
 
 // Value of `v` at lane l-1.  Lane 0 of the tile takes the previous tile's
 // last lane, lane 0 of tile 0 takes `neg`.  buf holds each warp's last

@@ -43,24 +43,15 @@
 #include <cuda_runtime.h>
 
 #include "band.cuh"
+#include "logspace.cuh"
 
 namespace {
 
 using namespace band;
+using logspace::lse2;
 
 constexpr int kStates = 11;
 enum { IMM, IMD, IDM, IDD, WWW, WWX, WXW, IMI, IIW, IDI, IIX, EEE };
-constexpr double kLog2 = 0.693147180559945309417232121458176568;  // fill.cpp LOG2
-constexpr long long kSpinLimit = 1ll << 26;  // a grid barrier's polls before __trap()
-
-// fill.cpp lse2.
-__device__ __forceinline__ double lse2(double x, double y) {
-  if (x == y) return __dadd_rn(x, kLog2);  // also both -inf
-  const double d = __dsub_rn(x, y);
-  if (d > 0) return __dadd_rn(x, log1p(exp(-d)));
-  if (d <= 0) return __dadd_rn(y, log1p(exp(d)));
-  return __dadd_rn(x, y);  // nan propagation
-}
 
 // fill.cpp sib::lse_list: max shift, then CPython's Neumaier sum.
 template <int N>
@@ -157,25 +148,6 @@ __device__ __forceinline__ const double* neighbour(int kind, int x, int y, const
   return buf;
 }
 
-// Every block's threads past diagonal k: __syncthreads for one block, else
-// the grid barrier on a counter that each block adds one to a diagonal.
-__device__ __forceinline__ void diagonal_sync(unsigned* arrivals, int k) {
-  __syncthreads();
-  if (gridDim.x == 1) return;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(arrivals, 1u);
-    const unsigned target = static_cast<unsigned>(k + 1) * gridDim.x;
-    long long spins = 0;
-    while (atomicAdd(arrivals, 0u) < target) {
-      if (++spins > kSpinLimit) __trap();
-      __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(256) siblingfill_kernel(
     const double* __restrict__ emit, const uint8_t* __restrict__ mask,
     const double* __restrict__ l_emit, const double* __restrict__ r_emit,
@@ -219,7 +191,7 @@ __global__ void __launch_bounds__(256) siblingfill_kernel(
 #pragma unroll
       for (int s = 0; s < kStates; ++s) dest[s] = out[s];
     }
-    diagonal_sync(arrivals, k);
+    step_sync(arrivals, k);
   }
   if (first == 0) {
     const double* end = cells + static_cast<int64_t>(offX + Y) * kStates;

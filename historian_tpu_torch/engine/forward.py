@@ -26,11 +26,14 @@ A merge fills in one of three ways, tried in order:
   counts) gets its in-envelope cells back in one copy and then runs on
   the host like a host fill (the full-band route, in float64: see
   `device.FULLBAND_DTYPE`);
-- `_fill_native`: the native host fill (csrc/fill.cpp), for merges whose
-  x is not a chain (a sampled or posterior profile: the JAX package
-  keeps DAG x DAG merges on the host by default) or with an empty
-  profile; their traces are walked on the host (`sample_trace`,
-  `best_trace`);
+  A merge whose x is not a chain (a sampled or posterior profile) fills
+  there on kernel (a) (ops/dagforward.py) where the route rule picks the
+  card (`DAG_DEVICE_MIN_CELLS`): its band comes back to the host grid in
+  one copy, in float64, and the merge goes on as a host fill;
+- `_fill_native`: the native host fill (csrc/fill.cpp), for the other
+  merges whose x is not a chain (as the JAX package keeps DAG x DAG
+  merges on the host by default) and those with an empty profile; their
+  traces are walked on the host (`sample_trace`, `best_trace`);
 - the python fill below, when the native runtime is off.
 
 `FILLS` counts the fills on each route.  Every route's sampled traces
@@ -74,7 +77,7 @@ from historian_tpu_torch.native import (
     csr_out_edges,
     get_native,
 )
-from historian_tpu_torch.ops import devicedp
+from historian_tpu_torch.ops import dagforward, devicedp
 from historian_tpu_torch.utils.logging import ProgressLogger, log_this_at
 from historian_tpu_torch.utils.rng import MT19937
 
@@ -83,10 +86,18 @@ NEG_INF = -np.inf
 #: fills of ForwardMatrix by route (`ForwardMatrix.route`), band-doubling
 #: retries included: "device" (K1 or K2 with the planes kept resident, and
 #: the walker), "fullband" (K1 or K2, the band read back to the host),
-#: "host" (csrc/fill.cpp, or the python fill) or "oversized" (a chain-x
-#: merge too large for the card, filled on the host as a "host" fill); the
-#: last three walk on the host
-FILLS = {"device": 0, "fullband": 0, "host": 0, "oversized": 0}
+#: "dag" (a non-chain x on kernel (a), the band read back), "host"
+#: (csrc/fill.cpp, or the python fill) or "oversized" (a merge too large
+#: for the card, filled on the host as a "host" fill); all but the first
+#: walk on the host
+FILLS = {"device": 0, "fullband": 0, "dag": 0, "host": 0, "oversized": 0}
+#: on each device type, a merge whose x is not a chain fills on kernel (a)
+#: where it has more in-envelope state-cells (5 a cell) than this; None:
+#: never (on the CPU, every such merge stays on csrc/fill.cpp).  On an H100
+#: one call's sweep of both routes (PERF.md section 6) found the card
+#: faster at every size it timed, the smallest 83,165 state-cells (a small6
+#: merge); smaller merges, untimed, stay on the host
+DAG_DEVICE_MIN_CELLS = {"cuda": 80_000, "cpu": None}
 #: sampled traces walked on each route, and the mt19937 uniforms that
 #: sample_profile consumed for them
 SAMPLED = {"device_walks": 0, "host_walks": 0, "draws": 0}
@@ -506,13 +517,16 @@ class ForwardMatrix(DPMatrix):
         band comes back to the host grid in one copy and the merge goes on
         as a host fill (the JAX package's `col_forward_cells` and
         `chain_forward_cells`).  False for an empty profile, which has no
-        grid, and for an x that is not a chain, as the JAX package routes
-        DAG x DAG merges by default: the merge then fills on the host and
-        walks there.  False too for a merge that does not fit the card
-        (`devicedp.merge_fits`), which then fills on the host as the JAX
-        package's does past its device budget (route "oversized")."""
-        if self.x_empty or self.y_empty or self.x.as_chain() is None:
+        grid.  An x that is not a chain fills on kernel (a) where the route
+        rule picks the device (`_fill_dag`), else on the host, as the JAX
+        package routes DAG x DAG merges by default.  False too for a merge
+        that does not fit the card (`devicedp.merge_fits`), which then
+        fills on the host as the JAX package's does past its device budget
+        (route "oversized")."""
+        if self.x_empty or self.y_empty:
             return False
+        if self.x.as_chain() is None:
+            return self._fill_dag()
         dev = devmod.current()
         resident = self._defer_cells and self.sumprod is None
         dtype = devmod.fill_dtype(dev) if resident else devmod.FULLBAND_DTYPE
@@ -532,6 +546,29 @@ class ForwardMatrix(DPMatrix):
         self.route = "fullband"
         self.cells = self._empty_cells()
         devicedp.col_forward_cells(self, dev, dtype, self.cells)
+        self._finish_fill()
+        return True
+
+    def _fill_dag(self) -> bool:
+        """A merge whose x is not a chain, on kernel (a) where it has more
+        in-envelope state-cells than `DAG_DEVICE_MIN_CELLS` gives for the
+        device: the band comes back into the host grid (float64), and the
+        end gather, the walks and the rest run on the host.  False where
+        the rule keeps it on the host or it does not fit the card."""
+        dev = devmod.current()
+        floor = DAG_DEVICE_MIN_CELLS.get(dev.type)
+        nx, ny = self.x_size - 1, self.y_size - 1
+        cells = nx * ny if self.env_vectors is None else int(
+            np.count_nonzero(self.env_mask[:nx, :ny]))
+        if floor is None or cells * 5 <= floor:
+            return False
+        if not devicedp.merge_fits(self, dev, devmod.FULLBAND_DTYPE):
+            log_this_at(1, f"merge of {nx} x {ny} cells does not fit {dev}: filled on the host")
+            self.route = "oversized"
+            return False
+        self.route = "dag"
+        self.cells = self._empty_cells()
+        dagforward.dag_forward_cells(self, dev, self.cells)
         self._finish_fill()
         return True
 

@@ -68,10 +68,19 @@ _SIGNATURES = {
     "siblingfill_capacity": [_I],
     # t144, steps, out, stream: the dependency floor's step
     "siblingfill_chain": [_P, _I, _P, _P],
+    # plan, wave, absorb, x_ptr, x_src, x_lp, y_ptr, y_src, y_lp, x_flags,
+    # y_flags, insx, rootsubx, insy, rootsuby, trans18, rowpos, off, diag,
+    # cells, arrivals, n, W, sx, sy, blocks, threads, stream
+    "dagfill": [_P] * 21 + [_I] * 6 + [_P],
+    # threads -> blocks that can be resident at once
+    "dagfill_capacity": [_I],
+    # trans18, steps, out, stream: the dependency floor's step
+    "dagfill_chain": [_P, _I, _P, _P],
 }
 #: the dtypes each kernel is built for, where not both
 _DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingfill",
-                                       "siblingfill_capacity", "siblingfill_chain")}
+                                       "siblingfill_capacity", "siblingfill_chain", "dagfill",
+                                       "dagfill_capacity", "dagfill_chain")}
 
 _LIB: ctypes.CDLL | None = None
 

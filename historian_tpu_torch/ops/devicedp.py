@@ -180,10 +180,15 @@ def _fits_budget(device: torch.device, SY: int, SX: int, dtype: torch.dtype,
     """Whether the merge can stay resident: the planes plus, on the K1
     route, the fill's transients (emission, mask, gate) must fit the free
     memory, the blocks PyTorch's allocator holds unused included."""
+    item = torch.finfo(dtype).bits // 8
+    return _fits_bytes(device, SY * SX * (5 * item if fused else 8 * item + 1))
+
+
+def _fits_bytes(device: torch.device, need: int) -> bool:
+    """Whether `need` bytes fit the free memory of `device`, the blocks
+    PyTorch's allocator holds unused included (always on the CPU)."""
     if device.type != "cuda":
         return True
-    item = torch.finfo(dtype).bits // 8
-    need = SY * SX * (5 * item if fused else 8 * item + 1)
     free, _ = torch.cuda.mem_get_info(device)
     cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
     return need <= free + cached
@@ -201,11 +206,18 @@ def _strips_fit(dp, device: torch.device, dtype: torch.dtype, fused: bool) -> bo
 
 
 def merge_fits(dp, device: torch.device, dtype: torch.dtype) -> bool:
-    """Whether a chain-x merge fills on `device`: its memory budget and its
-    strips.  Where it does not, the JAX package's `col_forward_device`
-    returns None and the merge fills on the host (historian_tpu/ops/
-    devicedp.py col_forward_device); so does the port's (engine/forward.py
-    `_fill_device`)."""
+    """Whether a merge fills on `device`: a chain-x merge's memory budget
+    and its strips, the band of one whose x is not a chain (kernel (a),
+    ops/dagforward.py).  Where it does not, the JAX package's
+    `col_forward_device` returns None and the merge fills on the host
+    (historian_tpu/ops/devicedp.py col_forward_device); so does the
+    port's (engine/forward.py `_fill_device`)."""
+    if dp.x.as_chain() is None:
+        from historian_tpu_torch.ops.dagforward import device_bytes
+
+        nx, ny = dp.x_size - 1, dp.y_size - 1
+        return _fits_bytes(device, device_bytes(
+            int(np.count_nonzero(dp.env_mask[:nx, :ny])), nx, ny))
     fused = fused_enabled()
     return (_fits_budget(device, dp.y_size - 1, dp.x_size - 1, dtype, fused)
             and _strips_fit(dp, device, dtype, fused))

@@ -1,8 +1,9 @@
 """One copy of a grid's band from the device to the host, timed and logged.
 
-Both full-readback routes use it: a full-band merge's in-envelope cells
-(ops/devicedp.py `read_band`) and a branch fill's in-mask cells
-(ops/branchdp.py `read_band`).  The rows at the given indices are
+Every full-readback route uses it: a full-band merge's in-envelope cells
+(ops/devicedp.py `read_band`), a branch fill's and a sibling fill's band
+(ops/branchdp.py and ops/siblingdp.py `read_band`) and a DAG x DAG
+merge's band (ops/dagforward.py `read_band`).  The rows at the given indices are
 gathered where the grid lies and copied once, into pinned memory on the
 card, so the copy runs at the pinned rate.
 """
@@ -13,8 +14,8 @@ import time
 
 import torch
 
-#: one entry a readback: its kind ("merge" or "branch"), the cells read,
-#: the bytes copied and the ms of the gather and the copies
+#: one entry a readback: its kind ("merge", "branch", "sibling" or "dag"),
+#: the cells read, the bytes copied and the ms of the gather and the copies
 READBACKS: list = []
 
 

@@ -24,8 +24,10 @@ reconstruction) takes the root's expected counts through its
 BackwardMatrix, and `-savedot` writes the root's graph
 (`engine/seqgraph.py`).  A merge whose band the host reads runs the
 device's full-band route; other chain-x merges fill and walk on the
-device, merges of a sampled or posterior x on the host (`MERGES` counts
-each route); all draw from the run's mt19937 in the reference's order.
+device, merges of a sampled or posterior x on kernel (a) where the route
+rule picks the card (engine/forward.py `DAG_DEVICE_MIN_CELLS`), else on
+the host (`MERGES` counts each route); all draw from the run's mt19937
+in the reference's order.
 
 With `-refine` (the end of `-careful`) the root alignment is refined
 branch by branch (sampler/refiner.py) before it is written; counting
@@ -97,8 +99,9 @@ ANCESTRAL_POST_PROB_TAG = "PP"
 
 #: merges by the route of their fill (engine/forward.py `FILLS`): "device"
 #: (a chain x, planes resident), "fullband" (a chain x, band read back),
-#: "host" or "oversized" (a chain x too large for the card, on the host)
-MERGES = {"device": 0, "fullband": 0, "host": 0, "oversized": 0}
+#: "dag" (a non-chain x on kernel (a), band read back), "host" or
+#: "oversized" (a merge too large for the card, on the host)
+MERGES = {"device": 0, "fullband": 0, "dag": 0, "host": 0, "oversized": 0}
 
 FORMAT_FASTA = "fasta"
 FORMAT_NEXUS = "nexus"

@@ -1062,3 +1062,134 @@ def test_branch_matrix_full_envelope_takes_the_wide_design(cuda):
     g = np.array([[dev.cells[x, y] for y in range(801)] for x in range(901)])
     assert np.all(np.abs(g - host.cells) <= 1e-9 * np.maximum(1.0, np.abs(host.cells)))
     assert abs(dev.lp_end - host.lp_end) <= 1e-9 * abs(host.lp_end)
+
+
+def _dag_merge(x_cut: int, y_cut: int, banded: bool, y_leaf: bool = False):
+    """A merge of a sampled x (tests/data/long6.fa's third and fourth
+    sequences cut to `x_cut` aa; 10 traces and the best, mt19937 seed 7)
+    against a sampled y (its first two cut to `y_cut`, seed 99) or the
+    first alone (`y_leaf`), each child filled on the host; banded around a
+    guide that aligns the sequences from their first residue.  Returns
+    (the merge's ForwardMatrix arguments, the host-filled merge)."""
+    from historian_tpu_torch import device
+    from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
+    from historian_tpu_torch.core.seqs import FastSeq, read_fasta
+    from historian_tpu_torch.engine import forward
+    from historian_tpu_torch.engine.pairhmm import PairHMM
+    from historian_tpu_torch.engine.profile import Profile
+    from historian_tpu_torch.models.presets import named_model
+    from historian_tpu_torch.models.ratemodel import ProbModel
+    from historian_tpu_torch.utils.rng import MT19937
+
+    class HostFill(forward.ForwardMatrix):
+        def _fill_device(self):
+            return False
+
+    device.select("cpu")
+    model = named_model("lg")
+    seqs = read_fasta(os.path.join(os.path.dirname(__file__), "data", "long6.fa"))
+    cuts = {2: x_cut, 3: x_cut, 0: y_cut, 1: y_cut}
+    leaf = {k: Profile.from_sequence(model.components, model.alphabet,
+                                     FastSeq(name=seqs[k].name, seq=seqs[k].seq[:n]), k)
+            for k, n in cuts.items()}
+
+    def hmm(a, b):
+        return PairHMM(ProbModel(model, a), ProbModel(model, b), model.ins_prob)
+
+    x = HostFill(leaf[2], leaf[3], hmm(0.3, 0.25), 6).sample_profile(MT19937(7), 10, 0)
+    y = leaf[0] if y_leaf else HostFill(leaf[0], leaf[1], hmm(0.3, 0.25), 7).sample_profile(
+        MT19937(99), 10, 0)
+    env = None
+    if banded:
+        guide = {k: np.arange(max(cuts.values())) < n for k, n in cuts.items()}
+        env = GuideAlignmentEnvelope(guide, 2, 0, 12)
+    args = (x, y, hmm(0.2, 0.35), 8, env)
+    return args, HostFill(*args)
+
+
+DAG_CASES = {"banded": (600, 560, True, False), "wide": (420, 380, False, False),
+             "chain y": (240, 200, True, True)}
+
+
+@pytest.mark.parametrize("case", list(DAG_CASES))
+def test_dagfill_kernel_matches_host_and_plain(cuda, case):
+    """Kernel (a) on the band against csrc/fill.cpp's grid and its plain
+    version on the card: the same -inf cells, the rest within 1e-9 (the
+    card's exp and log1p against glibc's); one block for a banded fill, a
+    cooperative launch of several for a full grid whose wavefronts are
+    wider than a block."""
+    from historian_tpu_torch.ops import dagforward
+
+    _, host = _dag_merge(*DAG_CASES[case])
+    nx, ny = host.x_size - 1, host.y_size - 1
+    p = dagforward.plan(host)
+    inp = dagforward.upload_band(p, cuda)
+    before = dagforward.LAUNCHES
+    cells = dagforward.dag_fill_band(inp)
+    torch.cuda.synchronize()
+    assert dagforward.LAUNCHES == before + 1
+    blocks = dagforward.LAST_LAUNCH["blocks"]
+    assert (blocks > 1) == (case == "wide") and dagforward.LAST_LAUNCH["waves"] == len(p.wave) - 1
+    ref = host.cells[:nx, :ny].reshape(-1, 5)[p.layout.flat_index()]
+    g = cells.cpu().numpy()
+    assert np.array_equal(g == -np.inf, ref == -np.inf)
+    live = np.isfinite(ref)
+    assert np.all(np.abs(g[live] - ref[live]) <= 1e-9)
+    plain = dagforward.dag_fill_band_plain(inp).cpu().numpy()
+    assert np.array_equal(g == -np.inf, plain == -np.inf)
+    assert np.all(np.abs(g[live] - plain[live]) <= 1e-9)
+
+
+def test_dagfill_band_readback(cuda):
+    """The merge's route on the card: the plan up in one pinned copy
+    (logged), the band back in one (a "dag" readback of 40 B a cell) into
+    the host grid, which then equals fill.cpp's."""
+    from historian_tpu_torch.ops import dagforward, readback
+
+    _, host = _dag_merge(240, 220, True)
+    n_up, n_read = len(dagforward.UPLOADS), len(readback.READBACKS)
+    out = np.full_like(host.cells, -np.inf)
+    p = dagforward.dag_forward_cells(host, cuda, out)
+    assert len(dagforward.UPLOADS) == n_up + 1
+    assert dagforward.UPLOADS[-1]["bytes"] >= len(p.cells) * 16
+    assert len(readback.READBACKS) == n_read + 1
+    read = readback.READBACKS[-1]
+    assert read["kind"] == "dag" and read["bytes"] == p.layout.n * 40
+    assert np.array_equal(out == -np.inf, host.cells == -np.inf)
+    live = np.isfinite(host.cells)
+    assert np.all(np.abs(out[live] - host.cells[live]) <= 1e-9)
+
+
+def test_dagfill_rejects_float32(cuda):
+    from historian_tpu_torch.ops import dagforward
+
+    _, host = _dag_merge(60, 50, False)
+    inp = dagforward.upload_band(dagforward.plan(host), cuda)
+    inp.absorb = inp.absorb.float()
+    with pytest.raises(ValueError, match="float64"):
+        dagforward.dag_fill_band(inp)
+
+
+def test_forced_dag_route_on_the_card(cuda, monkeypatch):
+    """A merge of a sampled x with the card's threshold at 0: route "dag",
+    one launch, the host route's lp_end, cells and sampled profile."""
+    from historian_tpu_torch import device
+    from historian_tpu_torch.engine import forward
+    from historian_tpu_torch.ops import dagforward
+    from historian_tpu_torch.utils.rng import MT19937
+
+    args, host = _dag_merge(300, 280, True)
+    monkeypatch.setitem(forward.DAG_DEVICE_MIN_CELLS, "cuda", 0)
+    device.select("gpu")
+    try:
+        before = dagforward.LAUNCHES
+        dev = forward.ForwardMatrix(*args, defer_cells=True)
+    finally:
+        device.select("cpu")
+    assert dev.route == "dag" and dagforward.LAUNCHES == before + 1
+    assert dev.lp_end == pytest.approx(host.lp_end, rel=1e-12)
+    live = np.isfinite(host.cells)
+    assert np.array_equal(np.isfinite(dev.cells), live)
+    assert np.all(np.abs(dev.cells[live] - host.cells[live]) <= 1e-9)
+    profs = [f.sample_profile(MT19937(31), 10, 0).to_json() for f in (host, dev)]
+    assert profs[1] == profs[0]

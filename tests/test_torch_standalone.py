@@ -41,6 +41,7 @@ def imported_roots(path: str) -> set:
 
 def test_sources_found():
     assert "historian_tpu_torch/engine/forward.py" in SOURCES and len(SOURCES) > 30
+    assert "historian_tpu_torch/ops/dagforward.py" in SOURCES
     assert "lg" in PRESETS and "ECMrest" in PRESETS
 
 
