@@ -159,13 +159,20 @@ Phases, each fatal on failure (nothing is caught):
       ms) and with every such merge on fill.cpp (wall; whether the two
       outputs are equal is printed, not required: a sampled pick may turn
       at round-off); kernel (a) at that run's first sampled-x merge against
-      fill.cpp (1e-9) and its plain version (1e-12 relative): in-envelope
-      cells, band cells, wavefronts, blocks, ms and us a wavefront, the
-      plain version's and fill.cpp's ms, the plan's host ms, the copies,
-      the bound and the dependency floor; then both routes of whole
-      ForwardMatrix builds at small6's first sampled-x merge and at long6's
-      t1-t4 cut to 500-4000 aa (the sweep behind DAG_DEVICE_MIN_CELLS).
-      Prints a {"dagfill": ...} JSON line.
+      fill.cpp (1e-9, the bit-equal share printed) and its plain version
+      (1e-12 relative), its plan kernel against the plain plan: in-envelope
+      cells, band cells, wavefronts, terms, the design, lanes a cell and
+      blocks, the in-degrees (kx, ky, kx ky: mean and largest) and the
+      terms read from the ring, ms and us a wavefront (the plan kernel and
+      the fill, and each alone), the plain version's and fill.cpp's ms,
+      the host plan's ms by part, the copies, the bound and both
+      dependency floors (a state a lane; one thread a cell, the first
+      design's); with `--parent DIR`, kernel (a) of that version and of
+      this one at the same merge, in turns (historian_tpu_torch/
+      dag_bench.py, roots.compare_roots), with each one's host plan; then
+      both routes of whole ForwardMatrix builds at small6's first
+      sampled-x merge and at long6's t1-t4 cut to 500-4000 aa (the sweep
+      behind DAG_DEVICE_MIN_CELLS).  Prints a {"dagfill": ...} JSON line.
 Prints the Felsenstein times, the readbacks, the branch fills, the MCMC
 and kernel (a) as JSON lines, the kernel table as one JSON line, the card
 line, and last {"ok": true, "device": {...}}.  Exits non-zero without
@@ -174,8 +181,8 @@ counted from 0: K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32,
 K2 in (h) fused and (l) small6 fused, the guide kernel in (h) fused, (j)
 long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
 kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
-proposals), kernel (d) in (n) long6 (the same), kernel (a) in (o)'s
-long12 run on the automatic route.
+proposals), kernel (d) in (n) long6 (the same), kernel (a) and its plan
+kernel in (o)'s long12 run on the automatic route.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -187,8 +194,11 @@ log-sum-exp five (maximum, difference, exp, log1p, add); kernel (d)'s
 bytes are the band's 11 states written (88 B a cell) and its emission
 and mask byte read (9 B), its operations 98 an in-mask cell; kernel
 (a)'s bytes are the band's 5 states written (40 B a cell), each
-in-envelope cell's absorb value and plan entry read (16 B) and the
-per-state arrays, its operations DAG_OPS by each cell's in-edges.  No PyTorch
+in-envelope cell's plan entry read (8 B) and the per-state arrays (the
+absorb factors among them), its operations DAG_OPS by each cell's
+in-edges; its plan kernel's, the records (64 B a cell) and terms (32 B
+each) written and the band and its source map (44 B a band cell) set.
+No PyTorch
 call computes these recurrences, so `library_ms` is null.  K2's band
 leaves most cells at NEG, so its operations are counted on the in-band
 cells only.
@@ -874,7 +884,7 @@ def recon_counts(recon, forward, colforward, tracedp, guidedp) -> dict:
     none_oversized("recon")
     return dict(colforward=colforward.LAUNCHES, colforward_fused=colforward.FUSED_LAUNCHES,
                 pairtrace=tracedp.LAUNCHES, guidealign=guidedp.LAUNCHES,
-                dagfill=dagforward.LAUNCHES,
+                dagfill=dagforward.LAUNCHES, dagplan=dagforward.PLAN_LAUNCHES,
                 branchfill=branchdp.LAUNCHES, branch_designs=dict(branchdp.DESIGNS),
                 branch_modes=dict(branchdp.MODES), merges=dict(recon.MERGES),
                 fills=dict(forward.FILLS), sampled=dict(forward.SAMPLED),
@@ -886,7 +896,7 @@ def zero_counts(recon, forward, colforward, tracedp, guidedp) -> None:
     from historian_tpu_torch.ops import branchdp, dagforward
 
     colforward.LAUNCHES = colforward.FUSED_LAUNCHES = tracedp.LAUNCHES = guidedp.LAUNCHES = 0
-    branchdp.LAUNCHES = dagforward.LAUNCHES = 0
+    branchdp.LAUNCHES = dagforward.LAUNCHES = dagforward.PLAN_LAUNCHES = 0
     for d in (recon.MERGES, forward.FILLS, forward.SAMPLED, branchmatrix.FILLS, branchdp.DESIGNS,
               branchdp.MODES):
         for k in d:
@@ -902,7 +912,7 @@ def check_routes(what: str, counts: dict, log: list, fused: bool) -> None:
                    else ("colforward", "colforward_fused"))
     if (counts[fill] != chain or counts[other] != 0 or counts["fills"]["device"] != chain
             or counts["fills"]["host"] + counts["fills"]["dag"] != dag or dag < 1
-            or counts["dagfill"] != counts["fills"]["dag"]
+            or not counts["dagfill"] == counts["fills"]["dag"] == counts["dagplan"]
             or counts["sampled"]["device_walks"] < 1 or counts["pairtrace"] < 1):
         raise AssertionError(f"{what}: {chain} chain-x and {dag} sampled-x fills, counts {counts}")
 
@@ -2573,10 +2583,12 @@ def host_merge(args):
     return fwd, calls[0][0] * 1e3
 
 
-def dag_chain_ns(trans: np.ndarray) -> float:
-    """The dependency floor's step: one emitting cell of kernel (a) waiting
-    on the one before (csrc/dagfill.cu `dagfill_chain`, one thread), in ns,
-    from CUDA events around 20000 steps, median of 3."""
+def dag_chain_ns(trans: np.ndarray, split: bool) -> float:
+    """A dependency floor's step, in ns, from CUDA events around 20000 steps,
+    median of 3 (csrc/dagfill.cu): `split`, this design's, a lane group
+    computing one emitting cell's terms a state a lane, the states shared
+    through shared memory (`dagfill_chain_split`); else the first design's,
+    one thread a cell's ~20 log-sum-exps in a row (`dagfill_chain`)."""
     from historian_tpu_torch.ops import _kernels
 
     t = torch.as_tensor(trans, dtype=torch.float64, device="cuda")
@@ -2585,8 +2597,8 @@ def dag_chain_ns(trans: np.ndarray) -> float:
 
     def run():
         _kernels.check(_kernels.lib().dagfill_chain_f64(
-            t.data_ptr(), steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
-            "dagfill_chain")
+            t.data_ptr(), steps, int(split), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "dagfill_chain")
 
     return cuda_ms_median(run, 3) * 1e6 / steps
 
@@ -2604,12 +2616,42 @@ def dag_err(what: str, got: np.ndarray, ref: np.ndarray, rtol: float = 0.0) -> f
     return float(diff.max(initial=0.0))
 
 
+def dag_plan_check(inp, planned) -> dict:
+    """The plan kernel's records, terms and spans against the plain plan's
+    on the same inputs on the card: every integer word and lp equal, the
+    absorb values (the card's log of the same ordered sum) within 1e-15
+    relative; returns the absorb's largest difference and its bit-equal
+    share, and the plain plan's ms."""
+    from historian_tpu_torch.ops import dagforward
+
+    got, _ = planned
+    want, plain_ms = host_ms(lambda: dagforward.plan_records_plain(inp))
+    if not (torch.equal(got.spans, want.spans) and torch.equal(got.terms, want.terms)
+            and torch.equal(got.recs[:, 2:], want.recs[:, 2:])):
+        raise AssertionError("(o) the plan kernel's records differ from the plain plan's")
+    a, b = got.recs.view(torch.float64)[:, 0], want.recs.view(torch.float64)[:, 0]
+    live = torch.isfinite(b)
+    if not (torch.equal(torch.isfinite(a), live) and torch.equal(a == 0, b == 0)):
+        raise AssertionError("(o) the plan kernel's absorb differs from the plain plan's")
+    diff = (a[live] - b[live]).abs()
+    if not bool(torch.all(diff <= 1e-15 * b[live].abs().clamp(min=1.0))):
+        raise AssertionError(f"(o) plan absorb: largest difference {float(diff.max()):.3e}")
+    return dict(absorb_err=float(diff.max()) if len(diff) else 0.0,
+                absorb_bit_equal=float((a[live] == b[live]).double().mean()),
+                plain_plan_ms=plain_ms)
+
+
 def dag_kernel_check(name: str, args) -> dict:
-    """Kernel (a) at one merge: the plan (in-envelope cells, band cells,
-    wavefronts) and its upload, the band against fill.cpp (DAG_TOL) and the
-    plain version (DAG_PLAIN_RTOL), the kernel's ms (CUDA events, median of
-    5 after a warm launch), the plain version's and fill.cpp's ms, the band
-    read back (bytes, ms), the bound and the dependency floor."""
+    """Kernel (a) at one merge: the host plan (in-envelope cells, band
+    cells, wavefronts, its ms by part) and its upload; the plan kernel
+    against the plain plan (`dag_plan_check`); the band against fill.cpp
+    (DAG_TOL, the bit-equal share printed) and the plain version
+    (DAG_PLAIN_RTOL); the design, lanes a cell, blocks, the in-degrees (kx,
+    ky, kx ky over the cells) and the share of terms read from the ring;
+    ms (CUDA events, median of 5 after a warm launch) of `dag_fill_band`
+    (the plan kernel and the fill), of the plan kernel and of the fill
+    alone, the plain version's and fill.cpp's ms, the band read back
+    (bytes, ms), the bound and both dependency floors."""
     from historian_tpu_torch.ops import dagforward, readback
 
     host, fill_cpp_ms = host_merge(args)
@@ -2631,38 +2673,93 @@ def dag_kernel_check(name: str, args) -> dict:
     err = dag_err(f"{name} kernel (a) vs fill.cpp", got, ref)
     live = np.isfinite(ref)
     bit_equal = float(np.mean(got[live] == ref[live]))
-    plain, plain_ms = host_ms(lambda: dagforward.dag_fill_band_plain(inp))
+    planned = dagforward.plan_records(inp)
+    plan_check = dag_plan_check(inp, planned)
+    recs = planned[0]
+    plain, plain_ms = host_ms(lambda: dagforward.dag_fill_band_plain(inp, recs))
     plain = plain.cpu().numpy()
     plain_err = dag_err(f"{name} kernel (a) vs plain", got, plain, DAG_PLAIN_RTOL)
     plain_host_err = dag_err(f"{name} plain vs fill.cpp", plain, ref)
     del got, ref, plain
     ms = cuda_ms_median(lambda: dagforward.dag_fill_band(inp))
+    plan_kernel_ms = cuda_ms_median(lambda: dagforward.plan_records(inp))
+    fill_ms = cuda_ms_median(lambda: dagforward.dag_fill_band(inp, planned))
     N, W = len(p.cells), len(p.wave) - 1
+    T = recs.terms.shape[0]
+    ring_share = float((recs.terms[:, 4] <= -2).double().mean()) if T else 0.0
     kx = np.diff(p.x_csr[0])[p.cells[:, 0]]
     ky = np.diff(p.y_csr[0])[p.cells[:, 1]]
+    degrees = {k: dict(mean=float(v.mean()), max=int(v.max()))
+               for k, v in (("kx", kx), ("ky", ky), ("kxky", kx * ky))}
     ops = float(np.sum(DAG_OPS[0] * kx + DAG_OPS[1] * ky + DAG_OPS[2] * kx * ky))
-    n_bytes = (p.layout.n * 40 + N * (8 + 8) + (nx + ny) * (8 * 3 + 4 + 1)
+    ca = p.factors[0].shape[1]
+    n_bytes = (p.layout.n * 40 + N * 8 + (nx + ny) * (8 * (3 + ca) + 4 + 1)
                + 12 * (len(p.x_csr[1]) + len(p.y_csr[1])) + 4 * (3 * nx + 2 * ny) + 4 * W)
     bnd = bound(n_bytes, ops, torch.float64)
-    step_ns = dag_chain_ns(p.trans)
-    floor_ms = W * step_ns / 1e6
+    step_ns = dag_chain_ns(p.trans, True)
+    first_step_ns = dag_chain_ns(p.trans, False)
+    floor_ms, first_floor_ms = W * step_ns / 1e6, W * first_step_ns / 1e6
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in p.host_ms.items())
     print(f"(o) kernel (a) {name} {nx} x {ny} ({N} in-envelope cells, {p.layout.n} band cells, "
-          f"{W} wavefronts, widest {p.widest}, {launch['blocks']} block(s) of "
-          f"{launch['threads']}): {ms:.3f} ms ({ms * 1e3 / W:.3f} us a wavefront), plain "
-          f"{plain_ms:.1f} ms, fill.cpp {fill_cpp_ms:.1f} ms; max abs err {err:.3e} against "
-          f"fill.cpp (cells bit-equal: {bit_equal:.4f}), {plain_err:.3e} against plain, plain "
-          f"against fill.cpp {plain_host_err:.3e}; plan {plan_ms:.1f} ms on the host, upload "
-          f"{up['bytes']} bytes in {up['ms']:.3f} ms (packing {up['pack_ms']:.1f} ms), readback "
-          f"{back['bytes']} bytes in {back['ms']:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']}), dependency floor {floor_ms:.3f} ms ({W} x {step_ns:.1f} ns)",
-          flush=True)
-    return dict(ms=ms, us_per_wavefront=ms * 1e3 / W, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
+          f"{W} wavefronts, widest {p.widest}, {T} terms; {launch['design']} design, "
+          f"{launch['lanes']} lanes a cell, {launch['blocks']} block(s) of "
+          f"{launch['threads']}; in-degrees {json.dumps(degrees)}, terms from the ring "
+          f"{ring_share:.4f}): {ms:.3f} ms ({ms * 1e3 / W:.3f} us a wavefront) = plan kernel "
+          f"{plan_kernel_ms:.3f} + fill {fill_ms:.3f} ({fill_ms * 1e3 / W:.3f} us a wavefront); "
+          f"plain {plain_ms:.1f} ms, plain plan {plan_check['plain_plan_ms']:.1f} ms, fill.cpp "
+          f"{fill_cpp_ms:.1f} ms; max abs err {err:.3e} against fill.cpp (cells bit-equal: "
+          f"{bit_equal:.4f}), {plain_err:.3e} against plain, plain against fill.cpp "
+          f"{plain_host_err:.3e}; plan kernel == plain plan (absorb within "
+          f"{plan_check['absorb_err']:.3e}, bit-equal {plan_check['absorb_bit_equal']:.4f}); "
+          f"host plan {plan_ms:.1f} ms ({parts}), upload {up['bytes']} bytes in "
+          f"{up['ms']:.3f} ms (packing {up['pack_ms']:.1f} ms), readback {back['bytes']} bytes "
+          f"in {back['ms']:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"dependency floor {floor_ms:.3f} ms ({W} x {step_ns:.1f} ns, a state a lane), the "
+          f"first design's {first_floor_ms:.3f} ms ({W} x {first_step_ns:.1f} ns, one thread "
+          f"a cell)", flush=True)
+    return dict(ms=ms, us_per_wavefront=ms * 1e3 / W, plan_kernel_ms=plan_kernel_ms,
+                fill_ms=fill_ms, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
                 err=max(err, plain_err), fill_cpp_err=err, plain_err=plain_err,
                 plain_fill_cpp_err=plain_host_err, bit_equal_share=bit_equal, shape=[nx, ny],
-                in_envelope=N, band_cells=p.layout.n, wavefronts=W, widest=p.widest,
-                blocks=launch["blocks"], plan_ms=plan_ms, upload_bytes=up["bytes"],
-                upload_ms=up["ms"], readback_bytes=back["bytes"], readback_ms=back["ms"],
-                dependency_floor_ms=floor_ms, step_ns=step_ns, **bnd)
+                in_envelope=N, band_cells=p.layout.n, wavefronts=W, widest=p.widest, terms=T,
+                design=launch["design"], lanes=launch["lanes"], blocks=launch["blocks"],
+                degrees=degrees, ring_share=ring_share, plan_ms=plan_ms, plan_parts=p.host_ms,
+                upload_bytes=up["bytes"], upload_ms=up["ms"], readback_bytes=back["bytes"],
+                readback_ms=back["ms"], dependency_floor_ms=floor_ms, step_ns=step_ns,
+                first_design_floor_ms=first_floor_ms, first_design_step_ns=first_step_ns,
+                **plan_check, **bnd)
+
+
+def dag_parent(parent: str, args) -> dict:
+    """Kernel (a) of the checkout in `parent` and of this one at one merge
+    (its ForwardMatrix arguments, pickled): historian_tpu_torch/dag_bench.py
+    in fresh processes, parent, this, this, parent (roots.compare_roots):
+    each run's host plan (ms, by part where timed) and `dag_fill_band` ms;
+    returns each root's runs."""
+    import pickle
+
+    from historian_tpu_torch.roots import compare_roots
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dag_merge.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(args, f)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            compare_roots(os.path.join(REPO, "historian_tpu_torch", "dag_bench.py"),
+                          ["--inputs", path, "--reps", "5"], [parent, REPO], 2, "dag_bench")
+    table = json.loads(buf.getvalue().splitlines()[-1])["compare"]
+    for root, runs in table.items():
+        tag = "parent" if root == os.path.abspath(parent) else "this"
+        for r in runs:
+            extra = (f" = plan kernel {r['plan_kernel_ms']:.3f} + fill {r['fill_ms']:.3f} "
+                     f"({r['design']})" if "fill_ms" in r else "")
+            parts = ", ".join(f"{k} {v:.1f}" for k, v in r["plan_parts"].items())
+            print(f"(o) kernel (a) at long12's first sampled-x merge, {tag} ({root}): "
+                  f"{r['kernel_ms']:.3f} ms{extra}; host plan {r['plan_ms']:.1f} ms"
+                  f"{' (' + parts + ')' if parts else ''}, upload {r['upload_bytes']} bytes in "
+                  f"{r['upload_ms']:.3f} ms (packing {r['pack_ms']:.1f})", flush=True)
+    return table
 
 
 def dag_routes(work: str, small6_merge) -> list:
@@ -2716,7 +2813,7 @@ def dag_routes(work: str, small6_merge) -> list:
     return rows
 
 
-def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str) -> dict:
+def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str, parent: str | None) -> dict:
     """(o) Kernel (a), the DAG x DAG merge fill: small6 default and small6
     `-careful -norefine` in float64 with every merge of a sampled or
     posterior x forced onto the kernel (DAG_DEVICE_MIN_CELLS["cuda"] = 0),
@@ -2775,7 +2872,8 @@ def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str) -> dict:
         kernel_ms = [a.elapsed_time(b) for a, b in dag_ev]
         ups = dagforward.UPLOADS[n_up:]
         runs[route] = dict(wall_s=wall, lp=lp, out=out, merges=counts["merges"],
-                           fills=counts["fills"], dagfill=counts["dagfill"], dagfill_ms=kernel_ms,
+                           fills=counts["fills"], dagfill=counts["dagfill"],
+                           dagplan=counts["dagplan"], dagfill_ms=kernel_ms,
                            upload_bytes=sum(u["bytes"] for u in ups),
                            upload_ms=sum(u["ms"] for u in ups), first=merges[:1])
         print(f"(o) long12 default f32 from (j)'s guide, {route} route for the merges of a "
@@ -2785,7 +2883,7 @@ def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str) -> dict:
               f"({runs[route]['upload_bytes']} bytes)", flush=True)
     auto = runs["auto"]
     if not (auto["fills"]["dag"] >= 1 and auto["dagfill"] == auto["fills"]["dag"]
-            and runs["host"]["dagfill"] == 0):
+            == auto["dagplan"] and runs["host"]["dagfill"] == runs["host"]["dagplan"] == 0):
         raise AssertionError(f"(o) long12 default routes: {runs}")
     same = auto["out"] == runs["host"]["out"]
     print(f"(o) long12 default f32: automatic route == fill.cpp route: {same} (LP "
@@ -2796,9 +2894,16 @@ def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str) -> dict:
     del os.environ["HISTORIAN_PALLAS_FUSED"]
     long12 = {route: {k: v for k, v in run.items() if k not in ("out", "first")}
               for route, run in runs.items()}
-    print(json.dumps({"dagfill": dict(small6=small, long12=long12, same_output=same,
-                                      kernel=check, routes=routes)}), flush=True)
-    return dict(launches=auto["dagfill"], err=check["err"],
+    line = dict(small6=small, long12=long12, same_output=same, kernel=check, routes=routes)
+    if parent:
+        line["parent"] = dag_parent(parent, auto["first"][0])
+    print(json.dumps({"dagfill": line}), flush=True)
+    plan_bytes = (check["in_envelope"] * (8 + 64) + check["terms"] * 32
+                  + check["band_cells"] * (40 + 4))
+    return dict(launches=auto["dagfill"], plan_launches=auto["dagplan"], err=check["err"],
+                plan_err=check["absorb_err"], plan_ms=check["plan_kernel_ms"],
+                plain_plan_ms=check["plain_plan_ms"], plan_bound=bound(plan_bytes, 0.0,
+                                                                       torch.float64),
                 **{k: check[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
@@ -2807,7 +2912,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of historian_tpu_torch on one card.")
     ap.add_argument("--parent", help="a checkout of another version (e.g. the parent commit "
-                    "unpacked under build/): time its kernel (e) beside this one in (m)")
+                    "unpacked under build/): time its kernels (e) and (a) beside this one's "
+                    "in (m) and (o)")
     opts = ap.parse_args(argv)
     from historian_tpu_torch import bench, cli
     from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
@@ -2850,7 +2956,7 @@ def main(argv=None) -> int:
         mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"))
         # (j) and (l) ran small6 from work, and (o) compares with their outputs
         dag = phase_dag(cli, work, launches_j.pop("small6_cpu"),
-                        launches_l.pop("small6_careful_cpu"))
+                        launches_l.pop("small6_careful_cpu"), opts.parent)
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -2898,6 +3004,12 @@ def main(argv=None) -> int:
         replaces="historian_tpu/ops/dagforward.py:55", launches=dag["launches"],
         max_abs_err=dag["err"], ms=dag["ms"], plain_ms=dag["plain_ms"],
         bound_ms=dag["bound_ms"], bound_by=dag["bound_by"], library_ms=None))
+    kernels.append(dict(
+        name="dagplan", route="cuda", source="historian_tpu_torch/csrc/dagfill.cu",
+        replaces="historian_tpu/ops/devicedp.py:747", launches=dag["plan_launches"],
+        max_abs_err=dag["plan_err"], ms=dag["plan_ms"], plain_ms=dag["plain_plan_ms"],
+        bound_ms=dag["plan_bound"]["bound_ms"], bound_by=dag["plan_bound"]["bound_by"],
+        library_ms=None))
     for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
         kernels.append(dict(
             name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",

@@ -328,6 +328,14 @@ static void wavefront_run(int64_t nx, int64_t ny, int64_t sy_stride,
 
 }  // namespace
 
+// The level of each of states 0..n-1 (`in_levels`, the wavefront order of
+// the DAG fills), into out [n]; kernel (a)'s plan reads it
+// (ops/dagforward.py `levels`).
+extern "C" void state_levels(int64_t n, const int64_t* ptr, const int64_t* src, int32_t* out) {
+  const Levels L = in_levels(n, ptr, src);
+  for (int64_t i = 0; i < n; ++i) out[i] = L.lvl[i];
+}
+
 extern "C" void forward_fill(
     int64_t sx, int64_t sy,
     const int64_t* x_in_ptr, const int64_t* x_in_src, const double* x_in_lp,

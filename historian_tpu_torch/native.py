@@ -103,6 +103,11 @@ def get_native():
             _i64(), _i64(), ctypes.c_int64,
             _u8(), _u8(), _u8(2),
         ]
+        lib.state_levels.restype = None
+        lib.state_levels.argtypes = [
+            ctypes.c_int64, _i64(), _i64(),
+            ndpointer(dtype=np.int32, ndim=1, flags="C_CONTIGUOUS"),
+        ]
         lib.posterior_cells.restype = ctypes.c_int64
         lib.posterior_cells.argtypes = [
             ctypes.c_int64, ctypes.c_int64,

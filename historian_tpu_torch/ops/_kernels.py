@@ -68,19 +68,26 @@ _SIGNATURES = {
     "siblingfill_capacity": [_I],
     # t144, steps, out, stream: the dependency floor's step
     "siblingfill_chain": [_P, _I, _P, _P],
-    # plan, wave, absorb, x_ptr, x_src, x_lp, y_ptr, y_src, y_lp, x_flags,
-    # y_flags, insx, rootsubx, insy, rootsuby, trans18, rowpos, off, diag,
-    # cells, arrivals, n, W, sx, sy, blocks, threads, stream
-    "dagfill": [_P] * 21 + [_I] * 6 + [_P],
-    # threads -> blocks that can be resident at once
+    # cells, wave, x_ptr, x_src, x_lp, y_ptr, y_src, y_lp, x_flags, y_flags,
+    # insx, rootsubx, insy, rootsuby, ex, shift_x, ey, shift_y, rowpos, off,
+    # diag, band, rank_of, wave_of, counts, n, N, W, sx, sy, CA, stream
+    "dagplan_count": [_P] * 25 + [_I] * 6 + [_P],
+    # the same 21 inputs, rank_of, wave_of, counts, incl, recs, terms, spans,
+    # n, N, W, sx, sy, CA, R, width, ring, stream
+    "dagplan_records": [_P] * 28 + [_I] * 9 + [_P],
+    # recs, terms, spans, trans18, cells, arrivals, W, R, width, blocks,
+    # threads, stream
+    "dagfill": [_P] * 6 + [_I] * 5 + [_P],
+    # threads -> blocks of the wide design that can be resident at once
     "dagfill_capacity": [_I],
-    # trans18, steps, out, stream: the dependency floor's step
-    "dagfill_chain": [_P, _I, _P, _P],
+    # trans18, steps, split, out, stream: the dependency floors' steps
+    "dagfill_chain": [_P, _I, _I, _P, _P],
 }
 #: the dtypes each kernel is built for, where not both
 _DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingfill",
                                        "siblingfill_capacity", "siblingfill_chain", "dagfill",
-                                       "dagfill_capacity", "dagfill_chain")}
+                                       "dagfill_capacity", "dagfill_chain", "dagplan_count",
+                                       "dagplan_records")}
 
 _LIB: ctypes.CDLL | None = None
 

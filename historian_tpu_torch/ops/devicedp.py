@@ -216,8 +216,10 @@ def merge_fits(dp, device: torch.device, dtype: torch.dtype) -> bool:
         from historian_tpu_torch.ops.dagforward import device_bytes
 
         nx, ny = dp.x_size - 1, dp.y_size - 1
+        mx, my = len(dp.x.trans) / dp.x_size, len(dp.y.trans) / dp.y_size
         return _fits_bytes(device, device_bytes(
-            int(np.count_nonzero(dp.env_mask[:nx, :ny])), nx, ny))
+            int(np.count_nonzero(dp.env_mask[:nx, :ny])), nx, ny,
+            2 * (mx * my + 2 * mx + 2 * my)))
     fused = fused_enabled()
     return (_fits_budget(device, dp.y_size - 1, dp.x_size - 1, dtype, fused)
             and _strips_fit(dp, device, dtype, fused))

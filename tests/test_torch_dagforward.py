@@ -12,7 +12,12 @@ states of several in-edges, against a sampled profile, against a leaf (a
 chain y) and banded around a guide that aligns the sequences from their
 first residue; a posterior profile (`-profminpost`'s) against a sampled
 one; and a grid whose size is the JAX package's bucket (its index padding
-must stay a no-op).  Then the route: forced onto kernel (a) on the CPU
+must stay a no-op).  The plan: the in-envelope cells by wavefront, the
+source table of its records against fwd_cell read from the CSRs and the
+band, the ring slots (each its source's, overwritten by no cell before
+its reader), the host's parts (fill.cpp's levels, the rows' hulls from
+the envelope, the absorb), and no device but the CPU without a kernel.
+Then the route: forced onto kernel (a) on the CPU
 (`DAG_DEVICE_MIN_CELLS`), a merge gives the host route's cells and
 profile, one that does not fit the device stays on fill.cpp
 ("oversized"), and small6 and small4 default `recon` equal the JAX
@@ -29,6 +34,7 @@ import torch
 from historian_tpu.ops import devicedp as jax_devicedp
 from historian_tpu_torch import device
 from historian_tpu_torch.ops import dagforward, readback
+from historian_tpu_torch.ops import dagforward as D
 from tests.test_torch_backward import assert_cells_close
 from tests.test_torch_recon import rows_and_lp, write_small4
 from tests.test_torch_sampled import MEMSIZE, _run, write_small6
@@ -161,7 +167,166 @@ def test_plan_orders_cells_by_wavefront(cpu64):
     assert all((w[a:b] == w[a]).all() for a, b in zip(p.wave[:-1], p.wave[1:]))
     xp, xs, _ = p.x_csr
     assert all(lx[xs[e]] < lx[i] for i in range(nx) for e in range(xp[i], xp[i + 1]))
-    assert p.widest == np.diff(p.wave).max() and len(p.absorb) == len(p.cells)
+    assert p.widest == np.diff(p.wave).max()
+    assert p.factors[0].shape[0] == nx and p.factors[2].shape[0] == ny
+
+
+def expected_terms(p, c):
+    """Cell c's terms as fwd_cell sums them: (kind, source (x, y), lpa,
+    lpb), state by state (IMM, IMD, IDM, IMI, IIW), each in CSR order."""
+    i, j = p.cells[c]
+    xf, yf = int(p.x_flags[i]), int(p.y_flags[j])
+    xnull, xrdy, xeos = xf & D.X_NULL, xf & D.X_READY, xf & D.X_EOS
+    ynull, yrdy = yf & D.Y_NULL, yf & D.Y_READY
+    (xp, xs, xl), (yp, ys, yl) = p.x_csr, p.y_csr
+    xe, ye = range(xp[i], xp[i + 1]), range(yp[j], yp[j + 1])
+    out = {s: [] for s in range(5)}
+    if not xnull and not ynull:
+        out[D.IMM] = [(D.IMM, (xs[a], ys[b]), xl[a], yl[b]) for a in xe for b in ye]
+    elif ynull and xeos:
+        out[D.IMM] = [(5 + D.IMM, (i, ys[e]), yl[e], 0.0) for e in ye]
+    elif xnull and yrdy:
+        out[D.IMM] = [(5 + D.IMM, (xs[e], j), xl[e], 0.0) for e in xe]
+    for s in (D.IMD, D.IIW):
+        if yrdy:
+            out[s] = [(s + 5 * bool(xnull), (xs[e], j), xl[e], 0.0) for e in xe]
+    for s in (D.IDM, D.IMI):
+        if ynull or xrdy:
+            out[s] = [(s + 5 * bool(ynull), (i, ys[e]), yl[e], 0.0) for e in ye]
+    return out
+
+
+def records(p, ring_waves=None, monkeypatch=None):
+    """The plain plan's records and terms of plan `p` on the CPU, the ring
+    design as `p` chooses it (with `ring_waves` wavefronts), or the wide."""
+    if ring_waves is not None:
+        monkeypatch.setattr(D, "RING_WAVES", ring_waves)
+    inp = D.upload_band(p, torch.device("cpu"))
+    if ring_waves is None:
+        inp.ring = False
+    return inp, D.plan_records_plain(inp)
+
+
+def test_plan_source_table_follows_the_csrs_and_the_band(cpu64, monkeypatch):
+    """Each cell's terms in the wide design's source table, against fwd_cell
+    read from the CSRs: the ends of each state's terms, each term's kind,
+    its source's band position (OUTSIDE where the layout has no cell there
+    or the band cell is outside the envelope, whose value is -inf), its lps
+    in CSR order; each wavefront's span of records and terms."""
+    outside = 0
+    for name in ("dag x dag banded", "posterior x dag"):
+        fwd = PortHostForwardMatrix(*merge(PORT, *CASES[name]))
+        p = D.plan(fwd)
+        nx, ny = fwd.x_size - 1, fwd.y_size - 1
+        band = {int(f): k for k, f in enumerate(p.layout.flat_index())}
+        planned = {(int(i), int(j)) for i, j in p.cells}
+        inp, rec = records(p)
+        f = {k: v.numpy() for k, v in rec.fields().items()}
+        assert (f["slot"] == -1).all() and len(f["loc"]) == f["ends"][:, 4].sum()
+        for c in range(len(p.cells)):
+            want = expected_terms(p, c)
+            ends = np.cumsum([len(want[s]) for s in range(5)])
+            assert (f["ends"][c] == ends).all()
+            at = f["t0"][c]
+            for s in range(5):
+                for kind, (x, y), lpa, lpb in want[s]:
+                    pos = band.get(x * ny + y, -1) if (x, y) in planned else -1
+                    outside += pos == -1
+                    assert (f["kind"][at], f["loc"][at]) == (kind, pos)
+                    assert (f["lpa"][at], f["lpb"][at]) == (lpa, lpb)
+                    at += 1
+            i, j = p.cells[c]
+            assert f["pos"][c] == band[int(i) * ny + int(j)]
+        spans = rec.spans.numpy()
+        assert (spans[:, 0] == p.wave[:-1]).all() and (spans[:, 1] == p.wave[1:]).all()
+        assert (spans[:, 2] == f["t0"][p.wave[:-1]]).all()
+        assert (spans[1:, 2] == spans[:-1, 3]).all() and spans[-1, 3] == len(f["loc"])
+    assert outside > 0  # sources outside the band or the envelope are met
+
+
+@pytest.mark.parametrize("ring_waves", [2, D.RING_WAVES])
+def test_plan_ring_slots_hold_their_sources(cpu64, monkeypatch, ring_waves):
+    """The ring design's table: a term whose source lies fewer than
+    RING_WAVES wavefronts back reads the slot that source's cell writes,
+    which no cell of the wavefronts after it, up to the reader's, writes
+    again; an older source reads the band; the rest as the wide design.
+    The plain fill through either table gives the same cells, within 1e-9
+    of fill.cpp's (at two wavefronts, many sources come from the band)."""
+    fwd = PortHostForwardMatrix(*merge(PORT, *CASES["dag x dag banded"]))
+    p = D.plan(fwd)
+    assert p.ring and p.widest <= D.RING_MAX_CELLS
+    inp_w, wide = records(p)
+    inp_r, ring = records(p, ring_waves, monkeypatch)
+    fw = {k: v.numpy() for k, v in wide.fields().items()}
+    fr = {k: v.numpy() for k, v in ring.fields().items()}
+    wave_of = np.repeat(np.arange(len(p.wave) - 1), np.diff(p.wave))
+    rank = np.arange(len(p.cells)) - p.wave[wave_of]
+    assert (fr["slot"] == (wave_of % ring_waves) * p.widest + rank).all()
+    cell_at = {int(pos): c for c, pos in enumerate(fr["pos"])}
+    reader = np.repeat(np.arange(len(p.cells)), fr["ends"][:, 4])
+    in_ring = fr["loc"] <= -2
+    assert in_ring.any() and ((fr["loc"] >= 0) == (fw["loc"] >= 0) & ~in_ring).all()
+    assert (fr["loc"][~in_ring] == fw["loc"][~in_ring]).all()
+    for t in np.flatnonzero(fw["loc"] >= 0):
+        src, w = cell_at[int(fw["loc"][t])], wave_of[reader[t]]
+        back = w - wave_of[src]
+        assert back >= 1
+        if back < ring_waves:
+            assert fr["loc"][t] == -2 - fr["slot"][src]
+            later = (wave_of > wave_of[src]) & (wave_of <= w)
+            assert not (fr["slot"][later] == fr["slot"][src]).any()
+        else:
+            assert fr["loc"][t] == fw["loc"][t]
+    if ring_waves == 2:
+        assert (fr["loc"] >= 0).any()  # the band path is met too
+    for k in ("kind", "lpa", "lpb"):
+        assert (fr[k] == fw[k]).all()
+    got = D.dag_fill_band_plain(inp_r, ring)
+    assert torch.equal(got, D.dag_fill_band_plain(inp_w, wide))
+    nx, ny = fwd.x_size - 1, fwd.y_size - 1
+    assert_cells_close(got.numpy(), fwd.cells[:nx, :ny].reshape(-1, 5)[p.layout.flat_index()])
+
+
+def test_plan_host_parts(cpu64, monkeypatch):
+    """The plan's host parts: fill.cpp's levels (`state_levels`) equal the
+    Python loop's; each row's hull from the envelope's factored form equals
+    the mask's scan, banded and not; the absorb the plan computes is the
+    DPMatrix's to round-off; the plan times its parts."""
+    for name in ("dag x dag banded", "dag x dag", "posterior x dag"):
+        fwd = PortHostForwardMatrix(*merge(PORT, *CASES[name]))
+        nx, ny = fwd.x_size - 1, fwd.y_size - 1
+        for (ptr, src, _), n in ((D._csr(fwd.x, nx), nx), (D._csr(fwd.y, ny), ny)):
+            native = D.levels(ptr, src, n)
+            monkeypatch.setattr(D, "get_native", lambda: None)
+            assert (D.levels(ptr, src, n) == native).all()
+            monkeypatch.undo()
+        lo, hi = D.envelope_hull(fwd, nx, ny)
+        want = D.mask_hull(fwd.env_mask[:nx, :ny])
+        assert (lo == want[0]).all() and (hi == want[1]).all()
+        p = D.plan(fwd)
+        assert set(p.host_ms) == {"csr", "levels", "hull", "cells", "order", "flags"}
+        inp = D.upload_band(p, torch.device("cpu"))
+        ci, cj = inp.cells[:, 0].long(), inp.cells[:, 1].long()
+        got = D.absorb_plain(inp, ci, cj).numpy()
+        want = fwd.absorb[ci.numpy(), cj.numpy()]
+        assert np.array_equal(np.isfinite(got), np.isfinite(want))
+        live = np.isfinite(want)
+        np.testing.assert_allclose(got[live], want[live], rtol=1e-14, atol=1e-14)
+    order = D.wavefront_order(np.array([3, 1, 3, 0, 1]))
+    assert order.tolist() == [3, 1, 4, 0, 2]
+    assert D.wavefront_order(np.array([2**16, 5, 2**16, 5])).tolist() == [1, 3, 0, 2]
+
+
+def test_kernel_entries_refuse_other_devices(cpu64):
+    """The plan and the fill take the plain version for CPU tensors only:
+    on a device with no kernel (here "meta") both raise, nothing falls
+    back."""
+    fwd = PortHostForwardMatrix(*merge(PORT, *CASES["dag x chain"]))
+    inp = D.upload_band(D.plan(fwd), torch.device("meta"))
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        D.plan_records(inp)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        D.dag_fill_band(inp)
 
 
 def test_forced_route_fills_on_kernel_a(cpu64, monkeypatch):

@@ -1064,13 +1064,15 @@ def test_branch_matrix_full_envelope_takes_the_wide_design(cuda):
     assert abs(dev.lp_end - host.lp_end) <= 1e-9 * abs(host.lp_end)
 
 
-def _dag_merge(x_cut: int, y_cut: int, banded: bool, y_leaf: bool = False):
+def _dag_merge(x_cut: int, y_cut: int, banded: bool, y_leaf: bool = False,
+               x_post: bool = False):
     """A merge of a sampled x (tests/data/long6.fa's third and fourth
-    sequences cut to `x_cut` aa; 10 traces and the best, mt19937 seed 7)
-    against a sampled y (its first two cut to `y_cut`, seed 99) or the
-    first alone (`y_leaf`), each child filled on the host; banded around a
-    guide that aligns the sequences from their first residue.  Returns
-    (the merge's ForwardMatrix arguments, the host-filled merge)."""
+    sequences cut to `x_cut` aa; 10 traces and the best, mt19937 seed 7),
+    or of their posterior profile (`x_post`, 0.01: states of many
+    in-edges), against a sampled y (its first two cut to `y_cut`, seed 99)
+    or the first alone (`y_leaf`), each child filled on the host; banded
+    around a guide that aligns the sequences from their first residue.
+    Returns (the merge's ForwardMatrix arguments, the host-filled merge)."""
     from historian_tpu_torch import device
     from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
     from historian_tpu_torch.core.seqs import FastSeq, read_fasta
@@ -1096,7 +1098,9 @@ def _dag_merge(x_cut: int, y_cut: int, banded: bool, y_leaf: bool = False):
     def hmm(a, b):
         return PairHMM(ProbModel(model, a), ProbModel(model, b), model.ins_prob)
 
-    x = HostFill(leaf[2], leaf[3], hmm(0.3, 0.25), 6).sample_profile(MT19937(7), 10, 0)
+    x_fill = HostFill(leaf[2], leaf[3], hmm(0.3, 0.25), 6)
+    x = (forward.BackwardMatrix(x_fill).post_prob_profile(0.01, 0, forward.COLLAPSE_CHAINS)
+         if x_post else x_fill.sample_profile(MT19937(7), 10, 0))
     y = leaf[0] if y_leaf else HostFill(leaf[0], leaf[1], hmm(0.3, 0.25), 7).sample_profile(
         MT19937(99), 10, 0)
     env = None
@@ -1107,29 +1111,38 @@ def _dag_merge(x_cut: int, y_cut: int, banded: bool, y_leaf: bool = False):
     return args, HostFill(*args)
 
 
+#: name: _dag_merge's arguments.  "banded" and "chain y" take the ring
+#: design (one block), "posterior" too with states of many in-edges; "wide"
+#: (widest wavefront 420) and "two-block" (162, one block of PR 14's 256
+#: threads a cell, six of the lane groups') the wide design's cooperative
+#: launch
 DAG_CASES = {"banded": (600, 560, True, False), "wide": (420, 380, False, False),
-             "chain y": (240, 200, True, True)}
+             "chain y": (240, 200, True, True), "posterior": (300, 280, True, False, True),
+             "two-block": (200, 150, False, False)}
 
 
 @pytest.mark.parametrize("case", list(DAG_CASES))
 def test_dagfill_kernel_matches_host_and_plain(cuda, case):
     """Kernel (a) on the band against csrc/fill.cpp's grid and its plain
-    version on the card: the same -inf cells, the rest within 1e-9 (the
-    card's exp and log1p against glibc's); one block for a banded fill, a
-    cooperative launch of several for a full grid whose wavefronts are
-    wider than a block."""
+    version on the card: the same -inf cells, the rest within 1e-9 of
+    fill.cpp (the card's exp and log1p against glibc's) and 1e-12 relative
+    of the plain version; the ring design in one block where the widest
+    wavefront has at most RING_MAX_CELLS cells, else the wide design's
+    cooperative launch of several."""
     from historian_tpu_torch.ops import dagforward
 
     _, host = _dag_merge(*DAG_CASES[case])
     nx, ny = host.x_size - 1, host.y_size - 1
     p = dagforward.plan(host)
     inp = dagforward.upload_band(p, cuda)
-    before = dagforward.LAUNCHES
+    before, plans = dagforward.LAUNCHES, dagforward.PLAN_LAUNCHES
     cells = dagforward.dag_fill_band(inp)
     torch.cuda.synchronize()
-    assert dagforward.LAUNCHES == before + 1
-    blocks = dagforward.LAST_LAUNCH["blocks"]
-    assert (blocks > 1) == (case == "wide") and dagforward.LAST_LAUNCH["waves"] == len(p.wave) - 1
+    assert dagforward.LAUNCHES == before + 1 and dagforward.PLAN_LAUNCHES == plans + 1
+    launch = dagforward.LAST_LAUNCH
+    assert launch["design"] == ("ring" if p.widest <= dagforward.RING_MAX_CELLS else "wide")
+    assert (launch["blocks"] > 1) == (case in ("wide", "two-block"))
+    assert launch["waves"] == len(p.wave) - 1 and launch["lanes"] == dagforward.LANES
     ref = host.cells[:nx, :ny].reshape(-1, 5)[p.layout.flat_index()]
     g = cells.cpu().numpy()
     assert np.array_equal(g == -np.inf, ref == -np.inf)
@@ -1137,7 +1150,29 @@ def test_dagfill_kernel_matches_host_and_plain(cuda, case):
     assert np.all(np.abs(g[live] - ref[live]) <= 1e-9)
     plain = dagforward.dag_fill_band_plain(inp).cpu().numpy()
     assert np.array_equal(g == -np.inf, plain == -np.inf)
-    assert np.all(np.abs(g[live] - plain[live]) <= 1e-9)
+    assert np.all(np.abs(g[live] - plain[live]) <= 1e-12 * np.maximum(1.0, np.abs(plain[live])))
+
+
+@pytest.mark.parametrize("case", list(DAG_CASES))
+def test_dagplan_kernel_matches_plain_plan(cuda, case):
+    """The plan kernel's records, terms and spans equal the plain plan's on
+    the same inputs on the card: every integer word, every lp; the absorb
+    values (each the card's log of the same ordered sum) to 1e-15."""
+    from historian_tpu_torch.ops import dagforward
+
+    _, host = _dag_merge(*DAG_CASES[case])
+    inp = dagforward.upload_band(dagforward.plan(host), cuda)
+    got, band = dagforward.plan_records(inp)
+    want = dagforward.plan_records_plain(inp)
+    assert torch.equal(got.spans, want.spans) and got.terms.shape == want.terms.shape
+    assert torch.equal(got.terms, want.terms)
+    assert torch.equal(got.recs[:, 10:], want.recs[:, 10:])
+    assert torch.equal(got.recs[:, 2:10], want.recs[:, 2:10])
+    a, b = got.recs.view(torch.float64)[:, 0], want.recs.view(torch.float64)[:, 0]
+    assert torch.equal(a == 0, b == 0) and torch.equal(torch.isfinite(a), torch.isfinite(b))
+    live = torch.isfinite(b)
+    assert torch.all((a[live] - b[live]).abs() <= 1e-15 * b[live].abs().clamp(min=1.0))
+    assert bool((band == -torch.inf).all()) and band.shape == (inp.layout.n, 5)
 
 
 def test_dagfill_band_readback(cuda):
@@ -1151,7 +1186,8 @@ def test_dagfill_band_readback(cuda):
     out = np.full_like(host.cells, -np.inf)
     p = dagforward.dag_forward_cells(host, cuda, out)
     assert len(dagforward.UPLOADS) == n_up + 1
-    assert dagforward.UPLOADS[-1]["bytes"] >= len(p.cells) * 16
+    ex = p.factors[0]
+    assert dagforward.UPLOADS[-1]["bytes"] >= len(p.cells) * 8 + ex.size * 8
     assert len(readback.READBACKS) == n_read + 1
     read = readback.READBACKS[-1]
     assert read["kind"] == "dag" and read["bytes"] == p.layout.n * 40
@@ -1165,7 +1201,7 @@ def test_dagfill_rejects_float32(cuda):
 
     _, host = _dag_merge(60, 50, False)
     inp = dagforward.upload_band(dagforward.plan(host), cuda)
-    inp.absorb = inp.absorb.float()
+    inp.ex = inp.ex.float()
     with pytest.raises(ValueError, match="float64"):
         dagforward.dag_fill_band(inp)
 
