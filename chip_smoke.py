@@ -124,8 +124,9 @@ Phases, each fatal on failure (nothing is caught):
       at long6's first fill, in turns (historian_tpu_torch/branch_bench.py,
       roots.compare_roots).  Prints a {"branchfill": ...} JSON line;
   (n) MCMC with kernel (d), the sibling fill, and kernel (e) in Forward
-      mode: `mcmc -samples 3 -seed 7` on small6 in float64 (small4 if one
-      of small6's fills crosses the 2e6 state-cell route rule) on the CPU
+      mode: `mcmc -samples 3 -seed 7` on small6 in float64 (for the
+      automatic route small4, then small6 cut to 150-200 aa, where one of
+      its fills crosses the sibling or the branch route rule) on the CPU
       and on the card's automatic route (every fill on the host), output
       and -trace file byte-identical; then with every sibling and branch
       fill forced onto the kernels, launches equal to fills, each fill held
@@ -140,14 +141,23 @@ Phases, each fatal on failure (nothing is caught):
       memory; then one proposal of each alignment move on its history
       from a seeded mt19937 (kernel (d) banded and full-mask, kernel (e)
       Forward ring and wide, each fill held against fill.cpp), and kernel
-      (d) at long6's banded node-align fill (against the plain version and
-      fill.cpp) and a full-mask prune-and-regraft fill (against fill.cpp):
-      ms and us a diagonal, the plain version's and fill.cpp's ms, the
-      band's bytes up and back and the copies' ms, the bound and the
-      dependency floor; kernel (e) Forward's ms at a ring and a wide MCMC
-      fill; then both routes of the node-align proposal's SiblingMatrix
-      cut at the sizes that bracket the route rule's crossings, banded
-      and with a full mask.
+      (d) at long6's banded node-align fill (the ring design) and a
+      full-mask prune-and-regraft fill (the strip design), each against
+      fill.cpp (1e-9, the bit-equal share printed) and the plain version
+      (1e-12 relative): the design, lanes a cell, the block shape and the
+      ring's slots or the strips, ms and us a diagonal, at the banded fill
+      the plan kernel against the plain plan (byte for byte) and the plan
+      kernel's and the fill's ms alone, at the full mask the strip design
+      at strips of 16, 32 and 64 rows (the same bits), the plain
+      version's and fill.cpp's ms, the band's bytes up and back and the
+      copies' ms, the bound and both dependency floors (a lane group a
+      cell; one thread a cell, the first design's); with `--parent DIR`,
+      kernel (d) of that version and of this one at both fills, in turns
+      (historian_tpu_torch/sibling_bench.py, roots.compare_roots), and
+      whether their cells are the same bits; kernel (e) Forward's ms at a
+      ring and a wide MCMC fill; then both routes of the node-align
+      proposal's SiblingMatrix cut at ~0.3-2e6 in-mask state-cells,
+      banded and with a full mask (the sweep behind the route rule).
       Prints an {"mcmc": ...} JSON line;
   (o) kernel (a), the DAG x DAG merge fill: small6 default and small6
       `-careful -norefine` in float64 with every merge of a sampled or
@@ -181,8 +191,9 @@ counted from 0: K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32,
 K2 in (h) fused and (l) small6 fused, the guide kernel in (h) fused, (j)
 long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
 kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
-proposals), kernel (d) in (n) long6 (the same), kernel (a) and its plan
-kernel in (o)'s long12 run on the automatic route.
+proposals), kernel (d) and its plan kernel in (n) long6 (the same),
+kernel (a) and its plan kernel in (o)'s long12 run on the automatic
+route.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -192,7 +203,9 @@ tensor cores) or 34 TFLOP/s (float64).  Operations are counted from the
 kernel's recurrence: each add, maximum or compare one operation, each
 log-sum-exp five (maximum, difference, exp, log1p, add); kernel (d)'s
 bytes are the band's 11 states written (88 B a cell) and its emission
-and mask byte read (9 B), its operations 98 an in-mask cell; kernel
+and mask byte read (9 B), its operations 98 an in-mask cell; its plan
+kernel's, the records written (48 B a cell slot of each diagonal) and
+the band's emission and mask read; kernel
 (a)'s bytes are the band's 5 states written (40 B a cell), each
 in-envelope cell's plan entry read (8 B) and the per-state arrays (the
 absorb factors among them), its operations DAG_OPS by each cell's
@@ -709,13 +722,14 @@ def envelope_cells(args) -> int:
     return n
 
 
-def write_small6(d: str) -> str:
-    """small6: the 6 sequences of tests/data/long6.fa cut to 240-340 aa."""
+def write_small6(d: str, lengths=(240, 260, 280, 300, 320, 340), name="small6") -> str:
+    """small6: the 6 sequences of tests/data/long6.fa cut to 240-340 aa (or
+    to `lengths`, into `name`.fa)."""
     seqs = read_fasta(os.path.join(REPO, "tests", "data", "long6.fa"))
-    fa = os.path.join(d, "small6.fa")
+    fa = os.path.join(d, f"{name}.fa")
     with open(fa, "w") as f:
-        for (name, s), n in zip(seqs, (240, 260, 280, 300, 320, 340)):
-            f.write(f">{name}\n{s[:n]}\n")
+        for (seq_name, s), n in zip(seqs, lengths):
+            f.write(f">{seq_name}\n{s[:n]}\n")
     return fa
 
 
@@ -1923,6 +1937,7 @@ def branch_parent(parent: str, long6_args) -> dict:
     first refine fill, both modes: historian_tpu_torch/branch_bench.py in
     fresh processes, parent, this, this, parent (roots.compare_roots);
     returns each root's runs."""
+    t_start = time.perf_counter()
     from historian_tpu_torch.roots import compare_roots
 
     _, emit, mask, ins, trans = long6_args
@@ -1941,6 +1956,7 @@ def branch_parent(parent: str, long6_args) -> dict:
                   f"{r['viterbi_ms']:.3f} ms, forward {r['forward_ms']:.3f} ms (kernel alone, "
                   f"{r['design']}); wrapper {r['viterbi_wrapper_ms']:.3f} / "
                   f"{r['forward_wrapper_ms']:.3f} ms", flush=True)
+    print(f"(m) the parent comparison took {time.perf_counter() - t_start:.1f} s", flush=True)
     return table
 
 
@@ -1959,6 +1975,8 @@ SIBLING_TOL = 1e-9
 #: from the kernel and from fill.cpp alike, ~2e-13 relative, so 1e-9
 #: absolute holds there against fill.cpp only
 SIBLING_PLAIN_RTOL = 1e-12
+#: strip heights at which (n) times the strip design at long6's full mask
+SIBLING_STRIP_ROWS = (16, 32, 64)
 #: MCMC samples a node in (n)'s runs
 MCMC_SAMPLES = {"small": "3", "long6": "2"}
 
@@ -2084,7 +2102,8 @@ def mcmc_counts() -> dict:
     from historian_tpu_torch.ops import branchdp, siblingdp
     from historian_tpu_torch.sampler import sibling
 
-    return dict(siblingfill=siblingdp.LAUNCHES, branchfill=branchdp.LAUNCHES,
+    return dict(siblingfill=siblingdp.LAUNCHES, siblingplan=siblingdp.PLAN_LAUNCHES,
+                sibling_designs=dict(siblingdp.DESIGNS), branchfill=branchdp.LAUNCHES,
                 branch_designs=dict(branchdp.DESIGNS), branch_modes=dict(branchdp.MODES),
                 sibling_fills=dict(sibling.FILLS), branch_fills=dict(branchmatrix.FILLS))
 
@@ -2094,8 +2113,9 @@ def zero_mcmc_counts() -> None:
     from historian_tpu_torch.ops import branchdp, siblingdp
     from historian_tpu_torch.sampler import sibling
 
-    siblingdp.LAUNCHES = branchdp.LAUNCHES = 0
-    for d in (branchdp.DESIGNS, branchdp.MODES, sibling.FILLS, branchmatrix.FILLS):
+    siblingdp.LAUNCHES = siblingdp.PLAN_LAUNCHES = branchdp.LAUNCHES = 0
+    for d in (siblingdp.DESIGNS, branchdp.DESIGNS, branchdp.MODES, sibling.FILLS,
+              branchmatrix.FILLS):
         for k in d:
             d[k] = 0
 
@@ -2109,33 +2129,37 @@ def run_mcmc_cli(cli, args: list, trace_dir: str) -> tuple:
 
 
 def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
-    """(n), small: `mcmc -samples 3 -seed 7` in float64 on small6 (small4 if
-    a fill of small6 takes the card under the route rule) from FASTA, on
-    the CPU, on the card's automatic route (every fill under the rule, so
-    on the host: output and -trace file byte-identical to the CPU's), and
-    with HISTORIAN_DEVICE_SIBLING=1 HISTORIAN_DEVICE_BRANCH=1 (every sibling
-    and branch fill on kernels (d) and (e), launches equal to fills, each
-    fill held against fill.cpp on the same inputs; whether the output still
-    equals the CPU's is printed, not required: an MH decision may turn on
-    the last bits)."""
-    fa6 = write_small6(d)
+    """(n), small: `mcmc -samples 3 -seed 7` in float64 from FASTA on the
+    CPU and on the card's automatic route, on small6, or where a fill of
+    small6 takes the card under the route rules on small4, then on small6
+    cut to 150-200 aa: the first input whose fills all stay on the host
+    gives output and -trace file byte-identical to the CPU's.  Then small6
+    with HISTORIAN_DEVICE_SIBLING=1 HISTORIAN_DEVICE_BRANCH=1 (every
+    sibling and branch fill on kernels (d) and (e), launches equal to
+    fills, each fill held against fill.cpp on the same inputs; whether the
+    output still equals the CPU's is printed, not required: an MH decision
+    may turn on the last bits)."""
     fa4, nh4 = write_small4(d)
     base = ["-samples", MCMC_SAMPLES["small"], "-seed", "7"]
-    for name, inp in (("small6", [fa6]), ("small4", ["-tree", nh4, fa4])):
+    inputs = {"small6": [write_small6(d)], "small4": ["-tree", nh4, fa4],
+              "small6 cut to 150-200 aa": [write_small6(d, (150, 160, 170, 180, 190, 200),
+                                                        "small6-200")]}
+    cpu_runs = {}
+    for name, inp in inputs.items():
         sub = {p: os.path.join(d, f"{name}-{p}") for p in ("cpu", "auto", "forced")}
         for p in sub.values():
             os.makedirs(p, exist_ok=True)
-        cpu = run_mcmc_cli(cli, ["-platform", "cpu", *base, *inp], sub["cpu"])
+        cpu = cpu_runs[name] = run_mcmc_cli(cli, ["-platform", "cpu", *base, *inp], sub["cpu"])
         zero_mcmc_counts()
         with watched_fills() as fills:
             auto = run_mcmc_cli(cli, ["-platform", "gpu", *base, *inp], sub["auto"])
         counts, seen = mcmc_counts(), fill_summary(fills)
         if not seen["sibling"]["device"] and not seen["branch"]["device"]:
             break
-        print(f"(n) {name}: a fill takes the card under the route rule ({seen}); small4 "
-              f"instead", flush=True)
+        print(f"(n) {name}: a fill takes the card under the route rules ({seen}); a smaller "
+              f"input for the all-host run", flush=True)
     else:
-        raise AssertionError("(n) small4's fills take the card too")
+        raise AssertionError("(n) the smallest input's fills take the card too")
     if auto != cpu:
         raise AssertionError(f"(n) {name} mcmc f64 automatic route: the card's output or "
                              f"-trace file differs from the CPU's")
@@ -2146,6 +2170,8 @@ def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
           f"(output {len(auto[0])} bytes, LP {stockholm_rows_lp(auto[0])[1]}, -trace "
           f"{len(auto[1])} bytes); fills {seen}, routes {counts['sibling_fills']} "
           f"{counts['branch_fills']}", flush=True)
+    name, inp, cpu = "small6", inputs["small6"], cpu_runs["small6"]
+    sub = {"forced": os.path.join(d, "small6-forced")}
     os.environ["HISTORIAN_DEVICE_SIBLING"] = os.environ["HISTORIAN_DEVICE_BRANCH"] = "1"
     try:
         zero_mcmc_counts()
@@ -2167,17 +2193,23 @@ def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
           f"{max(f['err'] for f in fills):.3e} of fill.cpp (same -inf cells); output "
           f"{'equals' if same else 'DIFFERS FROM'} the CPU's (LP {stockholm_rows_lp(forced[0])[1]}"
           f" against {stockholm_rows_lp(cpu[0])[1]})", flush=True)
-    return dict(name=name, forced_equal=same, sibling_err=seen["sibling"]["err"],
-                branch_err=seen["branch"]["err"])
+    return dict(name=name, auto_name=list(cpu_runs)[-1], forced_equal=same,
+                sibling_err=seen["sibling"]["err"], branch_err=seen["branch"]["err"])
 
 
-def sibling_kernel_check(name: str, args) -> dict:
+def sibling_kernel_check(name: str, args, strip_rows=()) -> dict:
     """Kernel (d) at one fill: its band uploaded (bytes, copy ms), the band
-    entry against fill.cpp and against the plain version, and the plain
-    version against fill.cpp, the kernel's ms (CUDA events, median of 5
-    after a warm launch) and us a diagonal, the plain version's and
-    fill.cpp's ms, the band read back (bytes, ms), the bound and the
-    dependency floor."""
+    entry against fill.cpp (the bit-equal share printed) and against the
+    plain version, and the plain version against fill.cpp; the design it
+    took (lanes a cell, blocks and threads, the ring's slots or the strips);
+    in the ring design the plan kernel against the plain plan (byte for
+    byte) and each one's ms, and the fill alone; the kernel's ms (CUDA
+    events, median of 5 after a warm launch) and us a diagonal, the plain
+    version's and fill.cpp's ms, the band read back (bytes, ms), the bound
+    and both dependency floors (a lane group a cell, this design's; one
+    thread a cell, the first design's); and at each of `strip_rows`, the
+    strip design's ms with strips of that height, its cells equal to the
+    first launch's bit for bit."""
     from historian_tpu_torch.ops import readback, siblingdp
 
     match, mask, l_emit, r_emit, tmat = args
@@ -2194,7 +2226,6 @@ def sibling_kernel_check(name: str, args) -> dict:
     got, lp_end = siblingdp.read_band(cells, lp, lay)
     got = got.vals
     back = readback.READBACKS[n_read]
-    del cells
     host, host_lp, fill_cpp_ms = sibling_host(args)
     ref = host.reshape(-1, 11)[idx]
     del host
@@ -2211,34 +2242,74 @@ def sibling_kernel_check(name: str, args) -> dict:
         if not abs(a - b) <= SIBLING_PLAIN_RTOL * abs(host_lp):
             raise AssertionError(f"{name}: plain lp_end {b!r}, {what} {a!r}")
     del got, ref, plain
+    plan, plan_line = {}, "no plan (strip design)"
+    if launch["design"] == "ring":
+        planned = siblingdp.plan_records(inp)
+        want, plain_plan_ms = host_ms(lambda: siblingdp.plan_records_plain(
+            inp, launch["width"], launch["ring_rows"]))
+        if not torch.equal(planned, want):
+            raise AssertionError(f"{name}: the plan kernel's records differ from the plain plan's")
+        del want
+        plan_bytes = planned.numel() + lay.n * 9 + 8 * (X1 + Y1) + 4 * (2 * X1 + 1) + 8 * K
+        plan = dict(plan_kernel_ms=cuda_ms_median(lambda: siblingdp.plan_records(inp)),
+                    fill_ms=cuda_ms_median(lambda: siblingdp.sibling_fill_band(inp, planned)),
+                    plain_plan_ms=plain_plan_ms, plan_bytes=int(planned.numel()),
+                    plan_bound=bound(plan_bytes, 0.0, torch.float64))
+        del planned
+        plan_line = (f"plan kernel == plain plan ({plan['plan_bytes']} bytes of records): plan "
+                     f"kernel {plan['plan_kernel_ms']:.3f} ms (bound "
+                     f"{plan['plan_bound']['bound_ms']:.4f}), fill alone {plan['fill_ms']:.3f} ms, "
+                     f"plain plan {plain_plan_ms:.1f} ms")
     ms = cuda_ms_median(lambda: siblingdp.sibling_fill_band(inp))
+    heights = {}
+    for H in strip_rows:
+        other, other_lp = siblingdp.sibling_fill_band(inp, design="strip", strip_rows=H)
+        if not (torch.equal(other, cells) and torch.equal(other_lp, lp)):
+            raise AssertionError(f"{name}: strips of {H} rows differ from the first launch")
+        del other
+        heights[H] = dict(ms=cuda_ms_median(
+            lambda: siblingdp.sibling_fill_band(inp, design="strip", strip_rows=H)),
+            blocks=siblingdp.LAST_LAUNCH["blocks"], strips=siblingdp.LAST_LAUNCH["strips"])
+    del cells
     in_mask = int(mask.sum())
     n_bytes = (lay.n * (88 + 8 + 1) + 8 * (X1 + Y1) + 144 * 8 + 4 * (2 * X1 + 1)
                + 8 * K)
     bnd = bound(n_bytes, in_mask * SIBLING_OPS, torch.float64)
-    step_ns = sibling_chain_ns(tmat)
-    floor_ms = K * step_ns / 1e6
+    step_ns, first_step_ns = sibling_chain_ns(tmat, True), sibling_chain_ns(tmat, False)
+    floor_ms, first_floor_ms = K * step_ns / 1e6, K * first_step_ns / 1e6
+    shape = (f"{launch['blocks']} block(s) of {launch['threads']}, "
+             + (f"{launch['width']} slots a diagonal, ring rows {launch['ring_rows']}"
+                if launch["design"] == "ring" else
+                f"{launch['strips']} strips of {launch['strip_rows']} rows"))
+    swept = "; ".join(f"strips of {H}: {h['ms']:.3f} ms ({h['ms'] * 1e3 / K:.3f} us a diagonal, "
+                      f"{h['strips']} strips, {h['blocks']} blocks)" for H, h in heights.items())
     print(f"(n) kernel (d) {name} {X1} x {Y1} ({in_mask} in-mask cells, {lay.n} band cells, "
-          f"widest diagonal {lay.widest}, {launch['blocks']} block(s) of {launch['threads']}): "
-          f"{ms:.3f} ms ({ms * 1e3 / K:.3f} us a diagonal over {K}), plain {plain_ms:.1f} ms, "
-          f"fill.cpp {fill_cpp_ms:.1f} ms; max abs err {err:.3e} against fill.cpp (cells "
-          f"bit-equal: {bit_equal:.4f}), {plain_err:.3e} against plain; plain against fill.cpp "
-          f"{plain_host_err:.3e}; upload {up['bytes']} bytes in {up['ms']:.3f} ms (packing "
-          f"{up['pack_ms']:.1f} ms), readback {back['bytes']} bytes in {back['ms']:.3f} ms; "
-          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), dependency floor "
-          f"{floor_ms:.3f} ms ({K} x {step_ns:.1f} ns)", flush=True)
+          f"widest diagonal {lay.widest}; {launch['design']} design, {launch['lanes']} lanes a "
+          f"cell, {shape}): {ms:.3f} ms ({ms * 1e3 / K:.3f} us a diagonal over {K}), plain "
+          f"{plain_ms:.1f} ms, fill.cpp {fill_cpp_ms:.1f} ms; max abs err {err:.3e} against "
+          f"fill.cpp (cells bit-equal: {bit_equal:.6f}), {plain_err:.3e} against plain; plain "
+          f"against fill.cpp {plain_host_err:.3e}; {plan_line}; upload {up['bytes']} bytes in "
+          f"{up['ms']:.3f} ms (packing {up['pack_ms']:.1f} ms), readback {back['bytes']} bytes "
+          f"in {back['ms']:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"dependency floor {floor_ms:.3f} ms ({K} x {step_ns:.1f} ns, a lane group a cell), "
+          f"the first design's {first_floor_ms:.3f} ms ({K} x {first_step_ns:.1f} ns, one thread "
+          f"a cell){'; ' + swept if swept else ''}", flush=True)
     return dict(ms=ms, us_per_diagonal=ms * 1e3 / K, plain_ms=plain_ms, fill_cpp_ms=fill_cpp_ms,
                 err=max(err, plain_err), fill_cpp_err=err, plain_err=plain_err,
                 plain_fill_cpp_err=plain_host_err, bit_equal_share=bit_equal, band_cells=lay.n,
-                in_mask=in_mask, upload_bytes=up["bytes"], upload_ms=up["ms"],
-                readback_bytes=back["bytes"], readback_ms=back["ms"],
-                dependency_floor_ms=floor_ms, step_ns=step_ns, blocks=launch["blocks"], **bnd)
+                in_mask=in_mask, widest=lay.widest, diagonals=K, launch=launch,
+                upload_bytes=up["bytes"], upload_ms=up["ms"], readback_bytes=back["bytes"],
+                readback_ms=back["ms"], dependency_floor_ms=floor_ms, step_ns=step_ns,
+                first_design_floor_ms=first_floor_ms, first_design_step_ns=first_step_ns,
+                strip_heights=heights, **plan, **bnd)
 
 
-def sibling_chain_ns(tmat: np.ndarray) -> float:
-    """The dependency floor's step: one cell of kernel (d)'s recurrence
-    waiting on the one before (csrc/siblingfill.cu `siblingfill_chain`, one
-    thread), in ns, from CUDA events around 20000 steps, median of 3."""
+def sibling_chain_ns(tmat: np.ndarray, split: bool) -> float:
+    """A dependency floor's step, in ns, from CUDA events around 20000 steps,
+    median of 3 (csrc/siblingfill.cu): `split`, this design's, a lane group
+    computing one cell from the one before through shared memory
+    (`siblingfill_chain_split`); else the first design's, one thread a
+    cell's ~12 log-sum-exps in a row (`siblingfill_chain`)."""
     from historian_tpu_torch.ops import _kernels
 
     t = torch.as_tensor(tmat.reshape(-1), dtype=torch.float64, device="cuda")
@@ -2247,10 +2318,50 @@ def sibling_chain_ns(tmat: np.ndarray) -> float:
 
     def run():
         _kernels.check(_kernels.lib().siblingfill_chain_f64(
-            t.data_ptr(), steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
-            "siblingfill_chain")
+            t.data_ptr(), steps, int(split), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "siblingfill_chain")
 
     return cuda_ms_median(run, 3) * 1e6 / steps
+
+
+def sibling_parent(parent: str, fills: dict) -> dict:
+    """Kernel (d) of the checkout in `parent` and of this one at each fill
+    (name: its host inputs, pickled): historian_tpu_torch/sibling_bench.py
+    in fresh processes, parent, this, this, parent (roots.compare_roots),
+    each run's ms (and, in the ring design, the plan kernel's and the fill's
+    alone), its design and a hash of its cells; returns each fill's table
+    and whether both versions' cells were the same bits."""
+    t_start = time.perf_counter()
+    import pickle
+
+    from historian_tpu_torch.roots import compare_roots
+
+    out = {}
+    for name, args in fills.items():
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "sibling_fill.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(tuple(args), f, protocol=4)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                compare_roots(os.path.join(REPO, "historian_tpu_torch", "sibling_bench.py"),
+                              ["--inputs", path, "--reps", "5"], [parent, REPO], 2,
+                              "sibling_bench")
+        table = json.loads(buf.getvalue().splitlines()[-1])["compare"]
+        digests = {r["cells_sha256"] for runs in table.values() for r in runs}
+        for root, runs in table.items():
+            tag = "parent" if root == os.path.abspath(parent) else "this"
+            for r in runs:
+                extra = (f" = plan kernel {r['plan_kernel_ms']:.3f} + fill {r['fill_ms']:.3f}"
+                         if "fill_ms" in r else "")
+                print(f"(n) kernel (d) at {name}, {tag} ({root}): {r['kernel_ms']:.3f} ms{extra} "
+                      f"({r['kernel_ms'] * 1e3 / r['diagonals']:.3f} us a diagonal; "
+                      f"{json.dumps(r['launch'])})", flush=True)
+        print(f"(n) kernel (d) at {name}: the parent's cells and this one's the same bits: "
+              f"{len(digests) == 1}", flush=True)
+        out[name] = dict(runs=table, same_bits=len(digests) == 1)
+    print(f"(n) the parent comparison took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return out
 
 
 def branch_forward_check(name: str, args) -> dict:
@@ -2349,12 +2460,11 @@ def direct_proposals(sampler, fills: list) -> list:
 
 
 #: the cuts n x n of the long6 node-align proposal's SiblingMatrix at which
-#: sibling_routes times both routes: those that bracket the rule's
-#: crossings (PERF.md has the whole sweep) under its guide envelope (in-mask
-#: state-cells 1.0e6 at 2100 to 1.5e6 at 3000), and with a full mask (0.6e6
-#: to 1.0e6 state-cells; fill.cpp's OpenMP wavefront starts between 240 and
-#: 270)
-SIBLING_ROUTE_CUTS = {"banded": (2100, 2500, 3000), "full": (240, 270, 301)}
+#: sibling_routes times both routes, from ~0.3e6 to ~2e6 in-mask
+#: state-cells: under its guide envelope (1.0e6 at 2100, 1.5e6 at 3000),
+#: and with a full mask (0.3e6 at 165 to 2.0e6 at 426; fill.cpp's OpenMP
+#: wavefront starts between 240 and 270)
+SIBLING_ROUTE_CUTS = {"banded": (700, 1400, 2100, 3000, 4000), "full": (165, 240, 301, 426)}
 
 
 def sibling_routes(matrix_args) -> list:
@@ -2408,7 +2518,7 @@ def sibling_routes(matrix_args) -> list:
     return out
 
 
-def phase_mcmc(cli, long6_recon: str) -> dict:
+def phase_mcmc(cli, long6_recon: str, parent: str | None) -> dict:
     """(n) MCMC (`mcmc`, sampler/sampler.py) with kernel (d), the sibling
     fill, and kernel (e) in Forward mode.  `small_mcmc` (small6 on the CPU,
     the card's automatic and forced routes); kernel (d) at small6's
@@ -2421,9 +2531,12 @@ def phase_mcmc(cli, long6_recon: str) -> dict:
     counts from 0 again, one proposal of each alignment move on its history
     (`direct_proposals`), and kernel (d) at a long6 banded node-align fill
     and a full-mask prune-and-regraft fill against its plain version and
-    fill.cpp, kernel (e) Forward at a ring and a wide MCMC fill, and both
-    routes of the node-align proposal's SiblingMatrix around the route rule
-    (`sibling_routes`).  The kernel line's launches are the long6 run's."""
+    fill.cpp, with the strip design's heights swept at the full mask
+    (`sibling_kernel_check`), kernel (e) Forward at a ring and a wide MCMC
+    fill, and both routes of the node-align proposal's SiblingMatrix around
+    the route rule (`sibling_routes`).  With `parent`, kernel (d) of that
+    checkout beside this one at both long6 fills (`sibling_parent`).  The
+    kernel line's launches are the long6 run's."""
     from historian_tpu_torch.ops import branchdp, readback, siblingdp
     from historian_tpu_torch.sampler.sampler import MOVE_NAMES
     from historian_tpu_torch.sampler.sibling import SiblingMatrix
@@ -2460,7 +2573,8 @@ def phase_mcmc(cli, long6_recon: str) -> dict:
     rows, lp = stockholm_rows_lp(out)
     if len(rows) != 11 or not math.isfinite(lp) or steps != 2 * 11:
         raise AssertionError(f"(n) long6 mcmc: {len(rows)} rows, LP {lp}, {steps} steps")
-    if not (run_counts["siblingfill"] and run_counts["branch_modes"]["forward"]):
+    if not (run_counts["siblingfill"] and run_counts["branch_modes"]["forward"]
+            and run_counts["siblingplan"] == run_counts["sibling_designs"]["ring"]):
         raise AssertionError(f"(n) long6 mcmc did not launch kernels (d) and (e): {run_counts}")
     seen = fill_summary(fills)
     moves = {MOVE_NAMES[k]: dict(proposed=s.moves_proposed[k], accepted=s.moves_accepted[k],
@@ -2470,7 +2584,8 @@ def phase_mcmc(cli, long6_recon: str) -> dict:
     print(f"(n) long6 mcmc -samples {MCMC_SAMPLES['long6']} -seed 7 on the card (the main path): "
           f"wall {wall:.2f} s, {steps} steps, LP {lp}; moves {moves}; sibling fills "
           f"{run_counts['sibling_fills']}, branch fills {run_counts['branch_fills']}, by mask "
-          f"{seen}; kernel (d) {run_counts['siblingfill']} launches, kernel (e) "
+          f"{seen}; kernel (d) {run_counts['siblingfill']} launches "
+          f"{run_counts['sibling_designs']} (plan kernel {run_counts['siblingplan']}), kernel (e) "
           f"{run_counts['branchfill']} launches {run_counts['branch_modes']} "
           f"{run_counts['branch_designs']}; uploads sibling "
           f"{len(sib_up)} ({sum(u['bytes'] for u in sib_up)} bytes, "
@@ -2496,20 +2611,26 @@ def phase_mcmc(cli, long6_recon: str) -> dict:
           f"launches, kernel (e) {direct['branchfill']} {direct['branch_modes']} "
           f"{direct['branch_designs']}; their branch fills within {max(branch_errs):.3e} of "
           f"fill.cpp", flush=True)
-    for kind, name in (("banded", "long6 node-align"), ("full", "long6 prune-regraft")):
-        checks[name] = sibling_kernel_check(name, keep.pop(kind))
+    long6_fills = {"long6 node-align": keep.pop("banded"), "long6 prune-regraft": keep.pop("full")}
+    for name, args in long6_fills.items():
+        checks[name] = sibling_kernel_check(
+            name, args, SIBLING_STRIP_ROWS if name == "long6 prune-regraft" else ())
     forward = {d: branch_forward_check(f"long6 {d} branch", long6_branch[d])
                for d in ("ring", "wide")}
     routes = sibling_routes(sib_init[0][1:])  # the node-align proposal's, less self
+    parent_runs = sibling_parent(parent, long6_fills) if parent else None
+    del long6_fills
     main = checks["long6 node-align"]
     line = {"mcmc": dict(small=small, long6=dict(wall_s=wall, steps=steps, lp=lp, moves=moves,
                                                  counts=run_counts, fills=seen,
                                                  peak_device_bytes=peak_dev,
                                                  peak_host_bytes=host_mem["peak"]),
                          direct=dict(counts=direct, proposals=proposals), siblingfill=checks,
-                         branch_forward=forward, routes=routes)}
+                         branch_forward=forward, routes=routes, parent=parent_runs)}
     print(json.dumps(line), flush=True)
-    return dict(launches=run_counts["siblingfill"], branch_launches=run_counts["branchfill"],
+    return dict(launches=run_counts["siblingfill"], plan_launches=run_counts["siblingplan"],
+                plan_ms=main["plan_kernel_ms"], plain_plan_ms=main["plain_plan_ms"],
+                plan_bound=main["plan_bound"], branch_launches=run_counts["branchfill"],
                 err=max(max(c["err"] for c in checks.values()), small["sibling_err"]),
                 branch_err=max(max(f["err"] for f in forward.values()), small["branch_err"],
                                max(branch_errs)),
@@ -2736,6 +2857,7 @@ def dag_parent(parent: str, args) -> dict:
     in fresh processes, parent, this, this, parent (roots.compare_roots):
     each run's host plan (ms, by part where timed) and `dag_fill_band` ms;
     returns each root's runs."""
+    t_start = time.perf_counter()
     import pickle
 
     from historian_tpu_torch.roots import compare_roots
@@ -2759,6 +2881,7 @@ def dag_parent(parent: str, args) -> dict:
                   f"{r['kernel_ms']:.3f} ms{extra}; host plan {r['plan_ms']:.1f} ms"
                   f"{' (' + parts + ')' if parts else ''}, upload {r['upload_bytes']} bytes in "
                   f"{r['upload_ms']:.3f} ms (packing {r['pack_ms']:.1f})", flush=True)
+    print(f"(o) the parent comparison took {time.perf_counter() - t_start:.1f} s", flush=True)
     return table
 
 
@@ -2912,8 +3035,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of historian_tpu_torch on one card.")
     ap.add_argument("--parent", help="a checkout of another version (e.g. the parent commit "
-                    "unpacked under build/): time its kernels (e) and (a) beside this one's "
-                    "in (m) and (o)")
+                    "unpacked under build/): time its kernels (e), (d) and (a) beside this "
+                    "one's in (m), (n) and (o)")
     opts = ap.parse_args(argv)
     from historian_tpu_torch import bench, cli
     from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
@@ -2932,6 +3055,9 @@ def main(argv=None) -> int:
     _kernels.lib()
     print(f"(b) kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def elapsed(phases: str) -> None:
+        print(f"(time) phases {phases} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     k1 = phase_k1(colforward)
     walk_planes = k1.pop("walk_planes")
     f32, f64 = torch.float32, torch.float64
@@ -2941,22 +3067,29 @@ def main(argv=None) -> int:
     sampled_err = phase_walker(tracedp, "long12 in order", *walk_planes[("long12", f32)], 2)["err"]
     phase_walker(tracedp, "long12 in order", *walk_planes.pop(("long12", f32)), 10, check=False)
     walker = phase_walker(tracedp, "long12", *walk_planes.pop(("long12", f64)), 1)
+    elapsed("a-d")
     launches = phase_e2e(cli, colforward, tracedp)
     k2 = phase_k2(colforward)
     guide = phase_guide(guidedp)
     launches_h = phase_guide_e2e(cli, colforward, tracedp, guidedp)
     pf = phase_pairforward(pairforward, bench, torch.device("cuda"))
+    elapsed("e-i")
     with tempfile.TemporaryDirectory() as work:
         launches_j = phase_default_recon(cli, colforward, tracedp, guidedp, work)
         routes_k = phase_counts(cli, work)
+        elapsed("j-k")
         launches_l = phase_careful(cli, colforward, tracedp, guidedp, work)
+        elapsed("l")
         branch = phase_branch(cli, colforward, tracedp, guidedp,
                               launches_l.pop("branch_args"), launches_l.pop("matrix_args"),
                               opts.parent)
-        mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"))
+        elapsed("m")
+        mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"), opts.parent)
+        elapsed("n")
         # (j) and (l) ran small6 from work, and (o) compares with their outputs
         dag = phase_dag(cli, work, launches_j.pop("small6_cpu"),
                         launches_l.pop("small6_careful_cpu"), opts.parent)
+        elapsed("o")
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -2999,6 +3132,12 @@ def main(argv=None) -> int:
         replaces="historian_tpu/ops/siblingdp.py:70", launches=mcmc["launches"],
         max_abs_err=mcmc["err"], ms=mcmc["ms"], plain_ms=mcmc["plain_ms"],
         bound_ms=mcmc["bound_ms"], bound_by=mcmc["bound_by"], library_ms=None))
+    kernels.append(dict(
+        name="siblingplan", route="cuda", source="historian_tpu_torch/csrc/siblingfill.cu",
+        replaces="historian_tpu/ops/siblingdp.py:70", launches=mcmc["plan_launches"],
+        max_abs_err=0.0, ms=mcmc["plan_ms"], plain_ms=mcmc["plain_plan_ms"],
+        bound_ms=mcmc["plan_bound"]["bound_ms"], bound_by=mcmc["plan_bound"]["bound_by"],
+        library_ms=None))
     kernels.append(dict(
         name="dagfill", route="cuda", source="historian_tpu_torch/csrc/dagfill.cu",
         replaces="historian_tpu/ops/dagforward.py:55", launches=dag["launches"],

@@ -107,6 +107,13 @@ Usage: {PROG} recon|count|fit|mcmc|generate [options] [files]
 
 #: flags of the JAX CLI whose paths are not ported yet, and their ROADMAP items
 _NOT_PORTED = {"-mesh": "item 7, multi-GPU"}
+#: environment variables with which the JAX CLI engages a device mesh
+#: (HISTORIAN_MESH) or a process group (the rest; parallel/dist.py
+#: `init_from_env` starts one where any is non-empty, HISTORIAN_DIST where
+#: it is "1").  HISTORIAN_SP needs no entry: without a mesh the JAX package
+#: ignores it too (parallel/spmerge.py `sp_mesh` returns None).
+_NOT_PORTED_ENV = ("HISTORIAN_MESH", "HISTORIAN_COORDINATOR", "HISTORIAN_NUM_PROCESSES",
+                   "HISTORIAN_PROCESS_ID")
 #: the commands of the JAX CLI, by alias
 _COMMANDS = {"r": "recon", "recon": "recon", "reconstruct": "recon", "c": "count",
              "count": "count", "f": "fit", "fit": "fit", "s": "sum", "sum": "sum",
@@ -312,6 +319,12 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"{PROG}: option '-profile' requires an argument")
         trace_dir = rest[i + 1]
         del rest[i : i + 2]
+
+    for name in _NOT_PORTED_ENV:
+        if os.environ.get(name):
+            raise not_ported(f"{name}={os.environ[name]!r}", _NOT_PORTED["-mesh"])
+    if os.environ.get("HISTORIAN_DIST") == "1":
+        raise not_ported("HISTORIAN_DIST=1", _NOT_PORTED["-mesh"])
 
     def run() -> int:
         if trace_dir:

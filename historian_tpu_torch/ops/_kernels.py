@@ -61,13 +61,17 @@ _SIGNATURES = {
     "branchfill": [_P] * 9 + [_I] * 6 + [_P],
     # trans8, steps, viterbi, out, stream: the dependency floor's step
     "branchfill_chain": [_P, _I, _I, _P, _P],
-    # emit, mask, l_emit, r_emit, t144, rowpos, off, diag, cells, lp_end,
-    # arrivals, sx, sy, blocks, threads, stream
-    "siblingfill": [_P] * 11 + [_I] * 4 + [_P],
-    # threads -> blocks that can be resident at once
+    # emit, mask, l_emit, r_emit, rowpos, off, diag, plan, sx, sy, width,
+    # ring_rows, stream: the ring design's plan
+    "siblingplan": [_P] * 8 + [_I] * 4 + [_P],
+    # plan, emit, mask, l_emit, r_emit, t144, rowpos, off, cells, lp_end,
+    # exch, progress, sx, sy, n, design, width, ring_rows, strip_rows,
+    # blocks, stream
+    "siblingfill": [_P] * 12 + [_I] * 8 + [_P],
+    # strip_rows -> blocks of the strip design that can be resident at once
     "siblingfill_capacity": [_I],
-    # t144, steps, out, stream: the dependency floor's step
-    "siblingfill_chain": [_P, _I, _P, _P],
+    # t144, steps, split, out, stream: the dependency floors' steps
+    "siblingfill_chain": [_P, _I, _I, _P, _P],
     # cells, wave, x_ptr, x_src, x_lp, y_ptr, y_src, y_lp, x_flags, y_flags,
     # insx, rootsubx, insy, rootsuby, ex, shift_x, ey, shift_y, rowpos, off,
     # diag, band, rank_of, wave_of, counts, n, N, W, sx, sy, CA, stream
@@ -84,8 +88,9 @@ _SIGNATURES = {
     "dagfill_chain": [_P, _I, _I, _P, _P],
 }
 #: the dtypes each kernel is built for, where not both
-_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingfill",
-                                       "siblingfill_capacity", "siblingfill_chain", "dagfill",
+_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingplan",
+                                       "siblingfill", "siblingfill_capacity",
+                                       "siblingfill_chain", "dagfill",
                                        "dagfill_capacity", "dagfill_chain", "dagplan_count",
                                        "dagplan_records")}
 

@@ -16,9 +16,16 @@ which keeps the host route's per-cell order (csrc/fill.cpp
 `sibling_fill`), so its cells differ from the host's only by the card's
 exp and log; `sibling_fill_band_plain`, the plain full fill gathered at
 the band, for CPU tensors.  Both give -inf where the host fill does (a
-cell outside the mask, a state no path reaches).  `upload_band` packs a
-host grid's band into one pinned buffer and copies it once, `read_band`
-copies the filled band and lp_end back once.
+cell outside the mask, a state no path reaches).  The kernel spreads a
+cell's 11 states over a lane group of LANES and runs one of two designs
+(DESIGNS): the ring, where the widest diagonal holds at most
+RING_MAX_CELLS cells (one block streaming a plan's records, the last two
+diagonals in shared memory; `plan_records` is the plan, on the card its
+kernel, `plan_records_plain` the same records in PyTorch), else the
+strips (a block a strip of STRIP_ROWS rows, each strip a pipeline stage
+behind the one above).  `upload_band` packs a host grid's band into one
+pinned buffer and copies it once, `read_band` copies the filled band and
+lp_end back once.
 """
 
 from __future__ import annotations
@@ -56,13 +63,33 @@ _KEYS = [
 
 #: kernel launches made by `sibling_fill_band` (never by the plain version)
 LAUNCHES = 0
+#: those launches by design (csrc/siblingfill.cu): "ring", one block
+#: streaming the plan's records, for a band whose diagonals hold at most
+#: RING_MAX_CELLS cells; "strip", a pipeline of row strips, for the rest
+DESIGNS = {"ring": 0, "strip": 0}
+#: launches of the ring design's plan kernel (`plan_records` on the card)
+PLAN_LAUNCHES = 0
 #: one entry a band upload (`upload_band` on the card): bytes, the copy's
 #: ms and the host's ms packing the band
 UPLOADS: list = []
-#: the last launch's blocks and threads a block
+#: the last launch's design, lanes a cell, blocks, threads a block, and
+#: the ring's slots a diagonal or the strips' rows and count
 LAST_LAUNCH: dict = {}
-#: threads a block of the kernel (csrc/siblingfill.cu, at most 256)
-THREADS = 256
+#: lanes a cell (csrc/siblingfill.cu kLanes)
+LANES = 4
+#: the ring design's widest diagonal (kRingMaxCells)
+RING_MAX_CELLS = 128
+#: rows a strip of the strip design (a multiple of 8, at most
+#: STRIP_MAX_ROWS = kStripMaxRows)
+STRIP_ROWS = 64
+STRIP_MAX_ROWS = 64
+#: the ring design's plan record (csrc/siblingfill.cu Rec): match
+#: emission, l_emit, r_emit (float64), band position (int32), the ring
+#: slots of the cell and of (x-1, y), (x, y-1), (x-1, y-1) (uint16),
+#: flags (int32: 1 in the mask, 2 the origin), 8 bytes of zeros
+REC_BYTES = 48
+#: band.cuh's cell kinds
+_ROW0, _ROWX, _COL0, _COLY, _HULL = 1, 2, 3, 4, 5
 
 
 def transition_table(sib) -> np.ndarray:
@@ -303,21 +330,115 @@ def sibling_fill_band_plain(inp: SiblingBandInputs) -> tuple:
             torch.where(lp_end < -1e29, ninf, lp_end).reshape(1))
 
 
-def sibling_fill_band(inp: SiblingBandInputs) -> tuple:
-    """Kernel (d) on the band: its cells [n, 11] and lp_end [1], -inf
-    where fill.cpp leaves -inf.  The plain version for CPU tensors; for
-    CUDA tensors (float64 only) the kernel, in one block where the widest
-    diagonal fits it, else in as many blocks as that diagonal needs, all
-    resident; any other device raises."""
-    global LAUNCHES
+def ring_shape(layout: BandLayout) -> tuple:
+    """The ring design's (slots a diagonal, ring rows): the widest
+    diagonal rounded up to a multiple of 8 (LANES a slot fill whole
+    warps), and the least power of two no smaller than any diagonal's
+    hull rows."""
+    return max(8, -(-layout.widest // 8) * 8), 1 << max(0, layout.span - 1).bit_length()
+
+
+def plan_records_plain(inp: SiblingBandInputs, width: int, ring_rows: int) -> torch.Tensor:
+    """csrc/siblingfill.cu's plan in PyTorch on the inputs' device: uint8
+    [K, width, REC_BYTES], a record for each of `width` cell slots of each
+    diagonal x + y = k, in band.cuh's order of x ((0, k), (k - Y, Y), the
+    hull rows, (k, 0), (X, k - X)).  A slot with no cell has position -1,
+    every ring slot the guard (ring_rows + 4) and zeros elsewhere; a
+    neighbour outside the band or the mask reads the guard."""
     lay = inp.layout
     dev = inp.emit.device
-    if dev.type == "cpu":
-        return sibling_fill_band_plain(inp)
-    if dev.type != "cuda":
-        raise RuntimeError(f"the sibling fill has no kernel for device {dev}")
     X1, Y1 = lay.shape
-    n = lay.n
+    X, Y, K, R = X1 - 1, Y1 - 1, X1 + Y1 - 1, ring_rows
+    i64 = torch.int64
+    k = torch.arange(K, device=dev)[:, None]
+    diag = inp.diag.reshape(K, 2).long()
+    rowpos, off = inp.rowpos.long(), inp.off.long()
+    offX = off[X]
+
+    def boundary_counts(k):
+        return ((k <= Y).long(), ((Y >= 1) & (k - Y >= 1) & (k - Y <= X - 1)).long(),
+                ((k >= 1) & (k <= X - 1)).long(), ((X >= 1) & (k >= X) & (k - X <= Y)).long())
+
+    # band.cuh cell_at: the kind and row of slot t of diagonal k
+    n0, nY, nC, nX = boundary_counts(k)
+    xa, xb = diag[:, :1], diag[:, 1:]
+    nh = (xb - xa + 1).clamp(min=0)
+    t = torch.arange(width, device=dev)[None, :]
+    kind = torch.zeros((K, width), dtype=i64, device=dev)
+    x = torch.zeros((K, width), dtype=i64, device=dev)
+    u = t - n0
+    parts = ((u < 0, _ROW0, torch.zeros_like(k)), (u - nY < 0, _COLY, k - Y),
+             (u - nY - nh < 0, _HULL, xa + u - nY), (u - nY - nh - nC < 0, _COL0, k),
+             (u - nY - nh - nC - nX < 0, _ROWX, X + torch.zeros_like(k)))
+    for cond, kd, xs in reversed(parts):
+        kind = torch.where(cond, kd, kind)
+        x = torch.where(cond, xs.expand(K, width), x)
+    kind = torch.where(u - nY - nh - nC - nX < 0, kind, 0)
+    cell = kind > 0
+    y = k - x
+
+    def pos_of(kind, x, y):
+        return torch.where(kind == _ROW0, y, torch.where(
+            kind == _ROWX, offX + y, torch.where(
+                kind == _COL0, off[x.clamp(0, X)], torch.where(
+                    kind == _COLY, off[(x + 1).clamp(0, X1)] - 1,
+                    rowpos[x.clamp(0, X)] + y))))
+
+    def kind_of(x, y, dk):
+        r = diag[dk.clamp(min=0)]
+        hull = (x >= r[..., 0]) & (x <= r[..., 1])
+        return torch.where(x == 0, _ROW0, torch.where(x == X, _ROWX, torch.where(
+            y == 0, _COL0, torch.where(y == Y, _COLY, torch.where(hull, _HULL, 0)))))
+
+    mask = inp.mask.long()
+    guard = R + 4
+
+    def slot_of(kind, x):
+        return torch.where(kind == _HULL, x & (R - 1), R + kind - _ROW0)
+
+    def neighbour(x, y, dk, ok):
+        kd = kind_of(x, y, dk)
+        ok = ok & (kd > 0)
+        ok = ok & (mask[torch.where(ok, pos_of(kd, x, y), 0).clamp(0, lay.n - 1)] != 0)
+        return torch.where(ok, slot_of(kd, x), guard)
+
+    kk = k.expand(K, width)
+    pos = torch.where(cell, pos_of(kind, x, y), -1)
+    at = pos.clamp(min=0)
+    me = torch.where(cell, inp.emit[at], 0.0)
+    le = torch.where(cell & (x >= 1), inp.l_emit[(x - 1).clamp(0, max(X - 1, 0))]
+                     if X >= 1 else torch.zeros(1, dtype=torch.float64, device=dev), 0.0)
+    ren = torch.where(cell & (y >= 1), inp.r_emit[(y - 1).clamp(0, max(Y - 1, 0))]
+                      if Y >= 1 else torch.zeros(1, dtype=torch.float64, device=dev), 0.0)
+    flags = torch.where(cell, (mask[at] != 0).long() | ((x == 0) & (y == 0)).long() << 1, 0)
+    slots = torch.stack([torch.where(cell, slot_of(kind, x), guard),
+                         neighbour(x - 1, y, kk - 1, cell & (x >= 1)),
+                         neighbour(x, y - 1, kk - 1, cell & (y >= 1)),
+                         neighbour(x - 1, y - 1, kk - 2, cell & (x >= 1) & (y >= 1))], -1)
+    raw = [torch.stack([me, le, ren], -1).contiguous().view(torch.uint8),
+           pos.to(torch.int32)[..., None].contiguous().view(torch.uint8),
+           slots.to(torch.int16).contiguous().view(torch.uint8),
+           flags.to(torch.int32)[..., None].contiguous().view(torch.uint8),
+           torch.zeros((K, width, 8), dtype=torch.uint8, device=dev)]
+    return torch.cat(raw, -1)
+
+
+def plan_fields(recs: torch.Tensor) -> dict:
+    """The fields of plan records (uint8 [..., REC_BYTES]): me, le, ren
+    (float64), pos (int32), slots (int16 [..., 4]: the cell's, (x-1, y),
+    (x, y-1), (x-1, y-1)), flags (int32)."""
+    r = recs.contiguous()
+    return dict(me=r[..., 0:8].view(torch.float64)[..., 0],
+                le=r[..., 8:16].view(torch.float64)[..., 0],
+                ren=r[..., 16:24].view(torch.float64)[..., 0],
+                pos=r[..., 24:28].view(torch.int32)[..., 0],
+                slots=r[..., 28:36].view(torch.int16),
+                flags=r[..., 36:40].view(torch.int32)[..., 0])
+
+
+def _check(inp: SiblingBandInputs, dev: torch.device) -> None:
+    X1, Y1 = inp.layout.shape
+    n = inp.layout.n
     expect = {"emit": n, "mask": n, "l_emit": X1 - 1, "r_emit": Y1 - 1, "trans": 144,
               "rowpos": X1, "off": X1 + 1, "diag": 2 * (X1 + Y1 - 1)}
     for name, count in expect.items():
@@ -331,30 +452,106 @@ def sibling_fill_band(inp: SiblingBandInputs) -> tuple:
                              f"{getattr(inp, name).dtype} ({name})")
     if inp.mask.dtype != torch.uint8:
         raise ValueError(f"the sibling fill mask must be uint8, not {inp.mask.dtype}")
+
+
+def plan_records(inp: SiblingBandInputs) -> torch.Tensor:
+    """The ring design's plan (uint8 [K, width, REC_BYTES], `ring_shape`),
+    on the inputs' device: the plain version for CPU tensors; for CUDA
+    tensors the plan kernel (csrc/siblingfill.cu `siblingplan`, a thread a
+    cell slot, PLAN_LAUNCHES); any other device raises."""
+    global PLAN_LAUNCHES
+    dev = inp.emit.device
+    width, R = ring_shape(inp.layout)
+    if dev.type == "cpu":
+        return plan_records_plain(inp, width, R)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the sibling fill has no kernel for device {dev}")
+    _check(inp, dev)
+    from historian_tpu_torch.ops import _kernels
+
+    X1, Y1 = inp.layout.shape
+    recs = torch.empty((X1 + Y1 - 1, width, REC_BYTES), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        code = _kernels.lib().siblingplan_f64(
+            inp.emit.data_ptr(), inp.mask.data_ptr(), inp.l_emit.data_ptr(),
+            inp.r_emit.data_ptr(), inp.rowpos.data_ptr(), inp.off.data_ptr(),
+            inp.diag.data_ptr(), recs.data_ptr(), X1, Y1, width, R,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(code, "siblingplan")
+    PLAN_LAUNCHES += 1
+    return recs
+
+
+def design_of(layout: BandLayout) -> str:
+    return "ring" if layout.widest <= RING_MAX_CELLS else "strip"
+
+
+def sibling_fill_band(inp: SiblingBandInputs, planned: torch.Tensor | None = None,
+                      design: str | None = None, strip_rows: int | None = None,
+                      blocks: int | None = None) -> tuple:
+    """Kernel (d) on the band: its cells [n, 11] and lp_end [1], -inf
+    where fill.cpp leaves -inf.  The plain version for CPU tensors; for
+    CUDA tensors (float64 only) the kernel in the ring design where the
+    widest diagonal holds at most RING_MAX_CELLS cells (after the plan
+    kernel, unless `planned` holds its records), else in the strip design
+    (`strip_rows` rows a strip, STRIP_ROWS by default; as many blocks as
+    strips, at most those resident at once, or `blocks`); `design` forces
+    one (a strip design runs any band); any other device raises."""
+    global LAUNCHES
+    lay = inp.layout
+    dev = inp.emit.device
+    if dev.type == "cpu":
+        return sibling_fill_band_plain(inp)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the sibling fill has no kernel for device {dev}")
+    _check(inp, dev)
     from historian_tpu_torch.ops import _kernels
 
     lib = _kernels.lib()
-    threads = min(THREADS, max(32, -(-lay.widest // 32) * 32))
-    blocks = -(-lay.widest // threads)
-    if blocks > 1:
+    design = design or design_of(lay)
+    X1, Y1 = lay.shape
+    cells = torch.empty((lay.n, N_STATES), dtype=torch.float64, device=dev)
+    lp_end = torch.empty(1, dtype=torch.float64, device=dev)
+    width, R = ring_shape(lay)
+    H = strip_rows or STRIP_ROWS
+    strips = 1
+    exch = progress = plan = None
+    if design == "ring":
+        if width > RING_MAX_CELLS:
+            raise ValueError(f"the ring design takes diagonals of at most {RING_MAX_CELLS} "
+                             f"cells, not {lay.widest}")
+        plan = plan_records(inp) if planned is None else planned
+        threads, blocks = LANES * width, 1
+    elif design == "strip":
+        if H % 8 or not 8 <= H <= STRIP_MAX_ROWS:
+            raise ValueError(f"strips of {H} rows: a multiple of 8 up to {STRIP_MAX_ROWS}")
+        strips = -(-X1 // H)
         with torch.cuda.device(dev):
-            capacity = lib.siblingfill_capacity_f64(threads)
+            capacity = lib.siblingfill_capacity_f64(H)
         if capacity < 1:
             raise RuntimeError("siblingfill: the card's resident-block capacity query failed")
-        blocks = min(blocks, capacity)
-    cells = torch.empty((n, N_STATES), dtype=torch.float64, device=dev)
-    lp_end = torch.empty(1, dtype=torch.float64, device=dev)
-    arrivals = torch.zeros(1, dtype=torch.int32, device=dev)
+        blocks = min(strips, capacity, blocks or strips)
+        exch = torch.empty(strips * Y1 * 12, dtype=torch.float64, device=dev)
+        progress = torch.zeros(strips, dtype=torch.int32, device=dev)
+        threads = LANES * H + 64
+    else:
+        raise ValueError(f"no sibling fill design {design!r}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.siblingfill_f64(
-            inp.emit.data_ptr(), inp.mask.data_ptr(), inp.l_emit.data_ptr(),
-            inp.r_emit.data_ptr(), inp.trans.data_ptr(), inp.rowpos.data_ptr(),
-            inp.off.data_ptr(), inp.diag.data_ptr(), cells.data_ptr(), lp_end.data_ptr(),
-            arrivals.data_ptr(), X1, Y1, blocks, threads, stream)
+            None if plan is None else plan.data_ptr(), inp.emit.data_ptr(),
+            inp.mask.data_ptr(), inp.l_emit.data_ptr(), inp.r_emit.data_ptr(),
+            inp.trans.data_ptr(), inp.rowpos.data_ptr(), inp.off.data_ptr(), cells.data_ptr(),
+            lp_end.data_ptr(), None if exch is None else exch.data_ptr(),
+            None if progress is None else progress.data_ptr(), X1, Y1, lay.n,
+            int(design == "strip"), width, R, H, blocks, stream)
     _kernels.check(code, "siblingfill")
     LAUNCHES += 1
-    LAST_LAUNCH.update(blocks=blocks, threads=threads)
+    DESIGNS[design] += 1
+    LAST_LAUNCH.clear()
+    LAST_LAUNCH.update(design=design, lanes=LANES, blocks=blocks, threads=threads)
+    LAST_LAUNCH.update(dict(width=width, ring_rows=R) if design == "ring"
+                       else dict(strip_rows=H, strips=strips))
     return cells, lp_end
 
 

@@ -52,11 +52,13 @@ NEG = -np.inf
 MIN_BRANCH_LEN = 1e-9
 #: on the card, fills of more in-mask state-cells than this take kernel (d).
 #: The JAX package counts the grid's (2e6).  Timed on an H100 (PERF.md
-#: section 6): banded long6 node-align cuts cross at ~1.24e6 in the mask
-#: (6.9e7 in the grid), full masks between 0.5e6 and 1.0e6, where fill.cpp
-#: turns to its OpenMP wavefront; the mask's count serves both, the grid's
-#: puts them two orders of magnitude apart
-DEVICE_MIN_CELLS = 1_250_000
+#: section 6, chip_smoke.py (n)'s route sweep), whole SiblingMatrix builds
+#: of long6 node-align cuts: with the lane-group kernel the card wins
+#: banded cuts from ~1.0e6 in the mask (4.9e7 in the grid; even at 0.7e6)
+#: and full masks from 1.0e6 (above 0.6e6, where fill.cpp turns to its
+#: OpenMP wavefront); the mask's count serves both, the grid's puts them
+#: two orders of magnitude apart
+DEVICE_MIN_CELLS = 1_000_000
 #: fills by route: "device" (kernel (d), or its plain version on the CPU),
 #: "host" (csrc/fill.cpp), "python" (the Python fill)
 FILLS = {"device": 0, "host": 0, "python": 0}

@@ -968,9 +968,10 @@ SIBLING_SHAPES = [(1, 1, -1), (3, 2, -1), (1, 40, -1), (40, 1, -1), (120, 90, 6)
 def test_siblingfill_kernel_matches_host_and_plain(cuda, shape):
     """Kernel (d) on the band against csrc/fill.cpp `sibling_fill` and its
     plain version: the same -inf cells, the rest and lp_end within 1e-9
-    (the card's exp and log against glibc's); one block for a banded
-    fill, a cooperative launch of several for a full mask wider than a
-    block (300 x 340, 1300 x 1100), a mask with holes."""
+    (the card's exp and log against glibc's); the ring design (one block)
+    where the widest diagonal holds at most RING_MAX_CELLS cells, else the
+    strip design, a cooperative launch of a block a strip (300 x 340, 1300
+    x 1100, a mask with holes)."""
     from historian_tpu_torch.ops import siblingdp
     from historian_tpu_torch.sampler.sibling import native_fill
 
@@ -982,8 +983,13 @@ def test_siblingfill_kernel_matches_host_and_plain(cuda, shape):
     cells, lp_end = siblingdp.sibling_fill_band(inp)
     torch.cuda.synchronize()
     assert siblingdp.LAUNCHES == before + 1
-    assert siblingdp.LAST_LAUNCH["blocks"] == -(-lay.widest // siblingdp.THREADS) or \
-        siblingdp.LAST_LAUNCH["blocks"] == 1
+    launch = siblingdp.LAST_LAUNCH
+    assert launch["design"] == ("ring" if lay.widest <= siblingdp.RING_MAX_CELLS else "strip")
+    if launch["design"] == "ring":
+        assert launch["blocks"] == 1 and launch["threads"] == 4 * launch["width"]
+    else:
+        assert launch["strips"] == -(-(shape[0] + 1) // siblingdp.STRIP_ROWS)
+        assert 1 <= launch["blocks"] <= launch["strips"]
     g = cells.cpu().numpy()
     assert np.array_equal(g == -np.inf, ref == -np.inf)
     live = np.isfinite(ref)
@@ -994,6 +1000,59 @@ def test_siblingfill_kernel_matches_host_and_plain(cuda, shape):
     assert np.array_equal(g == -np.inf, p == -np.inf)
     assert np.all(np.abs(g[live] - p[live]) <= 1e-9)
     assert abs(lp_end.item() - plain_lp.item()) <= 1e-9 * max(1.0, abs(lp))
+
+
+@pytest.mark.parametrize("design,strip_rows,blocks", [("ring", None, None),
+                                                      ("strip", 16, None), ("strip", 32, None),
+                                                      ("strip", 8, 3)],
+                         ids=["ring", "strip16", "strip32", "strip8-3blocks"])
+def test_siblingfill_both_designs(cuda, design, strip_rows, blocks):
+    """A full mask whose widest diagonal (101 cells) fits the ring and spans
+    four or more strips of 32 rows and fewer: each design against
+    fill.cpp (1e-9), and the two designs' cells equal bit for bit (the
+    same operations a cell); with 3 blocks for 13 strips, each block
+    takes strips b, b + 3, ... in turn."""
+    from historian_tpu_torch.ops import siblingdp
+    from historian_tpu_torch.sampler.sibling import native_fill
+
+    (match, mask, l_emit, r_emit, tmat), lay = _sibling_case(100, 110, -1, seed=11)
+    assert lay.widest == 101
+    host, lp = native_fill(l_emit, r_emit, match, mask, tmat)
+    ref = host.reshape(-1, 11)[lay.flat_index()]
+    inp = siblingdp.upload_band(lay, match, mask, l_emit, r_emit, tmat, cuda)
+    ring, ring_lp = siblingdp.sibling_fill_band(inp, design="ring")
+    cells, lp_end = siblingdp.sibling_fill_band(inp, design=design, strip_rows=strip_rows,
+                                                blocks=blocks)
+    launch = siblingdp.LAST_LAUNCH
+    assert launch["design"] == design
+    if design == "strip":
+        assert launch["strips"] == -(-101 // strip_rows) >= 4
+        assert launch["blocks"] == (blocks or launch["strips"])
+    g = cells.cpu().numpy()
+    assert np.array_equal(g == -np.inf, ref == -np.inf)
+    live = np.isfinite(ref)
+    assert np.all(np.abs(g[live] - ref[live]) <= 1e-9)
+    assert abs(lp_end.item() - lp) <= 1e-9 * max(1.0, abs(lp))
+    assert torch.equal(cells, ring) and torch.equal(lp_end, ring_lp)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, -1), (3, 2, -1), (1, 40, -1), (40, 1, -1),
+                                   (120, 90, 6), (100, 110, -1), (1100, 1300, 20),
+                                   (200, 230, -2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}b{s[2]}")
+def test_siblingplan_kernel_matches_plain(cuda, shape):
+    """The ring design's plan kernel against the plain plan on the same
+    inputs: every record equal byte for byte (positions, emissions, ring
+    slots, flags, the zero padding)."""
+    from historian_tpu_torch.ops import siblingdp
+
+    (match, mask, l_emit, r_emit, tmat), lay = _sibling_case(*shape, seed=sum(shape))
+    inp = siblingdp.upload_band(lay, match, mask, l_emit, r_emit, tmat, cuda)
+    before = siblingdp.PLAN_LAUNCHES
+    got = siblingdp.plan_records(inp)
+    assert siblingdp.PLAN_LAUNCHES == before + 1
+    want = siblingdp.plan_records_plain(inp, *siblingdp.ring_shape(lay))
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 def test_siblingfill_band_readback(cuda):

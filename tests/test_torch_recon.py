@@ -117,6 +117,43 @@ def test_unported_paths_raise(small4):
             cli.main([command, "-platform", "cpu", *args, "-mesh", "2"])
 
 
+@pytest.mark.parametrize("name,value", [("HISTORIAN_MESH", "2"), ("HISTORIAN_DIST", "1"),
+                                        ("HISTORIAN_COORDINATOR", "127.0.0.1:12321"),
+                                        ("HISTORIAN_NUM_PROCESSES", "2"),
+                                        ("HISTORIAN_PROCESS_ID", "0")])
+def test_unported_mesh_environment_raises(small4, monkeypatch, name, value):
+    """Each variable with which the JAX CLI engages a mesh or a process
+    group makes `recon` and `mcmc` raise, naming the ROADMAP item, before
+    anything runs on one device in one process."""
+    from historian_tpu_torch import cli
+
+    args, _ = small4
+    monkeypatch.setenv(name, value)
+    for command in ("recon", "mcmc"):
+        with pytest.raises(NotImplementedError, match="item 7, multi-GPU"):
+            cli.main([command, "-platform", "cpu", *args])
+
+
+def test_unused_mesh_environment_runs(small4, monkeypatch):
+    """HISTORIAN_DIST other than "1", empty process-group variables and
+    HISTORIAN_SP without a mesh start nothing in the JAX package either:
+    the port runs on."""
+    import contextlib
+    import io
+
+    from historian_tpu_torch import cli
+
+    args, (ref_rows, _) = small4
+    monkeypatch.setenv("HISTORIAN_DEVICE_DTYPE", "f64")
+    for name, value in (("HISTORIAN_DIST", "0"), ("HISTORIAN_COORDINATOR", ""),
+                        ("HISTORIAN_MESH", ""), ("HISTORIAN_SP", "1")):
+        monkeypatch.setenv(name, value)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["recon", "-platform", "cpu", *args]) == 0
+    assert rows_and_lp(out.getvalue())[0] == ref_rows
+
+
 @pytest.mark.parametrize("command", [["recon", "-mcmc"], ["mcmc"], ["m"]],
                          ids=["recon -mcmc", "mcmc", "m"])
 def test_mcmc_commands_take_the_flags(small4, tmp_path, command):
