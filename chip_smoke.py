@@ -125,9 +125,9 @@ Phases, each fatal on failure (nothing is caught):
       roots.compare_roots).  Prints a {"branchfill": ...} JSON line;
   (n) MCMC with kernel (d), the sibling fill, and kernel (e) in Forward
       mode: `mcmc -samples 3 -seed 7` on small6 in float64 (for the
-      automatic route small4, then small6 cut to 150-200 aa, where one of
-      its fills crosses the sibling or the branch route rule) on the CPU
-      and on the card's automatic route (every fill on the host), output
+      automatic route small6 cut to 150-200 aa: small6 and small4 each
+      have a fill that crosses the sibling route rule) on the CPU and on
+      the card's automatic route (every fill on the host), output
       and -trace file byte-identical; then with every sibling and branch
       fill forced onto the kernels, launches equal to fills, each fill held
       against csrc/fill.cpp on the same inputs (1e-9), and whether the
@@ -182,7 +182,17 @@ Phases, each fatal on failure (nothing is caught):
       dag_bench.py, roots.compare_roots), with each one's host plan; then
       both routes of whole ForwardMatrix builds at small6's first
       sampled-x merge and at long6's t1-t4 cut to 500-4000 aa (the sweep
-      behind DAG_DEVICE_MIN_CELLS).  Prints a {"dagfill": ...} JSON line.
+      behind DAG_DEVICE_MIN_CELLS).  Prints a {"dagfill": ...} JSON line;
+  (p) the mesh paths: kernel (g1), the sequence-parallel column fill, at
+      1, 2, 4 and 8 shards on the card, bit-equal to K1 at long12's
+      first-merge shape (full grid and banded) in float32 and float64 and
+      on a DAG y in float64, timed beside K1, with its exchange bytes and
+      bound, and against its plain version; `recon -fast` on small6 with
+      HISTORIAN_SP=1 on four shards of the card == the CPU; `count` and
+      `fit -maxiter 2` with `-mesh 1` on (j)'s long12 reconstruction ==
+      the plain run (1e-9); `-mesh 2` raises; HISTORIAN_DIST=1 (a one-rank
+      NCCL group) `count` and `mcmc -samples 1` == the plain run.  Prints
+      a {"spcolforward": ...} JSON line.
 Prints the Felsenstein times, the readbacks, the branch fills, the MCMC
 and kernel (a) as JSON lines, the kernel table as one JSON line, the card
 line, and last {"ok": true, "device": {...}}.  Exits non-zero without
@@ -193,7 +203,7 @@ long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
 kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
 proposals), kernel (d) and its plan kernel in (n) long6 (the same),
 kernel (a) and its plan kernel in (o)'s long12 run on the automatic
-route.
+route, kernel (g1) in (p)'s small6 run on four shards.
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -2130,36 +2140,26 @@ def run_mcmc_cli(cli, args: list, trace_dir: str) -> tuple:
 
 def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
     """(n), small: `mcmc -samples 3 -seed 7` in float64 from FASTA on the
-    CPU and on the card's automatic route, on small6, or where a fill of
-    small6 takes the card under the route rules on small4, then on small6
-    cut to 150-200 aa: the first input whose fills all stay on the host
-    gives output and -trace file byte-identical to the CPU's.  Then small6
-    with HISTORIAN_DEVICE_SIBLING=1 HISTORIAN_DEVICE_BRANCH=1 (every
-    sibling and branch fill on kernels (d) and (e), launches equal to
-    fills, each fill held against fill.cpp on the same inputs; whether the
-    output still equals the CPU's is printed, not required: an MH decision
-    may turn on the last bits)."""
-    fa4, nh4 = write_small4(d)
+    CPU and on the card's automatic route, on small6 cut to 150-200 aa
+    (small6 and small4 each have a sibling fill above the route rule's
+    threshold): its fills all stay on the host, and its output and -trace
+    file are byte-identical to the CPU's.  Then small6 on the CPU and with
+    HISTORIAN_DEVICE_SIBLING=1 HISTORIAN_DEVICE_BRANCH=1 (every sibling and
+    branch fill on kernels (d) and (e), launches equal to fills, each fill
+    held against fill.cpp on the same inputs; whether the output still
+    equals the CPU's is printed, not required: an MH decision may turn on
+    the last bits)."""
     base = ["-samples", MCMC_SAMPLES["small"], "-seed", "7"]
-    inputs = {"small6": [write_small6(d)], "small4": ["-tree", nh4, fa4],
-              "small6 cut to 150-200 aa": [write_small6(d, (150, 160, 170, 180, 190, 200),
-                                                        "small6-200")]}
-    cpu_runs = {}
-    for name, inp in inputs.items():
-        sub = {p: os.path.join(d, f"{name}-{p}") for p in ("cpu", "auto", "forced")}
-        for p in sub.values():
-            os.makedirs(p, exist_ok=True)
-        cpu = cpu_runs[name] = run_mcmc_cli(cli, ["-platform", "cpu", *base, *inp], sub["cpu"])
-        zero_mcmc_counts()
-        with watched_fills() as fills:
-            auto = run_mcmc_cli(cli, ["-platform", "gpu", *base, *inp], sub["auto"])
-        counts, seen = mcmc_counts(), fill_summary(fills)
-        if not seen["sibling"]["device"] and not seen["branch"]["device"]:
-            break
-        print(f"(n) {name}: a fill takes the card under the route rules ({seen}); a smaller "
-              f"input for the all-host run", flush=True)
-    else:
-        raise AssertionError("(n) the smallest input's fills take the card too")
+    name = "small6 cut to 150-200 aa"
+    inp = [write_small6(d, (150, 160, 170, 180, 190, 200), "small6-200")]
+    sub = {p: os.path.join(d, f"{name}-{p}") for p in ("cpu", "auto")}
+    for p in sub.values():
+        os.makedirs(p, exist_ok=True)
+    cpu = run_mcmc_cli(cli, ["-platform", "cpu", *base, *inp], sub["cpu"])
+    zero_mcmc_counts()
+    with watched_fills() as fills:
+        auto = run_mcmc_cli(cli, ["-platform", "gpu", *base, *inp], sub["auto"])
+    counts, seen = mcmc_counts(), fill_summary(fills)
     if auto != cpu:
         raise AssertionError(f"(n) {name} mcmc f64 automatic route: the card's output or "
                              f"-trace file differs from the CPU's")
@@ -2170,8 +2170,12 @@ def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
           f"(output {len(auto[0])} bytes, LP {stockholm_rows_lp(auto[0])[1]}, -trace "
           f"{len(auto[1])} bytes); fills {seen}, routes {counts['sibling_fills']} "
           f"{counts['branch_fills']}", flush=True)
-    name, inp, cpu = "small6", inputs["small6"], cpu_runs["small6"]
-    sub = {"forced": os.path.join(d, "small6-forced")}
+    auto_name = name
+    name, inp = "small6", [write_small6(d)]
+    sub = {p: os.path.join(d, f"small6-{p}") for p in ("cpu", "forced")}
+    for p in sub.values():
+        os.makedirs(p, exist_ok=True)
+    cpu = run_mcmc_cli(cli, ["-platform", "cpu", *base, *inp], sub["cpu"])
     os.environ["HISTORIAN_DEVICE_SIBLING"] = os.environ["HISTORIAN_DEVICE_BRANCH"] = "1"
     try:
         zero_mcmc_counts()
@@ -2193,7 +2197,7 @@ def small_mcmc(cli, d: str, sibling_args: dict) -> dict:
           f"{max(f['err'] for f in fills):.3e} of fill.cpp (same -inf cells); output "
           f"{'equals' if same else 'DIFFERS FROM'} the CPU's (LP {stockholm_rows_lp(forced[0])[1]}"
           f" against {stockholm_rows_lp(cpu[0])[1]})", flush=True)
-    return dict(name=name, auto_name=list(cpu_runs)[-1], forced_equal=same,
+    return dict(name=name, auto_name=auto_name, forced_equal=same,
                 sibling_err=seen["sibling"]["err"], branch_err=seen["branch"]["err"])
 
 
@@ -3030,6 +3034,205 @@ def phase_dag(cli, work: str, small6_cpu: str, careful_cpu: str, parent: str | N
                 **{k: check[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
+@contextlib.contextmanager
+def captured_sp_fills(sp):
+    """The arguments of every (g1) fill the block makes through
+    `sp_col_forward_planes`, its tensors cloned."""
+    seen, real = [], sp.sp_col_forward_planes
+
+    def wrapper(*args):
+        seen.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return real(*args)
+
+    sp.sp_col_forward_planes = wrapper
+    try:
+        yield seen
+    finally:
+        sp.sp_col_forward_planes = real
+
+
+def free_port() -> str:
+    """host:port of a TCP port that is free on the loopback now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def phase_sp(cli, colforward, work: str, small6_cpu: str) -> dict:
+    """(p) The mesh paths (ROADMAP item 7) on the one card.
+
+    Kernel (g1), the sequence-parallel column fill, at long12's
+    first-merge shape (chain y, full grid), with a diagonal band at that
+    shape (the strips' lanes given) and on a DAG y (KY = 4, nulls, a band)
+    at 2048 x 2048 (float64), in float32 and float64, with 1, 2, 4 and 8
+    shards on the card: each result bit-equal to K1's launch on the same
+    inputs, timed beside it (CUDA events, the wrappers' calls), with its
+    exchange buffers' bytes and its bound (K1's bytes, plus the records
+    written and read once); against its plain version (8 shards) on the
+    DAG y in float64.  Then the main path: `recon -fast` on small6 in
+    float64 with HISTORIAN_SP=1 on a mesh of four shards of the one card
+    (a mesh of the card repeated, made here: `-mesh 4` asks for four cards
+    and raises on this one), its launches counted from 0, byte for byte
+    the CPU's plain run; then (g1) on the inputs of that run's largest
+    merge, in float64 and float32 on its four shards, bit-equal to K1 and
+    against its plain version (the kernel line's times: float64).  `count`
+    and `fit -maxiter 2` with `-mesh 1` on (j)'s long12 f32 reconstruction
+    within 1e-9 of the plain run; `-mesh 2` raises the JAX package's text;
+    and under HISTORIAN_DIST=1 (a one-rank NCCL group, its loopback
+    rendezvous on a free port) `count` and `mcmc -samples 1` on small6's
+    reconstruction, equal to the plain run."""
+    from historian_tpu_torch import recon as recon_mod
+    from historian_tpu_torch.engine import forward
+    from historian_tpu_torch.ops import sp_colforward as sp
+    from historian_tpu_torch.parallel import dist, pcounts
+    from historian_tpu_torch.parallel.mesh import Mesh, MeshDevice
+
+    cuda = torch.device("cuda", 0)
+    f32, f64 = torch.float32, torch.float64
+    SX, SY = long12_first_merge()
+    err, times, res = 0.0, {}, {}
+    for name, sx, sy, KY, banded, dtypes in (("long12", SX, SY, 1, False, (f32, f64)),
+                                             ("long12 band", SX, SY, 1, True, (f32, f64)),
+                                             ("dag", 2048, 2048, 4, True, (f64,))):
+        for dtype in dtypes:
+            args = k1_inputs(sx, sy, KY, banded, 17, dtype)
+            lanes = colforward.lanes_from_mask(args[4] == 0) if banded else None
+            ref = colforward.col_forward_planes(*args, lanes=lanes)
+            k1_ms = cuda_ms(lambda: colforward.col_forward_planes(*args, lanes=lanes))
+            for n in (1, 2, 4, 8):
+                devs = [cuda] * n
+                got = sp.sp_col_forward_planes(*args, lanes, devs)
+                torch.cuda.synchronize()
+                launch = dict(sp.LAST_LAUNCH)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"(g1) {name} {dtype} {n} shards: not bit-equal to K1")
+                ms = cuda_ms(lambda: sp.sp_col_forward_planes(*args, lanes, devs))
+                exch = launch["exchange_bytes"]
+                bnd = bound(nbytes(*args, got) + 2 * exch, K1_OPS_PER_CELL * sx * sy, dtype)
+                times[(name, str(dtype)[6:], n)] = dict(ms=ms, k1_ms=k1_ms, exchange_bytes=exch,
+                                                       **bnd)
+                print(f"(p) (g1) {name} SX={sx} SY={sy} KY={KY} {str(dtype)[6:]}, {n} shards "
+                      f"{launch['cuts']}: {ms:.3f} ms, K1 {k1_ms:.3f} ms in the same call, "
+                      f"bit-equal to K1; exchange buffers {exch} B; bound {bnd['bound_ms']:.4f} "
+                      f"ms ({bnd['bound_by']})", flush=True)
+            if name == "dag":
+                plain, p_ms = host_ms(lambda: sp.sp_col_forward_planes_plain(*args, 8))
+                e = check_planes(f"(g1) {name} {dtype} against its plain version", got, plain,
+                                 dtype)
+                err = max(err, e)
+                print(f"(p) (g1) {name} {str(dtype)[6:]}, 8 shards, against its plain version "
+                      f"(8 shards): max abs err {e:.3e}, plain {p_ms:.1f} ms", flush=True)
+            del args, ref, got
+
+    # the main path: recon -fast on small6 over four shards of the card
+    fa = write_small6(work)
+    cpu_out = run_cli(cli, ["-platform", "cpu", "-fast", fa], "f64")
+    sp.LAUNCHES = 0
+    fills0 = forward.FILLS["sp"]
+    os.environ["HISTORIAN_SP"] = "1"
+    pcounts._ACTIVE_MESH = Mesh([MeshDevice(0, k, cuda) for k in range(4)], ("dp",))
+    try:
+        with captured_sp_fills(sp) as fills:
+            card_out = run_cli(cli, ["-platform", "gpu", "-fast", fa], "f64")
+    finally:
+        del os.environ["HISTORIAN_SP"]
+    launches, sp_fills = sp.LAUNCHES, forward.FILLS["sp"] - fills0
+    if card_out != cpu_out or not launches or sp_fills != launches:
+        raise AssertionError(f"(p) small6 -fast on 4 shards: equal to the CPU "
+                             f"{card_out == cpu_out}, launches {launches}, sp fills {sp_fills}")
+    print(f"(p) small6 recon -fast f64, HISTORIAN_SP=1 on 4 shards of the card: == CPU f64, "
+          f"{launches} (g1) launches, {sp_fills} merges on the sp route", flush=True)
+
+    # (g1) at the main path's largest merge: bit-equal to K1, against its plain version
+    *fill, lanes, devs = max(fills, key=lambda f: f[3].numel())
+    SY, SX = fill[3].shape
+    for dtype in (f64, f32):
+        args = [t if t.dtype == torch.int32 else t.to(dtype) for t in fill]
+        ref = colforward.col_forward_planes(*args, lanes=lanes)
+        got = sp.sp_col_forward_planes(*args, lanes, devs)
+        torch.cuda.synchronize()
+        launch = dict(sp.LAST_LAUNCH)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"(g1) small6's merge {dtype}: not bit-equal to K1")
+        ms = cuda_ms(lambda: sp.sp_col_forward_planes(*args, lanes, devs))
+        k1_ms = cuda_ms(lambda: colforward.col_forward_planes(*args, lanes=lanes))
+        plain, p_ms = host_ms(lambda: sp.sp_col_forward_planes_plain(*args, len(devs)))
+        e = check_planes(f"(g1) small6's merge {dtype} against its plain version", got, plain,
+                         dtype)
+        err = max(err, e)
+        exch = launch["exchange_bytes"]
+        bnd = bound(nbytes(*args, got) + 2 * exch, K1_OPS_PER_CELL * SX * SY, dtype)
+        times[("small6 merge", str(dtype)[6:], len(devs))] = dict(
+            ms=ms, k1_ms=k1_ms, plain_ms=p_ms, exchange_bytes=exch, **bnd)
+        if dtype == f64:
+            res = dict(ms=ms, plain_ms=p_ms, **bnd)
+        print(f"(p) (g1) small6's largest merge SX={SX} SY={SY} KY={fill[0].shape[1]} "
+              f"{str(dtype)[6:]}, {len(devs)} shards {launch['cuts']}: {ms:.3f} ms, K1 "
+              f"{k1_ms:.3f} ms, bit-equal to K1; against its plain version ({len(devs)} "
+              f"shards, {p_ms:.1f} ms): max abs err {e:.3e}; exchange buffers {exch} B; bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    del fills, fill, args, ref, got, plain
+
+    # count and fit on -mesh 1, against the plain run
+    recon_path = os.path.join(work, "long12_f32.sto")
+    for command, extra in (("count", []), ("fit", ["-maxiter", "2"])):
+        runs = []
+        for mesh in ([], ["-mesh", "1"]):
+            with reconstructors(recon_mod) as seen:
+                run_cli(cli, ["-platform", "gpu", "-stockrecon", recon_path, *extra, *mesh],
+                        "f64", command)
+            rc = seen[-1]
+            runs.append([rc.data_counts.root_count, rc.data_counts.sub_count,
+                         np.array(rc.data_counts.indel.lp)] if command == "count" else
+                        [rc.model.sub_rate, rc.model.ins_prob,
+                         np.array([rc.model.ins_rate, rc.model.del_rate])])
+        rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+                  for a, b in zip(*runs))
+        for a, b in zip(*runs):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12 * np.abs(b).max())
+        print(f"(p) long12 {command} -mesh 1 == the plain run, largest relative difference "
+              f"{rel:.3e}", flush=True)
+    try:
+        run_cli(cli, ["-platform", "gpu", "-stockrecon", recon_path, "-mesh", "2"], "f64",
+                "count")
+    except SystemExit as e:
+        if "-mesh 2 requests 2 devices but only 1 are visible" not in str(e):
+            raise
+        print(f"(p) -mesh 2 on one card: {e}", flush=True)
+    else:
+        raise AssertionError("-mesh 2 on one card did not raise")
+
+    # a one-rank NCCL group: count and mcmc on small6's reconstruction
+    small6_recon = os.path.join(work, "small6_p.sto")
+    with open(small6_recon, "w") as f:
+        f.write(small6_cpu)
+    runs = {}
+    # the group's fixed loopback rendezvous, on a free port here, so that
+    # nothing else on the machine meets it
+    dist.LOOPBACK = free_port()
+    for group in (False, True):
+        if group:
+            os.environ["HISTORIAN_DIST"] = "1"
+        try:
+            runs[group] = [run_cli(cli, ["-platform", "gpu", "-stockrecon", small6_recon],
+                                   "f64", "count"),
+                           run_cli(cli, ["-platform", "gpu", "-samples", "1", "-seed", "7",
+                                         "-stockrecon", small6_recon], "f64", "mcmc")]
+        finally:
+            os.environ.pop("HISTORIAN_DIST", None)
+    if not (dist.is_initialized() and dist.backend() == "nccl" and dist.process_count() == 1):
+        raise AssertionError(f"HISTORIAN_DIST=1: no one-rank NCCL group ({dist.backend()})")
+    if runs[True] != runs[False]:
+        raise AssertionError("HISTORIAN_DIST=1: count or mcmc differs from the plain run")
+    print("(p) HISTORIAN_DIST=1: a one-rank NCCL group; small6 count and mcmc -samples 1 == "
+          "the plain run", flush=True)
+    print(json.dumps({"spcolforward": {f"{k[0]} {k[1]} {k[2]}": v for k, v in times.items()}}),
+          flush=True)
+    return dict(res, err=err, launches=launches)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3087,9 +3290,11 @@ def main(argv=None) -> int:
         mcmc = phase_mcmc(cli, launches_l.pop("long6_recon"), opts.parent)
         elapsed("n")
         # (j) and (l) ran small6 from work, and (o) compares with their outputs
-        dag = phase_dag(cli, work, launches_j.pop("small6_cpu"),
-                        launches_l.pop("small6_careful_cpu"), opts.parent)
+        small6_cpu = launches_j.pop("small6_cpu")
+        dag = phase_dag(cli, work, small6_cpu, launches_l.pop("small6_careful_cpu"), opts.parent)
         elapsed("o")
+        spf = phase_sp(cli, colforward, work, small6_cpu)
+        elapsed("p")
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -3149,6 +3354,11 @@ def main(argv=None) -> int:
         max_abs_err=dag["plan_err"], ms=dag["plan_ms"], plain_ms=dag["plain_plan_ms"],
         bound_ms=dag["plan_bound"]["bound_ms"], bound_by=dag["plan_bound"]["bound_by"],
         library_ms=None))
+    kernels.append(dict(
+        name="spcolforward", route="cuda", source="historian_tpu_torch/csrc/spcolforward.cu",
+        replaces="historian_tpu/ops/sp_colforward.py:50", launches=spf["launches"],
+        max_abs_err=spf["err"], ms=spf["ms"], plain_ms=spf["plain_ms"],
+        bound_ms=spf["bound_ms"], bound_by=spf["bound_by"], library_ms=None))
     for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
         kernels.append(dict(
             name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",

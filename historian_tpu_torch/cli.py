@@ -6,9 +6,14 @@ and `-careful` aliases, plus `-platform gpu|cpu` (or HISTORIAN_PLATFORM
 when it is not given): `gpu`, the default, needs CUDA and fails without
 it; `cpu` runs the kernels' plain PyTorch versions and is only ever
 chosen explicitly.  The guide, tree, profile, refinement, ancestral,
-count, EM, posterior-profile, `-savedot`, MCMC and simulation flags have
-their JAX meaning; flags of paths that are not ported yet raise
-NotImplementedError naming their ROADMAP item, none is dropped silently.
+count, EM, posterior-profile, `-savedot`, MCMC, simulation and mesh flags
+have their JAX meaning, as have the JAX CLI's environment variables for
+the mesh and the process group: a process group starts before any device
+use (parallel/dist.py: HISTORIAN_DIST, HISTORIAN_COORDINATOR,
+HISTORIAN_NUM_PROCESSES, HISTORIAN_PROCESS_ID), then HISTORIAN_MESH, and
+then `-mesh N` or `-mesh DxE`, which overrides it, sets the mesh
+(parallel/pcounts.py `set_mesh`); HISTORIAN_SP and HISTORIAN_SP_MIN_SX
+steer the sequence-parallel fill (parallel/spmerge.py).
 As in the JAX CLI, a missing file, a bad value or an unknown name ends
 the command with a one-line `historian-tpu-torch: <message>` (`-abort`
 keeps the traceback), and `-profile DIR` writes a torch.profiler trace
@@ -25,13 +30,13 @@ from historian_tpu_torch.utils.logging import logger
 from historian_tpu_torch import __version__
 from historian_tpu_torch import device as devmod
 from historian_tpu_torch.models.counts import EventCounts
+from historian_tpu_torch.parallel import dist, pcounts
 from historian_tpu_torch.recon import (
     FORMAT_FASTA,
     FORMAT_JSON,
     FORMAT_NEXUS,
     FORMAT_STOCKHOLM,
     Reconstructor,
-    not_ported,
 )
 
 PROG = "historian-tpu-torch"
@@ -100,20 +105,14 @@ Usage: {PROG} recon|count|fit|mcmc|generate [options] [files]
   -fixtree | -fixalign  MCMC: leave the tree, or the alignment, as it is
   -fixguide          MCMC: keep the branch moves' guide envelope fixed
   -rootlen <n>       generate: the root sequence's length (default 100)
+  -mesh <n> | <d>x<e>  a device mesh of n devices, or d x e with mixture
+                     components over e: sharded count/fit E-steps, merges
+                     placed round-robin, long merges sequence-parallel
   -fast  (= -rndspan -kmatchn 3 -band 10 -profmaxstates 1 -jc -norefine)
   -careful  (= -allspan -kmatchoff -band 40 -profminpost .001 -profmaxmem 5
              -refine)
 """
 
-#: flags of the JAX CLI whose paths are not ported yet, and their ROADMAP items
-_NOT_PORTED = {"-mesh": "item 7, multi-GPU"}
-#: environment variables with which the JAX CLI engages a device mesh
-#: (HISTORIAN_MESH) or a process group (the rest; parallel/dist.py
-#: `init_from_env` starts one where any is non-empty, HISTORIAN_DIST where
-#: it is "1").  HISTORIAN_SP needs no entry: without a mesh the JAX package
-#: ignores it too (parallel/spmerge.py `sp_mesh` returns None).
-_NOT_PORTED_ENV = ("HISTORIAN_MESH", "HISTORIAN_COORDINATOR", "HISTORIAN_NUM_PROCESSES",
-                   "HISTORIAN_PROCESS_ID")
 #: the commands of the JAX CLI, by alias
 _COMMANDS = {"r": "recon", "recon": "recon", "reconstruct": "recon", "c": "count",
              "count": "count", "f": "fit", "fit": "fit", "s": "sum", "sum": "sum",
@@ -142,10 +141,10 @@ def _parse(recon: Reconstructor, argvec: deque) -> None:
                 raise SystemExit(f"{PROG}: option {arg!r} requires an argument")
             return argvec.popleft()
 
-        if arg in _NOT_PORTED:
-            raise not_ported(f"option {arg}", _NOT_PORTED[arg])
         env = recon.diag_env_params
-        if arg in ("-refine", "-norefine"):
+        if arg == "-mesh":
+            pcounts.set_mesh(take())
+        elif arg in ("-refine", "-norefine"):
             recon.refine_reconstruction = arg == "-refine"
         elif arg == "-profminpost":
             recon.min_post_prob = float(take())
@@ -320,12 +319,6 @@ def main(argv: list[str] | None = None) -> int:
         trace_dir = rest[i + 1]
         del rest[i : i + 2]
 
-    for name in _NOT_PORTED_ENV:
-        if os.environ.get(name):
-            raise not_ported(f"{name}={os.environ[name]!r}", _NOT_PORTED["-mesh"])
-    if os.environ.get("HISTORIAN_DIST") == "1":
-        raise not_ported("HISTORIAN_DIST=1", _NOT_PORTED["-mesh"])
-
     def run() -> int:
         if trace_dir:
             return _profiled(trace_dir, lambda: _dispatch(command, platform, rest))
@@ -361,10 +354,22 @@ def _profiled(trace_dir: str, fn) -> int:
 
 
 def _dispatch(command: str, platform: str, rest: list[str]) -> int:
+    try:
+        return _run_command(command, platform, rest)
+    finally:
+        pcounts.clear_mesh()  # a command's mesh ends with it
+
+
+def _run_command(command: str, platform: str, rest: list[str]) -> int:
     out = sys.stdout
+    # the process group first, before any device use (the JAX CLI's
+    # order); then the mesh from HISTORIAN_MESH, which -mesh overrides
+    dist.init_from_env(platform)
     if command == "sum":
         return _sum(rest, out)
     devmod.select(platform)
+    if os.environ.get("HISTORIAN_MESH"):
+        pcounts.set_mesh(os.environ["HISTORIAN_MESH"])
     recon = Reconstructor()
     if command in ("count", "fit"):
         recon.accumulate_subst_counts = recon.accumulate_indel_counts = True

@@ -20,19 +20,6 @@
 
 namespace {
 
-// K1's emission: the bridge's planes, one coalesced read each per cell.
-template <typename T>
-struct PlaneEmission {
-  const T* __restrict__ absorb;
-  const T* __restrict__ maskg;
-  __device__ __forceinline__ void start(int) {}
-  __device__ __forceinline__ void column(int) {}
-  __device__ __forceinline__ void cell(int, int, size_t at, T& a, T& mg) {
-    a = absorb[at];
-    mg = maskg[at];
-  }
-};
-
 template <typename T, int NT>
 __global__ void __launch_bounds__(NT) colforward_kernel(
     const int* __restrict__ y_src, const T* __restrict__ y_lp,
@@ -40,7 +27,7 @@ __global__ void __launch_bounds__(NT) colforward_kernel(
     const T* __restrict__ maskg, const T* __restrict__ xvec,
     const T* __restrict__ trans, const int* __restrict__ lanes, int* progress, T* rec,
     T* out, int SY, int SX, int KY) {
-  PlaneEmission<T> em{absorb, maskg};
+  colfill::PlaneEmission<T> em{absorb, maskg};
   colfill::column_fill<T, NT>(y_src, y_lp, y_flags, 4, xvec, trans, lanes, progress, rec, out,
                               SY, SX, KY, em);
 }

@@ -69,6 +69,21 @@
 // int32 (columns finished), rec [strips, SY, 4] (u-IMD, u-IIW, pre-IMD,
 // pre-IIW at the strip's last lane).
 
+// Shards (the sequence-parallel fill, spcolforward.cu): the x lanes may
+// also be cut into shards, each a run of whole strips with planes of its
+// own (possibly on another card).  `Strips` places a block's strip in its
+// shard; the `Exchange` policy carries the two dependencies across a
+// shard boundary.  The last strip of a shard writes, for each column j,
+// a record of its last lane into the right shard's exchange buffer
+// [SY, 8]: the five cells (IMM, IMD, IDM, IMI, IIW) and pre-IMD,
+// pre-IIW, then publishes a column counter; the right shard's first strip
+// reads the halo's source cells and the carry from those records exactly
+// where K1 reads the planes and `rec` of strip s-1, so the arithmetic,
+// and the bits, are K1's for any cut.  With `sys` set (the buffer in
+// another card's memory or in mapped host memory) the counter is
+// published and acquired at system scope and the records are read with
+// system-scope loads.  `NoExchange` (K1, K2) compiles none of it.
+
 #pragma once
 
 #include <cuda_runtime.h>
@@ -104,6 +119,69 @@ __device__ __forceinline__ int wait_at_least(const int* p, int want) {
   return v;
 }
 
+__device__ __forceinline__ int ld_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ float ld_sys(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.sys.global.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ double ld_sys(const double* p) {
+  double v;
+  asm volatile("ld.relaxed.sys.global.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// wait_at_least at system scope (a counter another card publishes)
+__device__ __forceinline__ int wait_at_least_sys(const int* p, int want) {
+  int v = ld_acquire_sys(p);
+  for (long long n = 0; v < want; ++n) {
+    if (n >= kMaxPolls) __trap();
+    if (n >= 32) __nanosleep(64);
+    v = ld_acquire_sys(p);
+  }
+  return v;
+}
+
+// Where a block's strip lies: strip s of a shard of `nstrips` strips and
+// W lanes (the row length of the shard's planes and x vectors), whose
+// lane 0 is lane `lane0` of the whole grid.  K1 and K2: one shard, the
+// grid.
+struct Strips {
+  int s, nstrips, lane0, W;
+};
+
+// K1, K2: no shard boundary.
+struct NoExchange {
+  static constexpr bool kOn = false;
+};
+
+// A shard's two boundaries: `in` [SY, 8] the records of the left shard's
+// last lane and `in_cnt` its column counter (null in the first shard);
+// `out` and `out_cnt` the right shard's (null in the last); `sys`: a
+// boundary crosses cards (system scope).
+template <typename T>
+struct Exchange {
+  static constexpr bool kOn = true;
+  const T* in;
+  const int* in_cnt;
+  T* out;
+  int* out_cnt;
+  bool sys;
+};
+
+//: values a column's exchange record holds (7 used)
+constexpr int kRecord = 8;
+
 // Does the strip of lanes [a, b) hold a band lane of column j?
 __device__ __forceinline__ bool strip_active(const int* __restrict__ lanes, int j, int a, int b) {
   if (lanes == nullptr) return true;
@@ -123,21 +201,33 @@ struct Smem {
 
 // The whole fill of one strip.  y_flags rows hold (null, ready, rootsub_y,
 // ins_y, ...) with `fstride` values a row; xvec rows 0-3 are rootsub_x,
-// ins_x, x_gate, x_eos (more rows may follow).  Writes the strip's cells of
-// the planes [5, SY, SX] in `out`.
-template <typename T, int NT, typename Emission>
+// ins_x, x_gate, x_eos (more rows may follow), g.W values a row.  Writes
+// the strip's cells of the shard's planes [5, SY, g.W] in `out`; progress
+// and rec are the shard's.  `lanes` and the start cell are in the grid's
+// lanes.
+template <typename T, int NT, typename Emission, typename Edge>
 __device__ __forceinline__ void column_fill(
     const int* __restrict__ y_src, const T* __restrict__ y_lp,
     const T* __restrict__ y_flags, int fstride, const T* __restrict__ xvec,
     const T* __restrict__ trans, const int* __restrict__ lanes, int* progress, T* rec,
-    T* out, int SY, int SX, int KY, Emission& em) {
+    T* out, int SY, const Strips g, int KY, Emission& em, const Edge& edge) {
   __shared__ Smem<T, NT> sm;
   const T neg = T(kNeg);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int s = blockIdx.x, nstrips = gridDim.x;
+  const int s = g.s, nstrips = g.nstrips, SX = g.W;
   const int i0 = s * NT, i = i0 + tid;
   const int i_end = min(SX, i0 + NT);
+  const int gi0 = g.lane0 + i0, gi_end = g.lane0 + i_end;  // in the grid's lanes
   const bool live = i < SX;
+  // the left neighbour of strip s: strip s-1 of this shard, or the left
+  // shard's last strip through the exchange
+  bool from_edge = false, to_edge = false, sys = false;
+  if constexpr (Edge::kOn) {
+    from_edge = s == 0 && edge.in != nullptr;
+    to_edge = s + 1 == nstrips && edge.out != nullptr;
+    sys = edge.sys;
+  }
+  const bool has_left = s > 0 || from_edge;
   if (tid < 23) sm.tr[tid] = trans[tid];
   em.start(i0);
   __syncthreads();
@@ -153,17 +243,26 @@ __device__ __forceinline__ void column_fill(
   const T isx = live ? xvec[SX + i] : neg;
   const T x_gate = live ? xvec[2 * SX + i] : neg;
   const T x_eos = live ? xvec[3 * SX + i] : neg;
-  int seen = 0;  // thread 0: the largest progress of strip s-1 it has acquired
+  int seen = 0;  // thread 0: the largest progress of the left neighbour it has acquired
 
   for (int j = 0; j < SY; ++j) {
-    if (!strip_active(lanes, j, i0, i_end)) {
+    if (!strip_active(lanes, j, gi0, gi_end)) {
       // no band lane: the cells keep the wrapper's NEG; publish the
       // progress on the way (every 16 columns and before active work)
-      if (tid == 0 && (j + 1 == SY || (j & 15) == 15 || strip_active(lanes, j + 1, i0, i_end)))
+      if (tid == 0 && (j + 1 == SY || (j & 15) == 15 || strip_active(lanes, j + 1, gi0, gi_end))) {
         st_release(progress + s, j + 1);
+        if constexpr (Edge::kOn) {
+          if (to_edge) {
+            if (sys)
+              st_release_sys(edge.out_cnt, j + 1);
+            else
+              st_release(edge.out_cnt, j + 1);
+          }
+        }
+      }
       continue;
     }
-    const bool left = s > 0 && strip_active(lanes, j, i0 - NT, i0);
+    const bool left = has_left && strip_active(lanes, j, gi0 - NT, gi0);
     const int par = j & 1;
     em.column(j);
     const T* fl = y_flags + size_t(fstride) * j;
@@ -195,17 +294,36 @@ __device__ __forceinline__ void column_fill(
         imin = lse(imin, cmax(s_imi + w, neg));
       }
     }
-    // (a) the halo: t5a at lane i0-1, from strip s-1's finished columns
+    // (a) the halo: t5a at lane i0-1, from the left neighbour's finished
+    // columns (strip s-1's planes, or the left shard's records)
     T halo = neg;
-    if (tid == 0 && s > 0) {
-      if (seen < j) seen = wait_at_least(progress + s - 1, j);
+    if (tid == 0 && has_left) {
+      if (!from_edge) {
+        if (seen < j) seen = wait_at_least(progress + s - 1, j);
+      } else if constexpr (Edge::kOn) {
+        if (seen < j) seen = sys ? wait_at_least_sys(edge.in_cnt, j)
+                                 : wait_at_least(edge.in_cnt, j);
+      }
       for (int k = 0; k < KY; ++k) {
         const int src = y_src[j * KY + k];
         if (src >= j) continue;
         const T w = y_lp[j * KY + k];
-        const T* c = out + size_t(src) * SX + (i0 - 1);
-        const T s_imm = __ldcg(c), s_imd = __ldcg(c + plane), s_idm = __ldcg(c + 2 * plane),
-                s_imi = __ldcg(c + 3 * plane), s_iiw = __ldcg(c + 4 * plane);
+        T s_imm, s_imd, s_idm, s_imi, s_iiw;
+        if (!from_edge) {
+          const T* c = out + size_t(src) * SX + (i0 - 1);
+          s_imm = __ldcg(c);
+          s_imd = __ldcg(c + plane);
+          s_idm = __ldcg(c + 2 * plane);
+          s_imi = __ldcg(c + 3 * plane);
+          s_iiw = __ldcg(c + 4 * plane);
+        } else if constexpr (Edge::kOn) {
+          const T* c = edge.in + size_t(src) * kRecord;
+          s_imm = sys ? ld_sys(c) : __ldcg(c);
+          s_imd = sys ? ld_sys(c + 1) : __ldcg(c + 1);
+          s_idm = sys ? ld_sys(c + 2) : __ldcg(c + 2);
+          s_imi = sys ? ld_sys(c + 3) : __ldcg(c + 3);
+          s_iiw = sys ? ld_sys(c + 4) : __ldcg(c + 4);
+        }
         const T t5 = lse(lse(lse(s_imm + imm_imm, s_imd + imd_imm),
                              lse(s_idm + idm_imm, s_imi + imi_imm)),
                          s_iiw + iiw_imm);
@@ -229,7 +347,7 @@ __device__ __forceinline__ void column_fill(
       idm = cmax(idma + rsy + x_gate, neg);
       imi = cmax(imia + isy + x_gate, neg);
     }
-    if (j == 0 && i == 0) imm = cmax(imm, T(0));  // the start cell
+    if (j == 0 && g.lane0 + i == 0) imm = cmax(imm, T(0));  // the start cell
     imm = cmax(imm + mg, neg);
     idm = cmax(idm + mg, neg);
     imi = cmax(imi + mg, neg);
@@ -256,14 +374,28 @@ __device__ __forceinline__ void column_fill(
     if (tid == 0) w1 = w2 = T(0);  // lane 0 enters as (NEG, 0): W sums lanes 1..i
     block_affine_scan2<T, NT>(v1, w1, v2, w2, sm.scan, par, 0, tid, lane, warp, neg);
 
-    // (b) the carry: strip s-1's record of column j, then the fix-up.
-    // Without an active strip s-1 the carry is exactly NEG and the local
-    // scan is already the answer.
+    // (b) the carry: the left neighbour's record of column j, then the
+    // fix-up.  Without an active left neighbour the carry is exactly NEG
+    // and the local scan is already the answer.
     if (left) {
       if (tid == 0) {
-        if (seen < j + 1) seen = wait_at_least(progress + s - 1, j + 1);
-        const T* r = rec + (size_t(s - 1) * SY + j) * 4;
-        const T u1 = __ldcg(r), u2 = __ldcg(r + 1), p1 = __ldcg(r + 2), p2 = __ldcg(r + 3);
+        T u1, u2, p1, p2;
+        if (!from_edge) {
+          if (seen < j + 1) seen = wait_at_least(progress + s - 1, j + 1);
+          const T* r = rec + (size_t(s - 1) * SY + j) * 4;
+          u1 = __ldcg(r);
+          u2 = __ldcg(r + 1);
+          p1 = __ldcg(r + 2);
+          p2 = __ldcg(r + 3);
+        } else if constexpr (Edge::kOn) {
+          if (seen < j + 1) seen = sys ? wait_at_least_sys(edge.in_cnt, j + 1)
+                                       : wait_at_least(edge.in_cnt, j + 1);
+          const T* r = edge.in + size_t(j) * kRecord;
+          u1 = sys ? ld_sys(r + 1) : __ldcg(r + 1);
+          u2 = sys ? ld_sys(r + 4) : __ldcg(r + 4);
+          p1 = sys ? ld_sys(r + 5) : __ldcg(r + 5);
+          p2 = sys ? ld_sys(r + 6) : __ldcg(r + 6);
+        }
         sm.fix[0] = lse(cmax(p1 + rsx + ygate + mg, neg), u1 + b1);
         sm.fix[1] = lse(cmax(p2 + isx + ygate + mg, neg), u2 + b2);
       }
@@ -286,13 +418,61 @@ __device__ __forceinline__ void column_fill(
       r[2] = pre_imd;
       r[3] = pre_iiw;
     }
+    if constexpr (Edge::kOn) {
+      if (tid == NT - 1 && to_edge) {
+        T* r = edge.out + size_t(j) * kRecord;
+        r[0] = imm;
+        r[1] = v1;
+        r[2] = idm;
+        r[3] = imi;
+        r[4] = v2;
+        r[5] = pre_imd;
+        r[6] = pre_iiw;
+      }
+    }
     __syncthreads();  // column j is final for every later column of the strip
     if (tid == 0) {
       __threadfence();
       st_release(progress + s, j + 1);
+      if constexpr (Edge::kOn) {
+        if (to_edge) {
+          if (sys) {
+            __threadfence_system();
+            st_release_sys(edge.out_cnt, j + 1);
+          } else {
+            st_release(edge.out_cnt, j + 1);
+          }
+        }
+      }
     }
   }
 }
+
+// K1's and K2's fill: one shard, the whole grid of SX lanes, block b
+// strip b.
+template <typename T, int NT, typename Emission>
+__device__ __forceinline__ void column_fill(
+    const int* __restrict__ y_src, const T* __restrict__ y_lp,
+    const T* __restrict__ y_flags, int fstride, const T* __restrict__ xvec,
+    const T* __restrict__ trans, const int* __restrict__ lanes, int* progress, T* rec,
+    T* out, int SY, int SX, int KY, Emission& em) {
+  const Strips g{int(blockIdx.x), int(gridDim.x), 0, SX};
+  column_fill<T, NT>(y_src, y_lp, y_flags, fstride, xvec, trans, lanes, progress, rec, out, SY,
+                     g, KY, em, NoExchange{});
+}
+
+// K1's emission: the bridge's planes, one coalesced read each per cell.
+template <typename T>
+struct PlaneEmission {
+  const T* __restrict__ absorb;
+  const T* __restrict__ maskg;
+  __device__ __forceinline__ void start(int) {}
+  __device__ __forceinline__ void column(int) {}
+  __device__ __forceinline__ void cell(int, int, size_t at, T& a, T& mg) {
+    a = absorb[at];
+    mg = maskg[at];
+  }
+};
 
 // Blocks of column_fill<T, NT, ...> that can be resident at once on the
 // current device, or -(CUDA error) when the query fails.

@@ -5,11 +5,20 @@ Counterpart of the JAX package's platform choice (historian_tpu/cli.py
 `fill_dtype`).  The device is always explicit: `gpu`, the default,
 needs CUDA and raises without it -- there is no silent CPU fallback --
 and `cpu` runs the kernels' plain PyTorch versions only when asked for.
+
+`local_devices` are this process's devices for a mesh (parallel/mesh.py):
+on the card its visible CUDA devices; on the CPU as many as the JAX
+package's CPU platform has in the same environment, the count in
+XLA_FLAGS' --xla_force_host_platform_device_count or 1, each of them the
+one CPU, so that their shards run in turn.  `placed` makes a device the
+current one for a block (a merge placed on a mesh device, recon.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import re
 
 import torch
 
@@ -57,3 +66,30 @@ def fill_dtype(device: torch.device) -> torch.dtype:
     if env == "f64":
         return torch.float64
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def local_devices() -> list:
+    """This process's devices, in order, on the selected platform."""
+    dev = current()
+    if dev.type == "cuda":
+        return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+    found = re.search(r"--xla_force_host_platform_device_count=(\d+)",
+                      os.environ.get("XLA_FLAGS", ""))
+    return [dev] * (int(found.group(1)) if found else 1)
+
+
+@contextlib.contextmanager
+def placed(dev: torch.device):
+    """`current()` is `dev` inside the block (and the current CUDA device
+    is dev's)."""
+    global _DEVICE
+    prev = _DEVICE
+    _DEVICE = dev
+    try:
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                yield dev
+        else:
+            yield dev
+    finally:
+        _DEVICE = prev

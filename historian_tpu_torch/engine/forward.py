@@ -38,9 +38,11 @@ A merge fills in one of three ways, tried in order:
 
 `FILLS` counts the fills on each route.  Every route's sampled traces
 take the run's mt19937 draws in the reference's order.  The JAX
-package's fill router (its dispatch probes, host-rate bookkeeping, the
-cost model `merge_on_device` and the mesh-sharded `_fill_sp`) is not
-ported: on the device, every chain-x merge fills there.  Graph surgery
+package's fill router (its dispatch probes, host-rate bookkeeping and
+the cost model `merge_on_device`) is not ported: on the device, every
+chain-x merge fills there.  Under a `-mesh` of two devices or more a
+chain-x merge may first take the sequence-parallel fill (`_fill_sp`,
+parallel/spmerge.py, route "sp"), as in the JAX package.  Graph surgery
 (profile construction, chain collapse) and the BackwardMatrix stay on
 the host.
 """
@@ -87,10 +89,11 @@ NEG_INF = -np.inf
 #: retries included: "device" (K1 or K2 with the planes kept resident, and
 #: the walker), "fullband" (K1 or K2, the band read back to the host),
 #: "dag" (a non-chain x on kernel (a), the band read back), "host"
-#: (csrc/fill.cpp, or the python fill) or "oversized" (a merge too large
-#: for the card, filled on the host as a "host" fill); all but the first
-#: walk on the host
-FILLS = {"device": 0, "fullband": 0, "dag": 0, "host": 0, "oversized": 0}
+#: (csrc/fill.cpp, or the python fill), "oversized" (a merge too large
+#: for the card, filled on the host as a "host" fill) or "sp" (a chain x
+#: sharded over the `-mesh` devices, kernel (g1), the band read back); all
+#: but the first walk on the host
+FILLS = {"device": 0, "fullband": 0, "dag": 0, "host": 0, "oversized": 0, "sp": 0}
 #: on each device type, a merge whose x is not a chain fills on kernel (a)
 #: where it has more in-envelope state-cells (5 a cell) than this; None:
 #: never (on the CPU, every such merge stays on csrc/fill.cpp).  On an H100
@@ -628,9 +631,30 @@ class ForwardMatrix(DPMatrix):
         self.end_cell = (self.x_size - 1, self.y_size - 1, EEE)
 
     # ------------------------------------------------------------------- fill
+    def _fill_sp(self) -> bool:
+        """The sequence-parallel fill of one merge (the JAX package's
+        `_fill_sp`): its x chain sharded over this process's devices of the
+        active `-mesh` in kernel (g1) (parallel/spmerge.py), the band read
+        back into the host grid, and the merge goes on as a host fill.  In
+        float64 where the merge wants its whole band (as on the full-band
+        route), else in the fill dtype.  False without a mesh of two
+        devices or more, or where `spmerge.sp_merge_wins` says no."""
+        from historian_tpu_torch.parallel import spmerge
+
+        devices = spmerge.sp_mesh()
+        if devices is None or not spmerge.sp_merge_wins(self, len(devices)):
+            return False
+        resident = self._defer_cells and self.sumprod is None
+        dtype = devmod.fill_dtype(devices[0]) if resident else devmod.FULLBAND_DTYPE
+        self.route = "sp"
+        self.cells = self._empty_cells()
+        spmerge.sp_forward_cells(self, devices, dtype, self.cells)
+        self._finish_fill()
+        return True
+
     def _fill(self) -> None:
         self.route = "host"
-        filled = self._fill_device() or self._fill_native()
+        filled = self._fill_sp() or self._fill_device() or self._fill_native()
         FILLS[self.route] += 1
         if filled:
             return

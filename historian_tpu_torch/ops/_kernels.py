@@ -86,6 +86,13 @@ _SIGNATURES = {
     "dagfill_capacity": [_I],
     # trans18, steps, split, out, stream: the dependency floors' steps
     "dagfill_chain": [_P, _I, _I, _P, _P],
+    # shard table, n_shards, strips, y_src, y_lp, y_flags, trans, lanes, SY, KY,
+    # NS, stream: the sequence-parallel fill's launch on one device
+    "spcolforward": [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P],
+    # strips of the SP fill that can be resident at once
+    "spcolforward_capacity": [],
+    # writer, reader -> 1 with peer access on, 0 without, -(CUDA error)
+    "spcolforward_peer": [_I, _I],
 }
 #: the dtypes each kernel is built for, where not both
 _DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingplan",
@@ -93,6 +100,7 @@ _DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblin
                                        "siblingfill_chain", "dagfill",
                                        "dagfill_capacity", "dagfill_chain", "dagplan_count",
                                        "dagplan_records")}
+_DTYPES["spcolforward_peer"] = ("",)
 
 _LIB: ctypes.CDLL | None = None
 
@@ -147,7 +155,7 @@ def lib() -> ctypes.CDLL:
         handle = ctypes.CDLL(build())
         for name, args in _SIGNATURES.items():
             for suffix in _DTYPES.get(name, ("f32", "f64")):
-                fn = getattr(handle, f"{name}_{suffix}")
+                fn = getattr(handle, f"{name}_{suffix}" if suffix else name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
         _LIB = handle

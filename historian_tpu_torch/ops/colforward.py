@@ -73,14 +73,15 @@ def _shift1(v):
 
 
 def _affine_scan(a, b):
-    """u[i] = lse(a[i], u[i-1] + b[i]), u[-1] = NEG: Hillis-Steele over
-    affine pairs, the Pallas kernel's `_affine_scan_lanes`."""
-    n = a.shape[0]
+    """u[..., i] = lse(a[..., i], u[..., i-1] + b[..., i]), u[..., -1] =
+    NEG, along the last dimension: Hillis-Steele over affine pairs, the
+    Pallas kernel's `_affine_scan_lanes`."""
+    n = a.shape[-1]
     v, w = a, b
     d = 1
     while d < n:
-        v_s = torch.cat([v.new_full((d,), NEG), v[:-d]])
-        w_s = torch.cat([w.new_zeros(d), w[:-d]])
+        v_s = torch.cat([v.new_full(v.shape[:-1] + (d,), NEG), v[..., :-d]], dim=-1)
+        w_s = torch.cat([w.new_zeros(w.shape[:-1] + (d,)), w[..., :-d]], dim=-1)
         v = _lse(v, v_s + w)
         w = torch.clamp_min(w + w_s, NEG)
         d *= 2

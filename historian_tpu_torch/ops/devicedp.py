@@ -126,17 +126,23 @@ def fill_arrays(dp) -> dict:
     )
 
 
-def fill_planes(t: dict) -> torch.Tensor:
-    """The one-program fill on the tensors' device: emission matmul, band
-    mask from the envelope vectors, and K1, whose strips skip the columns
-    where the envelope's `band_lanes` give them no lane.  Returns
-    [5, SY, SX]."""
+def emission_and_lanes(t: dict) -> tuple:
+    """(absorb, maskg, lanes) of the one-program fill on the tensors'
+    device: the emission matmul, the band mask from the envelope vectors,
+    and the envelope's `band_lanes`."""
     mask = torch.abs(t["m2"][:, None] - t["m1"][None, :]) <= t["dist"]
     mask |= t["yne"][:, None]
     mask |= t["xns"][None, :]
     absorb, maskg = emission_planes(t["ey_e"], t["ex_e"].T, t["shift_y"], t["shift_x"], mask)
     del mask
-    lanes = band_lanes(t["m1"], t["m2"], t["dist"], t["xns"], t["yne"])
+    return absorb, maskg, band_lanes(t["m1"], t["m2"], t["dist"], t["xns"], t["yne"])
+
+
+def fill_planes(t: dict) -> torch.Tensor:
+    """The one-program fill on the tensors' device: `emission_and_lanes`,
+    then K1, whose strips skip the columns where the envelope's lanes give
+    them none.  Returns [5, SY, SX]."""
+    absorb, maskg, lanes = emission_and_lanes(t)
     return col_forward_planes(
         t["y_src"], t["y_lp"], t["y_flags"], absorb, maskg, t["xvec"], t["trans"], lanes
     )

@@ -37,12 +37,17 @@ reconstruction (`sample_all`, sampler/sampler.py); their distance tree
 is UPGMA unless the tree is fixed.  `generate` simulates histories down
 a given tree (sampler/simulator.py).
 
-Paths that are not ported yet raise NotImplementedError naming their
-ROADMAP item: the mesh.
+Under `-mesh` (parallel/pcounts.py `set_mesh`) the merges take the mesh's
+devices round-robin, a long chain-x merge may fill sharded over them
+(parallel/spmerge.py, route "sp"), and `count` and `fit` run their E-step
+sharded over the mesh; in a process group (parallel/dist.py) `count_all`
+shares the datasets out round-robin and sums the counts over the group,
+and `fit -checkpoint` writes `<file>.p<rank>` on every rank but 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from dataclasses import dataclass, field
@@ -87,6 +92,7 @@ from historian_tpu_torch import device as devmod
 from historian_tpu_torch.engine import treealign
 from historian_tpu_torch.engine.span import AlignGraph
 from historian_tpu_torch.ops.distance import distance_matrix
+from historian_tpu_torch.parallel import dist, pcounts, spmerge
 
 DEFAULT_PROFILE_SAMPLES = 10
 DEFAULT_MAX_DISTANCE_FROM_GUIDE = 20
@@ -99,9 +105,10 @@ ANCESTRAL_POST_PROB_TAG = "PP"
 
 #: merges by the route of their fill (engine/forward.py `FILLS`): "device"
 #: (a chain x, planes resident), "fullband" (a chain x, band read back),
-#: "dag" (a non-chain x on kernel (a), band read back), "host" or
-#: "oversized" (a merge too large for the card, on the host)
-MERGES = {"device": 0, "fullband": 0, "dag": 0, "host": 0, "oversized": 0}
+#: "dag" (a non-chain x on kernel (a), band read back), "host",
+#: "oversized" (a merge too large for the card, on the host) or "sp" (a
+#: chain x sharded over the `-mesh` devices, kernel (g1), band read back)
+MERGES = {"device": 0, "fullband": 0, "dag": 0, "host": 0, "oversized": 0, "sp": 0}
 
 FORMAT_FASTA = "fasta"
 FORMAT_NEXUS = "nexus"
@@ -128,11 +135,6 @@ def detect_format(path: str) -> str:
             return "gapped-fasta"
         return "fasta"
     return "unknown"
-
-
-def not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to historian_tpu_torch yet "
-                               f"(ROADMAP queue 1: {item})")
 
 
 @dataclass
@@ -516,6 +518,10 @@ class Reconstructor:
         prof: dict[int, Profile] = {}
         path: AlignPath = {}
         lp_final = -np.inf
+        # -mesh: merge k fills on the mesh's device k mod n (the JAX
+        # package's round-robin placement; here one merge after another)
+        place = spmerge.dp_placement_devices()
+        n_placed = 0
         for node in range(tree.n_nodes()):
             if tree.is_leaf(node):
                 prof[node] = Profile.from_sequence(
@@ -527,7 +533,12 @@ class Reconstructor:
             # a full-band merge holds two host grids: drop the previous
             # merge's before this one's fill, so that bufpool lends theirs
             forward = backward = None
-            forward, want_backward = self._merge_forward(dataset, sumprod, prof, node)
+            ctx = contextlib.nullcontext()
+            if place:
+                ctx = devmod.placed(place[n_placed % len(place)])
+                n_placed += 1
+            with ctx:
+                forward, want_backward = self._merge_forward(dataset, sumprod, prof, node)
             if want_backward:
                 backward = BackwardMatrix(forward)
             if node == tree.root():
@@ -709,16 +720,47 @@ class Reconstructor:
     def count_all(self) -> None:
         """Counts of every dataset into data_counts (and, with the prior,
         data_plus_prior_counts): a dataset with a reconstruction is counted
-        on it, the others are reconstructed and counted while they merge
-        (the JAX package's single-process branch)."""
+        on it, the others are reconstructed and counted while they merge.
+
+        In a process group the datasets go round-robin over the processes
+        and the partial counts are summed over the group: the in-memory
+        form of the reference's count files + `sum` MapReduce
+        (README.md:201-208), safe for the reconstructing path too, since the
+        generator reseeds per dataset.  Except that an aligned dataset under
+        a `-mesh` that spans processes counts collectively: every process
+        runs its sharded E-step (the all-reduce replicates the result), and
+        it is not summed a second time."""
         if not self.datasets:
             raise ValueError("please supply some data")
         self.data_counts = EventCounts(self.model.alphabet, self.model.components)
+        nproc, pid = dist.process_count(), dist.process_index()
+        mesh = pcounts.active_mesh()
+        mesh_collective = nproc > 1 and mesh is not None and mesh.spans_processes
+
+        def is_collective(ds: Dataset) -> bool:
+            return mesh_collective and ds.has_reconstruction()
+
         for ds in self.datasets:
-            if ds.has_reconstruction():
-                self.count(ds)
-            else:
-                self.reconstruct(ds)
+            if is_collective(ds):
+                self.count(ds)  # every process; the all-reduce replicates it
+        if nproc > 1:
+            shared = self.data_counts
+            self.data_counts = EventCounts(self.model.alphabet, self.model.components)
+            for k, ds in enumerate(self.datasets):
+                if is_collective(ds) or k % nproc != pid:
+                    continue
+                if ds.has_reconstruction():
+                    self.count(ds)
+                else:
+                    self.reconstruct(ds)
+            self.data_counts = shared + pcounts.allreduce_counts(
+                self.data_counts, self.model.alphabet)
+        else:
+            for ds in self.datasets:
+                if ds.has_reconstruction():
+                    self.count(ds)
+                else:
+                    self.reconstruct(ds)
         if self.prior_counts is not None:
             self.data_plus_prior_counts = self.data_counts + self.prior_counts
         else:
@@ -742,6 +784,11 @@ class Reconstructor:
         it0 = 0
         fp = ""
         ckpt_path = self.checkpoint_filename
+        if ckpt_path and dist.process_index() > 0:
+            # each process snapshots its own share of the datasets'
+            # reconstructions (count_all deals them round-robin); the model
+            # and the generator are the same in every process
+            ckpt_path += f".p{dist.process_index()}"
         if ckpt_path:
             # identity of the run's inputs, taken before any EM iteration
             # changes dataset state, on both save and resume

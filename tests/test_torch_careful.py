@@ -101,7 +101,7 @@ def test_careful_routes(tmp_path, monkeypatch):
     fa = write_small6(tmp_path)
     assert cli.main(["recon", "-platform", "cpu", "-careful", "-norefine", fa]) == 0
     merges = {k: recon.MERGES[k] - before[k] for k in recon.MERGES}
-    assert merges == dict(device=0, fullband=3, dag=0, host=2, oversized=0)  # 3 leaf pairs, 2 above them
+    assert merges == dict(device=0, fullband=3, dag=0, host=2, oversized=0, sp=0)  # 3 leaf pairs, 2 above them
     reads = readback.READBACKS[n_read:]
     assert len(reads) == merges["fullband"] and all(r["kind"] == "merge" for r in reads)
     assert all(r["bytes"] == r["cells"] * 5 * 8 for r in reads)

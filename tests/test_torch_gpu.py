@@ -14,7 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
+from historian_tpu_torch.ops import (
+    _kernels,
+    colforward,
+    guidedp,
+    pairforward,
+    sp_colforward,
+    tracedp,
+)
 from historian_tpu_torch.ops.devicedp import sorted_walk_edges
 
 NEG = -1e30
@@ -1288,3 +1295,72 @@ def test_forced_dag_route_on_the_card(cuda, monkeypatch):
     assert np.all(np.abs(dev.cells[live] - host.cells[live]) <= 1e-9)
     profs = [f.sample_profile(MT19937(31), 10, 0).to_json() for f in (host, dev)]
     assert profs[1] == profs[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,KY,n,banded", [(200, 4, 2, False), (700, 4, 3, True),
+                                           (1500, 1, 5, True), (1500, 1, 12, False),
+                                           (130, 1, 2, True)])
+def test_sp_kernel_bit_equal_to_k1(cuda, S, KY, n, banded, dtype):
+    """Kernel (g1) over n shards of the card (runs of whole 128-lane strips;
+    12 shards of 1500 lanes leave none empty, 2 of 130 a one-lane last
+    shard): cells bit-equal to K1's on the same inputs, with and without
+    the band's lanes, run 3 times (a stale read across a boundary shows
+    only now and then); one launch a fill."""
+    args, _ = _k1_args(S, KY, dtype, cuda)
+    lanes = colforward.lanes_from_mask(args[4] == 0) if banded else None
+    ref = colforward.col_forward_planes(*args, lanes=lanes)
+    for _ in range(3):
+        before = sp_colforward.LAUNCHES
+        got = sp_colforward.sp_col_forward_planes(*args, lanes, [cuda] * n)
+        assert sp_colforward.LAUNCHES == before + 1
+        assert torch.equal(got, ref)
+    cuts = sp_colforward.LAST_LAUNCH["cuts"]
+    assert len(cuts) == min(n, -(-S // colforward.STRIP_WIDTH))
+    assert sp_colforward.LAST_LAUNCH["exchange_bytes"] == (len(cuts) - 1) * (
+        S * sp_colforward.RECORD * ref.element_size() + 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("place", ["host", "peer"])
+def test_sp_kernel_system_scope_exchange(cuda, monkeypatch, place, n, dtype):
+    """The cross-card exchange of kernel (g1) on the one card: every
+    boundary's records in pinned host memory ("host", the buffer of two
+    cards without peer access) or in the card's memory at system scope
+    ("peer", the buffer a peer card stores into), so that the system-scope
+    release, acquire and loads run; cells bit-equal to K1's, run 3 times."""
+    args, _ = _k1_args(1500, 1, dtype, cuda)
+    lanes = colforward.lanes_from_mask(args[4] == 0)
+    ref = colforward.col_forward_planes(*args, lanes=lanes)
+    monkeypatch.setattr(sp_colforward, "_record_place", lambda writer, reader: place)
+    for _ in range(3):
+        got = sp_colforward.sp_col_forward_planes(*args, lanes, [cuda] * n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    launch = sp_colforward.LAST_LAUNCH
+    assert launch["places"] == [place] * (n - 1)
+    assert launch["system_scope"] == [True] * (n - 1)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 1e-3),
+                                             (torch.float64, 1e-9, 1e-9)])
+def test_sp_kernel_matches_plain(cuda, dtype, rtol, atol):
+    """Kernel (g1) at 4 shards against its plain version at 4 shards."""
+    args, _ = _k1_args(600, 4, dtype, cuda)
+    got = sp_colforward.sp_col_forward_planes(*args, None, [cuda] * 4)
+    ref = sp_colforward.sp_col_forward_planes_plain(*args, 4)
+    g, r = got.cpu().double().numpy(), ref.cpu().double().numpy()
+    live = r > -1e25
+    assert np.array_equal(g > -1e25, live)
+    np.testing.assert_allclose(g[live], r[live], rtol=rtol, atol=atol)
+
+
+def test_sp_kernel_rejects_ragged_shards(cuda):
+    """A shard that is not whole strips, but the last, is refused."""
+    args, _ = _k1_args(300, 1, torch.float64, cuda)
+    y_src, y_lp, y_flags, absorb, maskg, xvec, trans = args
+    shards = [(absorb[:, a:b].contiguous(), maskg[:, a:b].contiguous(),
+               xvec[:, a:b].contiguous()) for a, b in ((0, 100), (100, 300))]
+    with pytest.raises(ValueError, match="not whole strips"):
+        sp_colforward.sp_col_forward_shards(y_src, y_lp, y_flags, trans, None, shards)

@@ -2,7 +2,7 @@
 every import of `jax`, `jaxlib` and `historian_tpu` refused (by the
 top-level name, so `historian_tpu_torch` still loads), the CLI still
 reconstructs small4 on the CPU (also with the refiner, `mcmc` and `generate`)
-with a supplied tree, and small6 through the guide stage and the distance
+with a supplied tree, also on a mesh in a process group (parallel/), and small6 through the guide stage and the distance
 tree: neighbour joining on Jukes-Cantor distances, the fused route (K2's
 plain version), and ML distances (`-fast` without its `-jc`).
 
@@ -114,3 +114,32 @@ def test_mcmc_without_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     rows, lp = rows_and_lp(out.stdout)
     assert len(rows) == 7 and lp < 0 and (tmp_path / "ck.json").exists()
+
+
+def test_mesh_and_group_without_jax(tmp_path):
+    """`recon -mesh 4` with HISTORIAN_SP=1 (the SP fill's plain version
+    over 4 of 8 CPU devices), then `count -mesh 2x1` on its output, in a
+    gloo group of one (HISTORIAN_DIST=1 with a coordinator on a free
+    port), with jax refused: parallel/ and ops/sp_colforward.py stand
+    alone."""
+    import socket
+
+    fa, nh = write_small4(tmp_path)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    env = {**os.environ, "HISTORIAN_SP": "1", "HISTORIAN_DIST": "1",
+           "HISTORIAN_COORDINATOR": f"127.0.0.1:{s.getsockname()[1]}",
+           "HISTORIAN_NUM_PROCESSES": "1", "HISTORIAN_PROCESS_ID": "0",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    s.close()
+    recon = tmp_path / "small4.sto"
+    for argv in (["recon", "-platform", "cpu", "-mesh", "4", "-fast", "-noband", "-tree", nh, fa],
+                 ["count", "-platform", "cpu", "-mesh", "2x1", "-stockrecon", str(recon)]):
+        out = subprocess.run([sys.executable, "-c", BLOCKED, *argv], capture_output=True,
+                             text=True, timeout=300, cwd=REPO, env=env)
+        assert out.returncode == 0, out.stderr[-2000:]
+        if argv[0] == "recon":
+            recon.write_text(out.stdout)
+            rows, lp = rows_and_lp(out.stdout)
+            assert len(rows) == 7 and lp < 0
+    assert '"alphabet": "arndcqeghilkmfpstwyv"' in out.stdout

@@ -48,7 +48,7 @@ def test_oversized_merges_fill_on_the_host(small4, check, monkeypatch):
     got = _recon(["-v", *args])
     assert got == ref
     assert {k: recon.MERGES[k] - merges[k] for k in merges} == dict(
-        device=0, fullband=0, dag=0, host=0, oversized=3)
+        device=0, fullband=0, dag=0, host=0, oversized=3, sp=0)
     assert forward.FILLS == dict(fills, oversized=fills["oversized"] + 3)
     assert log.getvalue().count("does not fit cpu: filled on the host") == 3
 

@@ -107,31 +107,190 @@ def test_band_doubling_ladder_matches_jax(tmp_path, monkeypatch):
     assert rows == ref_rows and abs(lp - ref_lp) < 1e-6
 
 
-def test_unported_paths_raise(small4):
-    """-mesh names its ROADMAP item, in `recon` and in `mcmc`."""
+def cli_output(argv: list) -> str:
+    """stdout of the port's CLI on `argv`, run in this process."""
+    import contextlib
+    import io
+
     from historian_tpu_torch import cli
 
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv) == 0
+    return out.getvalue()
+
+
+#: `recon` and `mcmc` (one sample a node) on small4, with these flags after
+#: the command's inputs
+MESH_COMMANDS = (("recon",), ("mcmc", "-samples", "1"))
+
+
+@pytest.fixture(scope="module")
+def plain_outputs(small4):
+    """stdout of MESH_COMMANDS' plain runs (float64) by command."""
     args, _ = small4
-    for command in ("recon", "mcmc"):
-        with pytest.raises(NotImplementedError, match="item 7, multi-GPU"):
-            cli.main([command, "-platform", "cpu", *args, "-mesh", "2"])
+    old = os.environ.get("HISTORIAN_DEVICE_DTYPE")
+    os.environ["HISTORIAN_DEVICE_DTYPE"] = "f64"
+    try:
+        return {command: cli_output([command, "-platform", "cpu", *args, *flags])
+                for command, *flags in MESH_COMMANDS}
+    finally:
+        if old is None:
+            del os.environ["HISTORIAN_DEVICE_DTYPE"]
+        else:
+            os.environ["HISTORIAN_DEVICE_DTYPE"] = old
+
+
+def test_unported_paths_raise(small4, plain_outputs, monkeypatch):
+    """-mesh 1 (ROADMAP item 7, ported): `recon` and `mcmc` on a mesh of one
+    device equal the plain run, and the mesh ends with the command.  (Until
+    item 7 was ported, -mesh raised; the test keeps its name.)"""
+    from historian_tpu_torch.parallel import pcounts
+
+    args, (ref_rows, _) = small4
+    monkeypatch.setenv("HISTORIAN_DEVICE_DTYPE", "f64")
+    meshes = []
+    set_mesh = pcounts.set_mesh
+    monkeypatch.setattr(pcounts, "set_mesh", lambda spec: meshes.append(set_mesh(spec)) or
+                        meshes[-1])
+    for command, *flags in MESH_COMMANDS:
+        plain = plain_outputs[command]
+        assert cli_output([command, "-platform", "cpu", *args, *flags, "-mesh", "1"]) == plain
+        assert pcounts.active_mesh() is None
+    assert rows_and_lp(plain)[0] != [] and len(meshes) == 2
+    assert all(m.shape == {"dp": 1} for m in meshes)
+    assert rows_and_lp(cli_output(["recon", "-platform", "cpu", *args, "-mesh", "1"]))[0] \
+        == ref_rows
+
+
+def group_run(argv: list, env: dict, ranks: int = 1, loopback: str | None = None) -> list:
+    """(stdout, the group each rank reports) of `python -m
+    historian_tpu_torch <argv>` in `ranks` processes (rank k with
+    HISTORIAN_PROCESS_ID=k where `env` gives none), each reporting after
+    the command whether a group is up, its size, its rank and backend.
+    `loopback` (host:port) takes the place of the forced group's fixed
+    rendezvous, dist.LOOPBACK, in the subprocesses."""
+    script = ("import sys\n"
+              "import torch.distributed as td\n"
+              "from historian_tpu_torch import cli\n"
+              "from historian_tpu_torch.parallel import dist\n"
+              + (f"dist.LOOPBACK = {loopback!r}\n" if loopback else "")
+              + "rc = cli.main(sys.argv[1:])\n"
+              "print('GROUP', dist.is_initialized(), td.get_world_size(), td.get_rank(),\n"
+              "      td.get_backend(), file=sys.stderr)\n"
+              "sys.exit(rc)\n")
+    e = dict(os.environ)
+    for name in ("HISTORIAN_MESH", "HISTORIAN_DIST", "HISTORIAN_COORDINATOR",
+                 "HISTORIAN_NUM_PROCESSES", "HISTORIAN_PROCESS_ID"):
+        e.pop(name, None)
+    e.update(env, HISTORIAN_DEVICE_DTYPE="f64")
+    procs = [subprocess.Popen([sys.executable, "-c", script, *argv], cwd=REPO, text=True,
+                              env={"HISTORIAN_PROCESS_ID": str(k), **e},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for k in range(ranks)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-3000:]
+            group = [ln.split()[1:] for ln in err.splitlines() if ln.startswith("GROUP ")]
+            outs.append((out, group[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    return outs
+
+
+def free_port() -> str:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"127.0.0.1:{port}"
 
 
 @pytest.mark.parametrize("name,value", [("HISTORIAN_MESH", "2"), ("HISTORIAN_DIST", "1"),
                                         ("HISTORIAN_COORDINATOR", "127.0.0.1:12321"),
                                         ("HISTORIAN_NUM_PROCESSES", "2"),
                                         ("HISTORIAN_PROCESS_ID", "0")])
-def test_unported_mesh_environment_raises(small4, monkeypatch, name, value):
+def test_unported_mesh_environment_raises(small4, plain_outputs, monkeypatch, name, value):
     """Each variable with which the JAX CLI engages a mesh or a process
-    group makes `recon` and `mcmc` raise, naming the ROADMAP item, before
-    anything runs on one device in one process."""
-    from historian_tpu_torch import cli
+    group has its meaning in the port (ROADMAP item 7, ported; until then
+    each raised, and the test keeps its name), and `recon` and `mcmc` print
+    what the plain run prints:
+
+    - HISTORIAN_MESH=2: a mesh of 2 of the CPU's 8 devices, in this process;
+    - HISTORIAN_DIST=1: a loopback gloo group of one, whose rendezvous is
+      127.0.0.1:12321 (checked in process, the group not started), then
+      run in a subprocess with a free port in its place;
+    - HISTORIAN_COORDINATOR: the group of one that it describes with
+      HISTORIAN_NUM_PROCESSES=1 and HISTORIAN_PROCESS_ID=0, on a free port
+      of the value's host;
+    - HISTORIAN_NUM_PROCESSES=2: a group of two processes (ranks 0 and 1
+      on a free port), each printing the plain run's output;
+    - HISTORIAN_PROCESS_ID=0: rank 0 of a group of one on a free port.
+    The process-group cases run in subprocesses, and none of them binds a
+    fixed port, so that two runs of the tests on one machine never meet."""
+    from historian_tpu_torch.parallel import dist, pcounts
 
     args, _ = small4
-    monkeypatch.setenv(name, value)
-    for command in ("recon", "mcmc"):
-        with pytest.raises(NotImplementedError, match="item 7, multi-GPU"):
-            cli.main([command, "-platform", "cpu", *args])
+    monkeypatch.setenv("HISTORIAN_DEVICE_DTYPE", "f64")
+    if name == "HISTORIAN_DIST":
+        import torch.distributed as tdist
+
+        class Stop(Exception):
+            pass
+
+        seen = []
+
+        def init_process_group(backend, **kw):
+            seen.append((backend, kw))
+            raise Stop
+
+        with monkeypatch.context() as m:
+            for other in ("HISTORIAN_COORDINATOR", "HISTORIAN_NUM_PROCESSES",
+                          "HISTORIAN_PROCESS_ID"):
+                m.delenv(other, raising=False)
+            m.setenv(name, value)
+            m.setattr(tdist, "init_process_group", init_process_group)
+            with pytest.raises(Stop):
+                dist.init_from_env("cpu")
+        assert seen == [("gloo", dict(init_method="tcp://127.0.0.1:12321", world_size=1,
+                                      rank=0))]
+        assert not dist.is_initialized()
+    for command, *flags in MESH_COMMANDS:
+        argv = [command, "-platform", "cpu", *args, *flags]
+        plain = plain_outputs[command]
+        if name == "HISTORIAN_MESH":
+            meshes = []
+            set_mesh = pcounts.set_mesh
+            monkeypatch.setattr(pcounts, "set_mesh",
+                                lambda spec: meshes.append(set_mesh(spec)) or meshes[-1])
+            monkeypatch.setenv(name, value)
+            assert cli_output(argv) == plain
+            monkeypatch.delenv(name)
+            monkeypatch.setattr(pcounts, "set_mesh", set_mesh)
+            assert [m.shape for m in meshes] == [{"dp": 2}]
+            assert len(meshes[0].local_devices()) == 2
+            continue
+        env, ranks, loopback = {name: value}, 1, None
+        if name == "HISTORIAN_DIST":
+            loopback = free_port()
+        elif name == "HISTORIAN_COORDINATOR":
+            # a free port of the value's host, in place of its fixed one
+            env.update(HISTORIAN_COORDINATOR=free_port(), HISTORIAN_NUM_PROCESSES="1",
+                       HISTORIAN_PROCESS_ID="0")
+        elif name == "HISTORIAN_NUM_PROCESSES":
+            env.update(HISTORIAN_COORDINATOR=free_port())
+            ranks = 2
+        elif name == "HISTORIAN_PROCESS_ID":
+            env.update(HISTORIAN_COORDINATOR=free_port(), HISTORIAN_NUM_PROCESSES="1")
+        runs = group_run(argv, env, ranks, loopback)
+        for rank, (out, group) in enumerate(runs):
+            assert out == plain
+            assert group == ["True", str(ranks), str(rank), "gloo"]
 
 
 def test_unused_mesh_environment_runs(small4, monkeypatch):

@@ -42,6 +42,9 @@ def imported_roots(path: str) -> set:
 def test_sources_found():
     assert "historian_tpu_torch/engine/forward.py" in SOURCES and len(SOURCES) > 30
     assert "historian_tpu_torch/ops/dagforward.py" in SOURCES
+    assert {f"historian_tpu_torch/parallel/{m}.py" for m in ("dist", "mesh", "pcounts", "spmerge")} \
+        <= set(SOURCES)
+    assert "historian_tpu_torch/ops/sp_colforward.py" in SOURCES
     assert "lg" in PRESETS and "ECMrest" in PRESETS
 
 
