@@ -192,7 +192,26 @@ Phases, each fatal on failure (nothing is caught):
       `fit -maxiter 2` with `-mesh 1` on (j)'s long12 reconstruction ==
       the plain run (1e-9); `-mesh 2` raises; HISTORIAN_DIST=1 (a one-rank
       NCCL group) `count` and `mcmc -samples 1` == the plain run.  Prints
-      a {"spcolforward": ...} JSON line.
+      a {"spcolforward": ...} JSON line;
+  (q) the last four modules, each on its hand-written kernel (see
+      `phase_pair_modules`): first each entry point once at full width,
+      its launches counted from 0 (`tropical_pair_forward` on long12's
+      t01 x t02 in float32, `SiblingMatrix.fill_batch` on bench.py:566's 16
+      proposal grids, `sp_pair_forward` on long6's first two sequences at
+      8 shards of the card and `sp_pair_forward_batch` on 8 headline pairs
+      over 2 x 4, `pp_pair_forward_lp` on K3's headline batch at 4 stages,
+      float64); then kernel (f) against its plain version on the pair's
+      first 400 rows at all 6100 columns (float32, float64), at full size
+      timed beside K4 with its first rows bit-equal to the cut's and
+      lp_best <= K4's lp_end; kernel (d') against fill.cpp, kernel (d)
+      (bit for bit) and its plain version, timed beside 16 fills on kernel
+      (d) and on fill.cpp; kernel (g2) at 1, 2, 4 and 8 shards against K4
+      (long6, f32; cut to 4095 columns in f64), the full pair in f64
+      against the 8-shard run, and against its plain version on the
+      first 300 rows at all columns (at 1, 4 and 8 shards), the batch
+      against K3; kernel (g3) at 2, 4 and 8 stages against K3 (the
+      headline batch) and K4 (6 x 3000 x 3000) in float64 and its plain
+      version.  Prints a {"pairmodules": ...} JSON line.
 Prints the Felsenstein times, the readbacks, the branch fills, the MCMC
 and kernel (a) as JSON lines, the kernel table as one JSON line, the card
 line, and last {"ok": true, "device": {...}}.  Exits non-zero without
@@ -203,7 +222,11 @@ long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
 kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
 proposals), kernel (d) and its plan kernel in (n) long6 (the same),
 kernel (a) and its plan kernel in (o)'s long12 run on the automatic
-route, kernel (g1) in (p)'s small6 run on four shards.
+route, kernel (g1) in (p)'s small6 run on four shards, kernels (f), (d'),
+(g2) and (g3) in (q)'s main-path calls (their lines' ms, plain_ms and bound
+at one shape each: (f) long12's t01 x t02 cut to 400 rows in float32,
+(d') the 16 grids, (g2) long6's first pair cut to 300 rows at 8 shards
+and (g3) 8 headline pairs at 4 stages, both float64).
 
 Each kernel's `bound_ms` is the least time an H100 SXM could take for
 the same work at the shape its `ms` was taken: the larger of the bytes
@@ -221,7 +244,10 @@ in-envelope cell's plan entry read (8 B) and the per-state arrays (the
 absorb factors among them), its operations DAG_OPS by each cell's
 in-edges; its plan kernel's, the records (64 B a cell) and terms (32 B
 each) written and the band and its source map (44 B a band cell) set.
-No PyTorch
+Kernel (f)'s operations are TROPICAL_OPS_PER_CELL a cell; (g2)'s and
+(g3)'s are K3's, and their bytes add the records or boundary rows
+written and read once; (d')'s are kernel (d)'s over the padded grids'
+cells written and the in-mask cells' operations.  No PyTorch
 call computes these recurrences, so `library_ms` is null.  K2's band
 leaves most cells at NEG, so its operations are counted on the in-band
 cells only.
@@ -3233,6 +3259,422 @@ def phase_sp(cli, colforward, work: str, small6_cpu: str) -> dict:
     return dict(res, err=err, launches=launches)
 
 
+#: operations a cell of kernel (f)'s max-plus recurrence: 30 adds and 13
+#: maxima (IMD 8, IIW 6, the IMM source 9, IMM 1, the scans' sources 6,
+#: their a and b 4, the scans 4) and 5 gates, each one operation
+TROPICAL_OPS_PER_CELL = 48
+#: kernel (f) against its plain version, relative on the cells above
+#: -1e29: every max is exact, only the scans' sums of b associate
+#: otherwise (float32 rounds those at ~6e-8 a step)
+TROPICAL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: (g2) and (g3) against K3/K4 and their plain versions, relative on
+#: lp_end: another association of the row scans; K3/K4's float32 takes
+#: ex2.approx / lg2.approx
+PAIR_RTOL = {torch.float32: 1e-5, torch.float64: 1e-9}
+#: the rows at which (q) holds kernels (f) and (g2) against their plain
+#: versions, every column kept (so at the block shape of the full pair)
+TROPICAL_ROWS, SP_ROWS = 400, 300
+
+
+def pair_arrays(x: str, y: str, dtype, dev=torch.device("cuda")) -> list:
+    """The pair-DP inputs (absorb, rootsub_x, rootsub_y, ins_x, ins_y,
+    mask, trans) of x and y, preset lg, branch lengths 0.5 / 0.5, on dev."""
+    from historian_tpu_torch.models.presets import named_model
+    from historian_tpu_torch.ops import pairforward
+
+    args, _ = pairforward.chain_pair_forward_arrays(named_model("lg"), x, y, 0.5, 0.5,
+                                                    dtype=dtype)
+    return [a.to(dev) for a in args]
+
+
+def event_ms(fn) -> tuple:
+    """fn's result and its time on the card: CUDA events around one call
+    (a kernel already built and loaded; for calls of a second or so, where
+    more repeats would cost the script's time limit)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def rel_err(what: str, got, ref, rtol: float) -> float:
+    """The largest relative error of lp values (tensors), which must be
+    finite and within rtol."""
+    g, r = (torch.as_tensor(v).double().cpu().reshape(-1) for v in (got, ref))
+    if not (bool((r > -1e29).all()) and bool((g > -1e29).all())):
+        raise AssertionError(f"{what}: an lp at the semiring zero: {g.tolist()} {r.tolist()}")
+    e = float(((g - r).abs() / r.abs()).max())
+    if e > rtol:
+        raise AssertionError(f"{what}: relative error {e:.3e} > {rtol}")
+    return e
+
+
+def tropical_check(what: str, got, ref, rtol: float) -> float:
+    """The -1e29 rule (a cell at or below -1e29 in one is in the other;
+    the -inf cells the same), no NaN, then rtol on the rest; returns the
+    largest absolute error."""
+    g, r = got.double().cpu(), ref.double().cpu()
+    live = r > -1e29
+    if bool(g.isnan().any()) or bool(r.isnan().any()):
+        raise AssertionError(f"{what}: NaN cells")
+    if not torch.equal(g > -1e29, live):
+        raise AssertionError(f"{what}: the cells at or below -1e29 differ")
+    if not torch.equal(g == -math.inf, r == -math.inf):
+        raise AssertionError(f"{what}: the -inf cells differ")
+    d = (g[live] - r[live]).abs()
+    if not bool((d <= rtol * r[live].abs()).all()):
+        raise AssertionError(f"{what}: off by {float(d.max())}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def cut_pair(args: list, x1: int, y1: int) -> list:
+    """Pair-DP inputs cut to their first x1 rows and y1 columns."""
+    absorb, rsx, rsy, ix, iy, mask, trans = args
+    return [absorb[:x1, :y1].contiguous(), rsx[:x1].contiguous(), rsy[:y1].contiguous(),
+            ix[:x1].contiguous(), iy[:y1].contiguous(), mask[:x1, :y1].contiguous(), trans]
+
+
+def card_mesh(n: int, names=("sp",), shape=None):
+    """A mesh of the one card repeated n times (`-mesh n` asks for n cards)."""
+    from historian_tpu_torch.parallel.mesh import Mesh, MeshDevice
+
+    devs = np.array([MeshDevice(0, k, torch.device("cuda", 0)) for k in range(n)], dtype=object)
+    return Mesh(devs.reshape(shape or (n,)), names)
+
+
+def batch_mats(K: int = 16) -> list:
+    """bench.py:566's proposal grids in the port: preset lg, a 24-leaf
+    UPGMA tree from RandomState(17), a 300-column alignment simulated on it
+    from MT19937(3), a SiblingMatrix (fill deferred) for each of its first
+    K internal nodes."""
+    from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
+    from historian_tpu_torch.core.tree import Tree
+    from historian_tpu_torch.engine.treealign import get_conditional_pwms
+    from historian_tpu_torch.models.presets import named_model
+    from historian_tpu_torch.sampler.sibling import SiblingMatrix
+    from historian_tpu_torch.sampler.simulator import simulate_tree
+    from historian_tpu_torch.utils.rng import MT19937
+
+    model = named_model("lg")
+    rng = np.random.RandomState(17)
+    pts = np.sort(rng.uniform(0.05, 1.0, 24))
+    dist = np.abs(pts[:, None] - pts[None, :]) + 0.05
+    np.fill_diagonal(dist, 0.0)
+    tree = Tree.upgma([f"L{i}" for i in range(24)], dist)
+    tree.assign_internal_node_names()
+    rows = tree.reorder_seqs(simulate_tree(MT19937(3), model, tree, 300).gapped)
+    mats = []
+    for node in range(tree.n_nodes()):
+        if tree.is_leaf(node) or len(mats) >= K:
+            continue
+        l_c, r_c = tree.children(node)
+        pwms = get_conditional_pwms(model, tree, rows, {l_c: node, r_c: node})
+        mats.append(SiblingMatrix(
+            model, pwms[l_c], pwms[r_c], tree.branch_length(l_c), tree.branch_length(r_c),
+            GuideAlignmentEnvelope(), np.arange(len(pwms[l_c]) + 1),
+            np.arange(len(pwms[r_c]) + 1), l_c, r_c, node, defer_fill=True))
+    return mats
+
+
+def phase_pair_modules() -> dict:
+    """(q) The last four modules the JAX package has, each on its
+    hand-written kernel: (f) the tropical pair DP, (d') the batched sibling
+    fill, (g2) the sequence-parallel and (g3) the pipeline-parallel pair
+    Forward.
+
+    The main path first, each entry point once with its launches counted
+    from 0: `tropical_pair_forward` on long12's first two sequences (t01 x
+    t02, ~6100 aa, float32), `SiblingMatrix.fill_batch` on bench.py:566's
+    16 proposal grids, `sp_pair_forward` on long6's first two sequences at
+    8 shards of the card (float64) and `sp_pair_forward_batch` on 8 pairs
+    of K3's headline shape over 2 x 4 shards, `pp_pair_forward_lp` on K3's
+    headline batch (128 x 384 x 384) at 4 stages (float64).  Then each
+    kernel against its plain version at a cut and against its yardstick
+    at full size, timed (CUDA events, the wrappers' calls):
+    (f) cells on the pair's first TROPICAL_ROWS rows at all its columns (the
+    full pair's block shape) in float32 and float64 (the -1e29 rule, the
+    same -inf cells, TROPICAL_RTOL); at full size the rows above the cut's
+    last bit-equal to the cut's, no NaN or +inf, its time beside K4's
+    Forward time on the same pair and lp_best <= K4's lp_end (K4 float32:
+    it takes at most 4096 lanes in float64);
+    (d') the 16 grids in one launch against each matrix's fill.cpp fill
+    (the same -inf cells, SIBLING_TOL) and kernel (d)'s fill alone (bit for
+    bit), and against the plain version (SIBLING_PLAIN_RTOL); its time
+    beside 16 fills on kernel (d) and on fill.cpp, and fill_batch's wall
+    beside 16 SiblingMatrix fills on the device route;
+    (g2) at 1, 2, 4 and 8 shards on the full long6 pair against K4 in
+    float32, on the pair cut to 4095 columns against K4 in float64 (K4
+    takes at most 4096 lanes there) and on the full pair in float64
+    against the main path's 8-shard run (PAIR_RTOL), each timed (one call,
+    CUDA events); against its plain version on the pair's first SP_ROWS
+    rows at all its columns (the full pair's shards: float32 at 4 shards,
+    float64 at 1, 4 and 8); the batch against K3;
+    (g3) at 2, 4 and 8 stages on K3's headline shape and K4's long shape
+    (6 x 3000 x 3000) against K3 / K4 in float64, timed; against its plain
+    version on 8 pairs of the headline shape.  Prints a {"pairmodules":
+    ...} JSON line; returns each kernel's line entries."""
+    from historian_tpu_torch import bench, device
+    from historian_tpu_torch.ops import pairforward, siblingdp, sp_pairforward, tropical
+    from historian_tpu_torch.parallel import pp_pairforward
+    from historian_tpu_torch.sampler import sibling
+
+    cuda = device.select("gpu")
+    f32, f64 = torch.float32, torch.float64
+    name = lambda dt: str(dt)[6:]  # noqa: E731
+    long12 = [s for _, s in read_fasta(os.path.join(REPO, "tests", "data", "long12.fa"))]
+    long6 = [s for _, s in read_fasta(os.path.join(REPO, "tests", "data", "long6.fa"))]
+    trop_args = {dt: pair_arrays(long12[0], long12[1], dt) for dt in (f32, f64)}
+    sp_args = {dt: pair_arrays(long6[0], long6[1], dt) for dt in (f32, f64)}
+    head64 = bench.build("headline", cuda, f64)
+    head8 = [t[:8].contiguous() for t in head64[:5]]
+    mats = batch_mats()
+    out, summary = {}, {}
+
+    # ---- the main path, launches counted from 0
+    tropical.LAUNCHES = siblingdp.BATCH_LAUNCHES = 0
+    sp_pairforward.LAUNCHES = pp_pairforward.LAUNCHES = 0
+    tropical.tropical_pair_forward(*trop_args[f32])
+    if not sibling.SiblingMatrix.fill_batch(mats):
+        raise AssertionError("fill_batch returned False")
+    lp_sp8 = sp_pairforward.sp_pair_forward(*sp_args[f64], mesh=card_mesh(8))
+    lp_spb = sp_pairforward.sp_pair_forward_batch(
+        *head8, torch.ones(head8[0].shape[1:], dtype=torch.bool, device=cuda), head64[5],
+        mesh=card_mesh(8, ("dp", "sp"), (2, 4)))
+    lp_pp = pp_pairforward.pp_pair_forward_lp(*head64, mesh=card_mesh(4, ("pp",)))
+    torch.cuda.synchronize()
+    launches = dict(tropical=tropical.LAUNCHES, siblingbatch=siblingdp.BATCH_LAUNCHES,
+                    sppairforward=sp_pairforward.LAUNCHES, pppairforward=pp_pairforward.LAUNCHES)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"(q) main path launches {launches}")
+    print(f"(q) main path: tropical_pair_forward long12 t01 x t02 f32, fill_batch of 16 "
+          f"grids, sp_pair_forward long6 f64 on 8 shards, sp_pair_forward_batch 8 headline "
+          f"pairs on 2 x 4, pp_pair_forward_lp headline f64 on 4 stages: launches {launches}",
+          flush=True)
+
+    # ---- (f): against the plain version on the first rows at full width
+    # (the full pair's block shape), at full size beside K4
+    err_f = 0.0
+    k4_args = [t[None].contiguous() for t in trop_args[f32][:5]] + [trop_args[f32][6]]
+    k4_lp = pairforward.pair_forward_lp_tiled(*k4_args)
+    k4_ms = cuda_ms(lambda: pairforward.pair_forward_lp_tiled(*k4_args), reps=1)
+    for dt in (f32, f64):
+        full = trop_args[dt]
+        X1f, Y1f = full[0].shape
+        cut = cut_pair(full, TROPICAL_ROWS, Y1f)
+        (ref, ref_lp), p_ms = host_ms(lambda: tropical.tropical_pair_forward_plain(*cut))
+        got, got_lp = tropical.tropical_pair_forward(*cut)
+        e = max(tropical_check(f"(f) {name(dt)} cut cells", got, ref, TROPICAL_RTOL[dt]),
+                tropical_check(f"(f) {name(dt)} cut lp_best", got_lp[None], ref_lp[None],
+                               TROPICAL_RTOL[dt]))
+        err_f = max(err_f, e)
+        cut_inf = int((got == -math.inf).sum())
+        ms_cut = cuda_ms(lambda: tropical.tropical_pair_forward(*cut))
+        X1, Y1 = cut[0].shape
+        bnd_cut = bound(nbytes(*cut, got, got_lp), TROPICAL_OPS_PER_CELL * X1 * Y1, dt)
+        (cells, lp_best), ms_full = event_ms(lambda: tropical.tropical_pair_forward(*full))
+        launch = dict(tropical.LAST_LAUNCH)
+        # a row depends on the rows above alone (x is ready on every row but
+        # the last): the full run's first rows are the cut run's, bit for bit
+        if not torch.equal(cells[:X1 - 1], got[:X1 - 1]):
+            raise AssertionError(f"(f) {name(dt)} full size: rows 0-{X1 - 2} differ from "
+                                 f"the {X1}-row run's")
+        if bool(cells.isnan().any()) or bool((cells == math.inf).any()) \
+                or not -1e29 < float(lp_best) < 0:
+            raise AssertionError(f"(f) {name(dt)} full size: NaN or +inf cells, or no path")
+        full_inf = int((cells == -math.inf).sum())
+        if not float(lp_best) <= float(k4_lp[0]) + 1e-5 * abs(float(k4_lp[0])):
+            raise AssertionError(f"(f) {name(dt)}: lp_best {float(lp_best)} above K4's lp_end "
+                                 f"{float(k4_lp[0])}")
+        bnd_full = bound(nbytes(*full, cells, lp_best), TROPICAL_OPS_PER_CELL * X1f * Y1f, dt)
+        summary[f"f {name(dt)}"] = dict(cut_ms=ms_cut, cut_plain_ms=p_ms, cut_err=e,
+                                        cut_bound_ms=bnd_cut["bound_ms"], full_ms=ms_full,
+                                        full_bound_ms=bnd_full["bound_ms"], k4_f32_ms=k4_ms,
+                                        lp_best=float(lp_best), k4_lp_end=float(k4_lp[0]),
+                                        cut_neg_inf_cells=cut_inf, full_neg_inf_cells=full_inf,
+                                        lanes=launch["lanes"], threads=launch["threads"])
+        print(f"(q) (f) {name(dt)}: {X1} x {Y1} (the first rows, {launch['lanes']} lanes a "
+              f"thread, {launch['threads']} threads) {ms_cut:.3f} ms, plain {p_ms:.1f} ms, max "
+              f"abs err {e:.3e}, {cut_inf} -inf cells in both, bound {bnd_cut['bound_ms']:.4f} "
+              f"ms ({bnd_cut['bound_by']}); full {X1f} x {Y1f} {ms_full:.3f} ms "
+              f"({ms_full * 1e3 / X1f:.3f} us a row; rows 0-{X1 - 2} bit-equal to the cut's; "
+              f"{full_inf} -inf cells: float32's log(0 + 1e-300) = -inf in row and column 0's "
+              f"inputs, carried by max as in the JAX function), bound {bnd_full['bound_ms']:.4f} "
+              f"ms; K4 f32 Forward on the pair {k4_ms:.3f} ms; lp_best {float(lp_best):.6f} <= "
+              f"K4 lp_end {float(k4_lp[0]):.6f}", flush=True)
+        if dt == f32:
+            out["tropical"] = dict(ms=ms_cut, plain_ms=p_ms, **bnd_cut)
+        del cells, got, ref
+    out["tropical"]["err"] = err_f
+    del trop_args, k4_args
+
+    # ---- (d'): one launch against fill.cpp, kernel (d) and the plain version
+    inputs = [torch.from_numpy(a).to(cuda) for a in sibling.SiblingMatrix.batch_arrays(mats)]
+    cells, lp_end = siblingdp.sibling_forward_batch(*inputs)
+    batch = dict(siblingdp.LAST_BATCH)
+    ms = cuda_ms(lambda: siblingdp.sibling_forward_batch(*inputs))
+    (plain, plain_lp), p_ms = host_ms(lambda: siblingdp.sibling_forward_batch_plain(*inputs))
+    cells_h, lp_h, plain_h = cells.cpu().numpy(), lp_end.cpu().numpy(), plain.cpu().numpy()
+    err_d, bit_equal, host_ms_sum, singles = 0.0, [], 0.0, []
+    for k, m in enumerate(mats):
+        sx, sy = m.x_size, m.y_size
+        args = (m.match_emit, m.mask, m.l_emit, m.r_emit, siblingdp.transition_table(m))
+        host, hlp, h_ms = sibling_host(args)
+        host_ms_sum += h_ms
+        got = cells_h[k, :sx, :sy]
+        err_d = max(err_d, sibling_err(f"(d') item {k} vs fill.cpp", got, host))
+        if not abs(lp_h[k] - hlp) <= SIBLING_TOL * abs(hlp):
+            raise AssertionError(f"(d') item {k}: lp_end {lp_h[k]!r}, fill.cpp {hlp!r}")
+        live = np.isfinite(host)
+        bit_equal.append(float(np.mean(got[live] == host[live])))
+        p = np.where(plain_h[k, :sx, :sy] <= -1e29, -np.inf, plain_h[k, :sx, :sy])
+        sibling_err(f"(d') item {k} vs the plain version", got, p, SIBLING_PLAIN_RTOL)
+        if not (np.all(cells_h[k, sx:] == -np.inf) and np.all(cells_h[k, :, sy:] == -np.inf)):
+            raise AssertionError(f"(d') item {k}: a cell past its corner is not -inf")
+        lay = band_of(m.mask)
+        inp = siblingdp.upload_band(lay, *args, cuda)
+        band, _ = siblingdp.sibling_fill_band(inp)
+        if not np.array_equal(got.reshape(-1, 11)[lay.flat_index()], band.cpu().numpy()):
+            raise AssertionError(f"(d') item {k}: not bit-equal to kernel (d)")
+        singles.append(inp)
+        if m.lp_end != lp_h[k] or not np.array_equal(np.asarray(m.cells), got):
+            raise AssertionError(f"(d') item {k}: fill_batch's matrix differs from the launch")
+    single_ms = cuda_ms(lambda: [siblingdp.sibling_fill_band(i) for i in singles])
+    rebatch = batch_mats()
+    _, batch_wall = host_ms(lambda: sibling.SiblingMatrix.fill_batch(rebatch))
+    os.environ["HISTORIAN_DEVICE_SIBLING"] = "1"
+    try:
+        fresh = batch_mats()
+        _, single_wall = host_ms(lambda: [m._fill() for m in fresh])
+    finally:
+        del os.environ["HISTORIAN_DEVICE_SIBLING"]
+    in_mask = sum(int(np.count_nonzero(m.mask)) for m in mats)
+    bnd = bound(nbytes(*inputs, cells, lp_end), SIBLING_OPS * in_mask, f64)
+    K = len(mats)
+    sizes = sorted((m.x_size, m.y_size) for m in mats)
+    summary["d'"] = dict(ms=ms, plain_ms=p_ms, single_fills_ms=single_ms,
+                         fill_cpp_ms=host_ms_sum, fill_batch_wall_ms=batch_wall,
+                         single_device_walls_ms=single_wall, err=err_d,
+                         bit_equal_min=min(bit_equal), **bnd)
+    print(f"(q) (d') {K} grids ({sizes[0]} to {sizes[-1]}, padded to {tuple(inputs[2].shape[1:])}, "
+          f"{in_mask} in-mask cells) in one launch ({batch['threads']} threads a block, a "
+          f"block an item): {ms:.3f} ms; 16 single fills on kernel (d) {single_ms:.3f} ms, on "
+          f"fill.cpp {host_ms_sum:.1f} ms; fill_batch wall {batch_wall:.1f} ms against 16 "
+          f"device-route fills {single_wall:.1f} ms; plain {p_ms:.1f} ms; max abs err vs "
+          f"fill.cpp {err_d:.3e} (bit-equal share >= {min(bit_equal):.6f}), bit-equal to "
+          f"kernel (d); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    out["siblingbatch"] = dict(ms=ms, plain_ms=p_ms, err=err_d, **bnd)
+    del cells, plain, cells_h, plain_h, singles, inputs
+
+    # ---- (g2): 1, 2, 4, 8 shards against K4 and the plain version
+    err_g2, sp_times = 0.0, {}
+    k4_ref = {}
+    k4_f32 = [t[None].contiguous() for t in sp_args[f32][:5]] + [sp_args[f32][6]]
+    k4_ref["full f32"] = pairforward.pair_forward_lp_tiled(*k4_f32)[0]
+    cut64 = cut_pair(sp_args[f64], sp_args[f64][0].shape[0], pairforward.MAX_LANES[f64])
+    k4_ref["4095 f64"] = pairforward.pair_forward_lp_tiled(
+        *(t[None].contiguous() for t in cut64[:5]), cut64[6])[0]
+    cases = {"full f32": sp_args[f32], "4095 f64": cut64, "full f64": sp_args[f64]}
+    for n in (1, 2, 4, 8):
+        for case, args in cases.items():
+            got, ms_n = event_ms(lambda: sp_pairforward.sp_pair_forward(*args, mesh=card_mesh(n)))
+            # K4 takes at most 4096 lanes in float64: the full pair in float64 is
+            # held against the main path's run (8 shards)
+            ref = lp_sp8 if case == "full f64" else k4_ref[case]
+            dt = args[0].dtype
+            e = rel_err(f"(g2) {case} {n} shards vs {'8 shards' if case == 'full f64' else 'K4'}",
+                        got, ref, PAIR_RTOL[dt])
+            sp_times[f"{case} {n}"] = dict(ms=ms_n, rel_err_k4=e)
+            print(f"(q) (g2) {case} {tuple(args[0].shape)} on {n} shards "
+                  f"{sp_pairforward.LAST_LAUNCH['cols']}: {ms_n:.3f} ms, lp_end "
+                  f"{float(got):.6f}, {e:.3e} of |lp| from "
+                  f"{'the 8-shard run' if case == 'full f64' else 'K4'} {name(ref.dtype)}",
+                  flush=True)
+    k4_ms = {dt: cuda_ms(lambda: pairforward.pair_forward_lp_tiled(
+        *(t[None].contiguous() for t in a[:5]), a[6]), reps=1)
+        for dt, a in ((f32, sp_args[f32]), (f64, cut64))}
+    for dt, shards in ((f32, (4,)), (f64, (1, 4, 8))):
+        cut = cut_pair(sp_args[dt], SP_ROWS, sp_args[dt][0].shape[1])
+        for n in shards:
+            got = sp_pairforward.sp_pair_forward(*cut, mesh=card_mesh(n))
+            launch = dict(sp_pairforward.LAST_LAUNCH)
+            plain, p_ms = host_ms(lambda: sp_pairforward.sp_pair_forward_plain(*cut, n))
+            e = rel_err(f"(g2) {SP_ROWS} rows {name(dt)} {n} shards vs plain", got, plain,
+                        PAIR_RTOL[dt])
+            err_g2 = max(err_g2, float((got - plain).abs()))
+            ms_n = cuda_ms(lambda: sp_pairforward.sp_pair_forward(*cut, mesh=card_mesh(n)))
+            X1, Y1 = cut[0].shape
+            bnd = bound(nbytes(*cut, got) + 2 * launch["record_bytes"],
+                        PF_OPS_PER_CELL * X1 * Y1, dt)
+            sp_times[f"cut {name(dt)} {n}"] = dict(ms=ms_n, plain_ms=p_ms, rel_err=e, **bnd)
+            print(f"(q) (g2) {X1} x {Y1} {name(dt)} on {n} shards: {ms_n:.3f} ms, plain "
+                  f"{p_ms:.1f} ms, {e:.3e} of |lp|; records {launch['record_bytes']} B; bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+            if dt == f64 and n == 8:  # the main path's shards
+                out["sppairforward"] = dict(ms=ms_n, plain_ms=p_ms, **bnd)
+    k3_ref = pairforward.pair_forward_lp(*head8, head64[5])
+    e = rel_err("(g2) batch 2 x 4 vs K3", lp_spb, k3_ref, PAIR_RTOL[f64])
+    ms_b = cuda_ms(lambda: sp_pairforward.sp_pair_forward_batch(
+        *head8, torch.ones(head8[0].shape[1:], dtype=torch.bool, device=cuda), head64[5],
+        mesh=card_mesh(8, ("dp", "sp"), (2, 4))))
+    k3_ms = cuda_ms(lambda: pairforward.pair_forward_lp(*head8, head64[5]))
+    gap = float(lp_sp8) - float(k4_ref["full f32"])
+    print(f"(q) (g2) long6 f64 lp_end {float(lp_sp8):.6f}; K4 f32's {float(k4_ref['full f32']):.6f}"
+          f" is {gap:.4f} nats off (float32's drift over {sp_args[f64][0].shape[0]} rows)",
+          flush=True)
+    sp_times["batch 2x4"] = dict(ms=ms_b, k3_ms=k3_ms, rel_err=e)
+    summary["g2"] = dict(sp_times, k4_ms={name(k): v for k, v in k4_ms.items()})
+    print(f"(q) (g2) sp_pair_forward_batch 8 headline pairs f64 on 2 x 4 shards: {ms_b:.3f} ms, "
+          f"{e:.3e} of |lp| from K3 ({k3_ms:.3f} ms); K4 on the long6 pair f32 "
+          f"{k4_ms[f32]:.3f} ms, at 4095 columns f64 {k4_ms[f64]:.3f} ms", flush=True)
+    out["sppairforward"]["err"] = err_g2
+    del sp_args, cut64
+
+    # ---- (g3): 2, 4, 8 stages against K3 and K4, float64
+    long64 = bench.build("long", cuda, f64)
+    pp_times = {}
+    refs = {"headline": (head64, pairforward.pair_forward_lp(*head64),
+                         cuda_ms(lambda: pairforward.pair_forward_lp(*head64))),
+            "long": (long64, pairforward.pair_forward_lp_tiled(*long64),
+                     cuda_ms(lambda: pairforward.pair_forward_lp_tiled(*long64), reps=1))}
+    rel_err("(g3) main path headline 4 stages vs K3", lp_pp, refs["headline"][1], PAIR_RTOL[f64])
+    for case, (args, ref, ref_ms) in refs.items():
+        for n in (2, 4, 8):
+            got = pp_pairforward.pp_pair_forward_lp(*args, mesh=card_mesh(n, ("pp",)))
+            launch = dict(pp_pairforward.LAST_LAUNCH)
+            e = rel_err(f"(g3) {case} {n} stages vs K3/K4", got, ref, PAIR_RTOL[f64])
+            ms_n = cuda_ms(lambda: pp_pairforward.pp_pair_forward_lp(
+                *args, mesh=card_mesh(n, ("pp",))), reps=3 if case == "headline" else 1)
+            B, X1, Y1 = args[0].shape
+            bnd = bound(nbytes(*args, got) + 2 * launch["boundary_bytes"],
+                        PF_OPS_PER_CELL * B * X1 * Y1, f64)
+            pp_times[f"{case} {n}"] = dict(ms=ms_n, ref_ms=ref_ms, rel_err=e, **bnd)
+            print(f"(q) (g3) {case} {B} x {X1 - 1} x {Y1 - 1} f64 on {n} stages "
+                  f"({list(launch['groups'].values())[0]} blocks a stage): {ms_n:.3f} ms, "
+                  f"{'K3' if case == 'headline' else 'K4'} {ref_ms:.3f} ms, {e:.3e} of |lp|; "
+                  f"boundaries {launch['boundary_bytes']} B; bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']})", flush=True)
+    h8 = list(head8) + [head64[5]]
+    got = pp_pairforward.pp_pair_forward_lp(*h8, mesh=card_mesh(4, ("pp",)))
+    launch = dict(pp_pairforward.LAST_LAUNCH)
+    plain, p_ms = host_ms(lambda: pp_pairforward.pp_pair_forward_lp_plain(*h8, 4))
+    e = rel_err("(g3) 8 headline pairs 4 stages vs plain", got, plain, PAIR_RTOL[f64])
+    ms = cuda_ms(lambda: pp_pairforward.pp_pair_forward_lp(*h8, mesh=card_mesh(4, ("pp",))))
+    B, X1, Y1 = h8[0].shape
+    bnd = bound(nbytes(*h8, got) + 2 * launch["boundary_bytes"],
+                PF_OPS_PER_CELL * B * X1 * Y1, f64)
+    pp_times["plain 8 headline 4"] = dict(ms=ms, plain_ms=p_ms, rel_err=e, **bnd)
+    print(f"(q) (g3) 8 headline pairs f64 on 4 stages: {ms:.3f} ms, plain {p_ms:.1f} ms, "
+          f"{e:.3e} of |lp|; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    out["pppairforward"] = dict(ms=ms, plain_ms=p_ms, err=float((got - plain).abs().max()),
+                                **bnd)
+    summary["g3"] = pp_times
+    print(json.dumps({"pairmodules": dict(summary, launches=launches)}), flush=True)
+    return dict(out, launches=launches)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3295,6 +3737,8 @@ def main(argv=None) -> int:
         elapsed("o")
         spf = phase_sp(cli, colforward, work, small6_cpu)
         elapsed("p")
+    pairs = phase_pair_modules()
+    elapsed("q")
 
     kernels = [
         dict(name="colforward", route="cuda", source="historian_tpu_torch/csrc/colforward.cu",
@@ -3359,6 +3803,17 @@ def main(argv=None) -> int:
         replaces="historian_tpu/ops/sp_colforward.py:50", launches=spf["launches"],
         max_abs_err=spf["err"], ms=spf["ms"], plain_ms=spf["plain_ms"],
         bound_ms=spf["bound_ms"], bound_by=spf["bound_by"], library_ms=None))
+    for name, source, line in (
+            ("tropical", "tropical.cu", "historian_tpu/ops/tropical.py:68"),
+            ("siblingbatch", "siblingfill.cu", "historian_tpu/ops/siblingdp.py:215"),
+            ("sppairforward", "sppairforward.cu", "historian_tpu/ops/sp_pairforward.py:76"),
+            ("pppairforward", "pppairforward.cu", "historian_tpu/parallel/pp_pairforward.py:32")):
+        k = pairs[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"historian_tpu_torch/csrc/{source}", replaces=line,
+            launches=pairs["launches"][name], max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=None))
     for name, kid, line in (("pairforward_lp", "K3", 142), ("pairforward_lp_tiled", "K4", 301)):
         kernels.append(dict(
             name=name, route="cuda", source="historian_tpu_torch/csrc/pairforward.cu",

@@ -648,6 +648,76 @@ __global__ void siblingfill_chain_split(const double* __restrict__ t144, int ste
   for (int s = j; s < kStates; s += kLanes) out[s] = c[s];
 }
 
+
+// ----------------------------------------------------- the batch, (d')
+// Kernel (d'): K sibling fills in one launch (replaces
+// historian_tpu/ops/siblingdp.py::sibling_forward_batch, a `vmap` of the
+// XLA row scan over grids padded to one shape).  A block an item, a lane
+// group a cell (`sib_lanes`, so each cell is computed as kernel (d)
+// computes it, in fill.cpp's order): the block walks the item's
+// diagonals x + y = k up to its own corner `ends`, the cells of a
+// diagonal spread over its lane groups (in turns where the diagonal is
+// wider than the block), one barrier a diagonal.  The neighbours are read
+// from the cells already written (this item's grid in device memory,
+// past L1: another thread of the block wrote them before the barrier);
+// one outside the grid reads a shared guard of -inf, one outside the mask
+// reads the -inf that was written there.  Cells past the item's corner
+// (the batch's padding) are -inf.  Emissions at or below -1e29 (the JAX
+// package's NEG for -inf) are read as -inf, as fill.cpp takes them.
+// Bounded, as kernel (d), by the chain of a cell a diagonal; the block's
+// diagonals meet no other block's, so the K items run side by side.
+__device__ __forceinline__ double inf_below(double v) { return v <= -1e29 ? -INFINITY : v; }
+
+__global__ void __launch_bounds__(kRingMaxThreads) siblingbatch(
+    const double* __restrict__ l_emit, const double* __restrict__ r_emit,
+    const double* __restrict__ emit, const uint8_t* __restrict__ mask,
+    const double* __restrict__ t144, const int* __restrict__ ends, double* cells,
+    double* lp_end, int sx, int sy) {
+  __shared__ double guard[kPitch];
+  const int item = blockIdx.x, tid = threadIdx.x, threads = blockDim.x;
+  const int q = tid / kLanes, j = tid % kLanes, width = threads / kLanes;
+  const int X = ends[2 * item], Y = ends[2 * item + 1];  // the item's corner
+  const double* T144 = t144 + 144 * item;
+  const Lane ln = make_lane(j, T144);
+  const size_t grid = size_t(sx) * sy;
+  double* out = cells + grid * kStates * item;
+  const double* em = emit + grid * item;
+  const uint8_t* mk = mask + grid * item;
+  const double* le = l_emit + size_t(sx - 1) * item;
+  const double* re = r_emit + size_t(sy - 1) * item;
+  for (int u = tid; u < kPitch; u += threads) guard[u] = -INFINITY;
+  for (size_t c = tid; c < grid; c += threads) {
+    if (int(c / sy) > X || int(c % sy) > Y) {
+#pragma unroll
+      for (int s = 0; s < kStates; ++s) out[c * kStates + s] = -INFINITY;
+    }
+  }
+  __syncthreads();
+  for (int k = 0; k <= X + Y; ++k) {
+    const int xa = max(0, k - Y), n = min(k, X) - xa + 1;
+    for (int base = 0; base < n; base += width) {  // the same turns in every thread
+      const int t = base + q;
+      const bool cell = t < n;
+      const int x = xa + (cell ? t : 0), y = k - x;
+      const double* l = cell && x >= 1 ? out + (size_t(x - 1) * sy + y) * kStates : guard;
+      const double* r = cell && y >= 1 ? out + (size_t(x) * sy + y - 1) * kStates : guard;
+      const double* lr =
+          cell && x >= 1 && y >= 1 ? out + (size_t(x - 1) * sy + y - 1) * kStates : guard;
+      const double me = cell ? inf_below(em[size_t(x) * sy + y]) : 0.0;
+      const double lee = cell && x >= 1 ? inf_below(le[x - 1]) : 0.0;
+      const double ren = cell && y >= 1 ? inf_below(re[y - 1]) : 0.0;
+      const double* nL = j == 0 ? lr : (j == 2 ? r : l);
+      const double* nP = j == 0 ? l : (j < 3 ? r : guard);
+      const double eL = j == 0 ? me : j == 2 ? ren : lee;
+      const double eP = j == 0 ? lee : ren;
+      const Out o = sib_lanes(ln, nL, nP, eL, eP, cell && k == 0, kFull);
+      if (cell) put(out + (size_t(x) * sy + y) * kStates, ln, o, mk[size_t(x) * sy + y] != 0);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) lp_end[item] = lp_end_of(out + (size_t(X) * sy + Y) * kStates, Trans{T144});
+}
+
 }  // namespace
 
 // Blocks of the strip design with `strip_rows` rows that can be resident
@@ -750,5 +820,22 @@ extern "C" int siblingfill_chain_f64(const double* t144, int steps, int split, d
     siblingfill_chain_split<<<1, kLanes, 0, s>>>(t144, steps, out);
   else
     siblingfill_chain<<<1, 1, 0, s>>>(t144, steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel (d'): K items' fills into cells [K, sx, sy, 11] and lp_end [K],
+// from l_emit [K, sx - 1], r_emit [K, sy - 1], emit and mask [K, sx, sy]
+// (bytes), t144 [K, 144] (as siblingfill_f64 takes them) and each item's
+// corner `ends` [K, 2] (x, y), a block of 4 `width` threads an item
+// (width a multiple of 8, at most kRingMaxCells).  Returns the launch's
+// error.
+extern "C" int siblingbatch_f64(const double* l_emit, const double* r_emit, const double* emit,
+                                const uint8_t* mask, const double* t144, const int* ends,
+                                double* cells, double* lp_end, int K, int sx, int sy, int width,
+                                void* stream) {
+  if (K < 1 || sx < 1 || sy < 1 || width < 8 || width > kRingMaxCells || width % 8)
+    return int(cudaErrorInvalidValue);
+  siblingbatch<<<K, kLanes * width, 0, static_cast<cudaStream_t>(stream)>>>(
+      l_emit, r_emit, emit, mask, t144, ends, cells, lp_end, sx, sy);
   return static_cast<int>(cudaGetLastError());
 }

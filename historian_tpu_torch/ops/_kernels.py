@@ -93,13 +93,25 @@ _SIGNATURES = {
     "spcolforward_capacity": [],
     # writer, reader -> 1 with peer access on, 0 without, -(CUDA error)
     "spcolforward_peer": [_I, _I],
+    # absorb, rsx, rsy, ix, iy, mask, trans, cells, lp_best, X1, Y1, stream:
+    # kernel (f), the tropical pair DP
+    "tropical": [_P] * 9 + [_I] * 2 + [_P],
+    # table, blocks, nc, absorb, rsx, rsy, ix, iy, mask, trans, lp_end, X1, Y1,
+    # stream: kernel (g2), the sequence-parallel pair Forward on one device
+    "sppairforward": [_P, _I, _I] + [_P] * 8 + [_I, _I, _P],
+    # table, stages, absorb, rsx, rsy, ix, iy, trans, lp_end, pairs, X1, Y1,
+    # groups (out), stream: kernel (g3), the pipeline-parallel pair Forward
+    "pppairforward": [_P, _I] + [_P] * 7 + [_I] * 3 + [_P, _P],
+    # l_emit, r_emit, emit, mask, t144, ends, cells, lp_end, K, sx, sy, width,
+    # stream: kernel (d'), K sibling fills in one launch
+    "siblingbatch": [_P] * 8 + [_I] * 4 + [_P],
 }
 #: the dtypes each kernel is built for, where not both
 _DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingplan",
                                        "siblingfill", "siblingfill_capacity",
                                        "siblingfill_chain", "dagfill",
                                        "dagfill_capacity", "dagfill_chain", "dagplan_count",
-                                       "dagplan_records")}
+                                       "dagplan_records", "siblingbatch")}
 _DTYPES["spcolforward_peer"] = ("",)
 
 _LIB: ctypes.CDLL | None = None

@@ -2,7 +2,7 @@
 sibling profiles (left x, right y) under their parent.
 
 Port of historian_tpu/ops/siblingdp.py (`pack_sibling_transitions`,
-`sibling_forward`).  `sibling_forward` is the JAX formulation in
+`sibling_forward`, `sibling_forward_batch`).  `sibling_forward` is the JAX formulation in
 PyTorch, the plain version: a loop over x rows in which the states read
 from the row before are vector operations, IMI is an affine scan along y
 and the coupled (IDM, IDI) pair a scan of 2x2 log-matrix affine maps,
@@ -26,6 +26,12 @@ strips (a block a strip of STRIP_ROWS rows, each strip a pipeline stage
 behind the one above).  `upload_band` packs a host grid's band into one
 pinned buffer and copies it once, `read_band` copies the filled band and
 lp_end back once.
+
+`sibling_forward_batch` fills K grids of one padded shape at once, each to
+its own corner: the plain version `sibling_forward_batch_plain` runs
+`sibling_forward` an item at a time; for CUDA tensors kernel (d')
+(csrc/siblingfill.cu `siblingbatch`, a block an item, a lane group a
+cell of a diagonal, kernel (d)'s cell step) fills them in one launch.
 """
 
 from __future__ import annotations
@@ -75,6 +81,11 @@ UPLOADS: list = []
 #: the last launch's design, lanes a cell, blocks, threads a block, and
 #: the ring's slots a diagonal or the strips' rows and count
 LAST_LAUNCH: dict = {}
+#: launches of kernel (d'), the batch (`sibling_forward_batch` on the card)
+BATCH_LAUNCHES = 0
+#: the last batch launch: items, the grid, lanes a cell, cell slots and
+#: threads a block (a block an item)
+LAST_BATCH: dict = {}
 #: lanes a cell (csrc/siblingfill.cu kLanes)
 LANES = 4
 #: the ring design's widest diagonal (kRingMaxCells)
@@ -552,6 +563,105 @@ def sibling_fill_band(inp: SiblingBandInputs, planned: torch.Tensor | None = Non
     LAST_LAUNCH.update(design=design, lanes=LANES, blocks=blocks, threads=threads)
     LAST_LAUNCH.update(dict(width=width, ring_rows=R) if design == "ring"
                        else dict(strip_rows=H, strips=strips))
+    return cells, lp_end
+
+
+def unpack_tables(trans: torch.Tensor) -> torch.Tensor:
+    """[K, 144]: each packed row of `trans` [K, 35] as the [12, 12] table
+    the kernels take (`transition_table`, flattened), -inf where a packed
+    value is at or below -1e29 or the table has no entry."""
+    K = trans.shape[0]
+    idx = torch.tensor([_INDEX[a] * 12 + _INDEX[b] for a, b in _KEYS], device=trans.device)
+    out = torch.full((K, 144), -torch.inf, dtype=torch.float64, device=trans.device)
+    t = trans.to(torch.float64)
+    out[:, idx] = torch.where(t <= -1e29, -torch.inf, t)
+    return out
+
+
+def _batch_lp_end(cells, trans, ends):
+    """lp_end [K] read at each item's corner `ends`, the JAX package's
+    `sibling_forward_batch` order: (IDD, WWW, WWX, WXW) to EEE, the
+    transitions at trans[:, 31:35]."""
+    corner = cells[torch.arange(cells.shape[0], device=cells.device), ends[:, 0], ends[:, 1]]
+    return torch.logaddexp(
+        torch.logaddexp(corner[:, 3] + trans[:, 31], corner[:, 4] + trans[:, 32]),
+        torch.logaddexp(corner[:, 5] + trans[:, 33], corner[:, 6] + trans[:, 34]))
+
+
+def sibling_forward_batch_plain(l_emit, r_emit, match_emit, mask, trans, ends) -> tuple:
+    """The plain version of `sibling_forward_batch`: `sibling_forward`
+    for each item on its grid up to its corner (the padding, masked, adds
+    nothing inside it), NEG past the corner, then lp_end read at `ends`."""
+    K, X1, Y1 = match_emit.shape
+    cells = torch.full((K, X1, Y1, N_STATES), NEG, dtype=match_emit.dtype,
+                       device=match_emit.device)
+    for k in range(K):
+        x1, y1 = int(ends[k, 0]) + 1, int(ends[k, 1]) + 1
+        cells[k, :x1, :y1] = sibling_forward(l_emit[k, : x1 - 1], r_emit[k, : y1 - 1],
+                                             match_emit[k, :x1, :y1], mask[k, :x1, :y1],
+                                             trans[k])[0]
+    return cells, _batch_lp_end(cells, trans, ends.long())
+
+
+def _check_batch(l_emit, r_emit, match_emit, mask, trans, ends) -> None:
+    if match_emit.dim() != 3:
+        raise ValueError(f"match_emit must be [K, X+1, Y+1], got {tuple(match_emit.shape)}")
+    K, X1, Y1 = match_emit.shape
+    want = {"l_emit": (l_emit, (K, X1 - 1)), "r_emit": (r_emit, (K, Y1 - 1)),
+            "mask": (mask, (K, X1, Y1)), "trans": (trans, (K, 35)), "ends": (ends, (K, 2))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.device != match_emit.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, expected {shape} on "
+                             f"{match_emit.device}")
+    if mask.dtype != torch.bool or ends.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"mask must be bool and ends integers, not {mask.dtype}, {ends.dtype}")
+    e = ends.cpu()
+    if K and (int(e.min()) < 0 or int(e[:, 0].max()) >= X1 or int(e[:, 1].max()) >= Y1):
+        raise ValueError(f"ends outside the grids [{X1}, {Y1}]")
+
+
+def sibling_forward_batch(l_emit, r_emit, match_emit, mask, trans, ends) -> tuple:
+    """K sibling fills at once, the JAX package's `sibling_forward_batch`:
+    l_emit [K, X], r_emit [K, Y], match_emit and mask [K, X+1, Y+1], trans
+    [K, 35] (`pack_sibling_transitions`, one row an item), ends [K, 2] each
+    item's own corner (x, y).  Returns (cells [K, X+1, Y+1, 11], lp_end [K]
+    read at each item's corner); inside an item's corner the cells are its
+    own fill's, a cell no path reaches at or below -1e29.  The plain
+    version for CPU tensors; for CUDA tensors (float64) kernel (d') in one
+    launch, which fills each item up to its corner (-inf past it, and
+    where fill.cpp has -inf) in fill.cpp's per-cell order; any other
+    device raises."""
+    global BATCH_LAUNCHES
+    _check_batch(l_emit, r_emit, match_emit, mask, trans, ends)
+    dev = match_emit.device
+    if dev.type == "cpu":
+        return sibling_forward_batch_plain(l_emit, r_emit, match_emit, mask, trans, ends)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the batched sibling fill has no kernel for device {dev}")
+    for name, t in (("l_emit", l_emit), ("r_emit", r_emit), ("match_emit", match_emit),
+                    ("trans", trans)):
+        if t.dtype != torch.float64:
+            raise ValueError(f"kernel (d') takes float64, not {t.dtype} ({name})")
+    from historian_tpu_torch.ops import _kernels
+
+    K, X1, Y1 = match_emit.shape
+    e = ends.cpu()
+    widest = int(torch.minimum(e[:, 0], e[:, 1]).max()) + 1
+    width = min(RING_MAX_CELLS, max(8, -(-widest // 8) * 8))
+    args = [t.contiguous() for t in (l_emit, r_emit, match_emit)] + [
+        mask.contiguous().view(torch.uint8), unpack_tables(trans),
+        ends.to(torch.int32).contiguous()]
+    cells = torch.empty((K, X1, Y1, N_STATES), dtype=torch.float64, device=dev)
+    lp_end = torch.empty(K, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        code = _kernels.lib().siblingbatch_f64(
+            *(t.data_ptr() for t in args), cells.data_ptr(), lp_end.data_ptr(), K, X1, Y1,
+            width, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(code, "siblingbatch")
+    BATCH_LAUNCHES += 1
+    LAST_BATCH.clear()
+    LAST_BATCH.update(items=K, grid=(X1, Y1), lanes=LANES, width=width,
+                      threads=LANES * width)
     return cells, lp_end
 
 

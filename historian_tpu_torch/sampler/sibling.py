@@ -258,6 +258,55 @@ class SiblingMatrix:
             self._fill_host()
             FILLS["python"] += 1
 
+    @staticmethod
+    def batch_arrays(mats: "list[SiblingMatrix]") -> tuple:
+        """The inputs of ops/siblingdp.py `sibling_forward_batch` for `mats`
+        (numpy): each grid padded to the largest one's shape with masked
+        cells, -1e30 for -inf, its transitions and its corner beside it."""
+        from historian_tpu_torch.ops.siblingdp import pack_sibling_transitions
+
+        X1 = max(m.x_size for m in mats)
+        Y1 = max(m.y_size for m in mats)
+        K = len(mats)
+        l_emit = np.full((K, X1 - 1), -1e30)
+        r_emit = np.full((K, Y1 - 1), -1e30)
+        match = np.full((K, X1, Y1), -1e30)
+        mask = np.zeros((K, X1, Y1), dtype=bool)
+        trans = np.empty((K, 35))
+        ends = np.empty((K, 2), dtype=np.int32)
+        for k, m in enumerate(mats):
+            sx, sy = m.x_size, m.y_size
+            l_emit[k, : sx - 1] = m.l_emit
+            r_emit[k, : sy - 1] = m.r_emit
+            match[k, :sx, :sy] = np.where(np.isfinite(m.match_emit), m.match_emit, -1e30)
+            mask[k, :sx, :sy] = m.mask
+            trans[k] = pack_sibling_transitions(m)
+            ends[k] = (sx - 1, sy - 1)
+        return l_emit, r_emit, match, mask, trans, ends
+
+    @classmethod
+    def fill_batch(cls, mats: "list[SiblingMatrix]") -> bool:
+        """Fill K deferred proposal grids at once (ops/siblingdp.py
+        `sibling_forward_batch`) on the current device, from `batch_arrays`;
+        then each matrix's cells (-inf where no path reaches) and lp_end.
+        On the card kernel (d') in one launch, on the CPU the plain version.
+        Returns True; unlike the JAX package's, a failure raises (its
+        `except Exception: return False` hid the kernel's failures)."""
+        if not mats:
+            return True
+        from historian_tpu_torch.ops.siblingdp import sibling_forward_batch
+
+        dev = devmod.current()
+        cells, lp_end = sibling_forward_batch(
+            *(torch.from_numpy(a).to(dev) for a in cls.batch_arrays(mats)))
+        cells = cells.cpu().numpy()
+        lp_end = lp_end.cpu().numpy()
+        for k, m in enumerate(mats):
+            ck = cells[k, : m.x_size, : m.y_size]
+            m.cells = np.where(ck < -1e29, NEG, ck)
+            m.lp_end = float(lp_end[k])
+        return True
+
     def _want_device(self) -> bool:
         """HISTORIAN_DEVICE_SIBLING=1/0 forces; otherwise kernel (d) on the
         card for more than DEVICE_MIN_CELLS in-mask state-cells, the host

@@ -1364,3 +1364,253 @@ def test_sp_kernel_rejects_ragged_shards(cuda):
                xvec[:, a:b].contiguous()) for a, b in ((0, 100), (100, 300))]
     with pytest.raises(ValueError, match="not whole strips"):
         sp_colforward.sp_col_forward_shards(y_src, y_lp, y_flags, trans, None, shards)
+
+
+# --------------------------------------------- kernels (f), (d'), (g2), (g3)
+def _long6_pair(x_len, y_len, dtype, dev, offset=0, pair=(0, 1)):
+    """Pair-DP inputs of two long6 sequences cut to x_len and y_len
+    residues from `offset` (preset lg) on `dev`."""
+    from historian_tpu_torch.core.seqs import read_fasta
+    from historian_tpu_torch.models.presets import named_model
+
+    seqs = read_fasta(os.path.join(os.path.dirname(__file__), "data", "long6.fa"))
+    x = seqs[pair[0]].seq[offset: offset + x_len]
+    y = seqs[pair[1]].seq[offset: offset + y_len]
+    args, _ = pairforward.chain_pair_forward_arrays(named_model("lg"), x, y, 0.7, 0.4,
+                                                    dtype=dtype)
+    return [a.to(dev) for a in args]
+
+
+def _pair_band(X1, Y1, width, dev):
+    diag = np.arange(X1)[:, None] * ((Y1 - 1) / max(X1 - 1, 1))
+    band = np.abs(diag - np.arange(Y1)[None, :]) <= width
+    band[0, :] = band[:, 0] = True
+    band[-1, -1] = True
+    return torch.as_tensor(band, device=dev)
+
+
+def _card_mesh(dev, n, names=("sp",), shape=None):
+    from historian_tpu_torch.parallel.mesh import Mesh, MeshDevice
+
+    devs = np.array([MeshDevice(0, k, dev) for k in range(n)], dtype=object)
+    return Mesh(devs.reshape(shape or (n,)), names)
+
+
+TROPICAL_SHAPES = [(0, 40, -1), (1, 0, -1), (36, 28, -1), (60, 74, 5), (300, 600, -1),
+                   (40, 1100, 30), (30, 2100, -1), (120, 3000, 200), (25, 5000, -1)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", TROPICAL_SHAPES,
+                         ids=[f"{a}x{b}b{c}" for a, b, c in TROPICAL_SHAPES])
+def test_tropical_kernel_matches_plain(cuda, shape, dtype, rtol):
+    """Kernel (f) against its plain version (1 to 8 lanes a thread; float64
+    past 4096 columns on 32 warps):
+    the cells above -1e29 within rtol, every other cell at or below -1e29
+    in both (-inf in the same cells), a masked cell exactly NEG, lp_best
+    likewise; 3 runs equal."""
+    from historian_tpu_torch.ops import tropical
+
+    x_len, y_len, band = shape
+    args = _long6_pair(x_len, y_len, dtype, cuda)
+    if band >= 0:
+        args[5] = _pair_band(x_len + 1, y_len + 1, band, cuda)
+    ref, ref_lp = tropical.tropical_pair_forward_plain(*args)
+    before = tropical.LAUNCHES
+    runs = [tropical.tropical_pair_forward(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tropical.LAUNCHES == before + 3
+    for cells, lp in runs[1:]:
+        assert torch.equal(cells, runs[0][0]) and torch.equal(lp, runs[0][1])
+    cells, lp = runs[0]
+    for got, want in ((cells, ref), (lp[None], ref_lp[None])):
+        g, r = got.cpu().double().numpy(), want.cpu().double().numpy()
+        live = r > -1e29
+        assert np.array_equal(g > -1e29, live)
+        assert np.array_equal(g == -np.inf, r == -np.inf)
+        assert np.all(np.abs(g[live] - r[live]) <= rtol * np.abs(r[live]))
+    neg = torch.tensor(NEG, dtype=dtype)
+    assert bool((cells.cpu()[~args[5].cpu()] == neg).all())
+
+
+def _sibling_batch(items):
+    """Padded batch inputs (numpy) of `_sibling_case` items (X, Y, band),
+    NEG for -inf, as SiblingMatrix.fill_batch builds them, with each item's
+    own inputs and band layout."""
+    from historian_tpu_torch.ops import siblingdp
+
+    cases = [_sibling_case(X, Y, band, seed=X + Y + 5) for X, Y, band in items]
+    K = len(items)
+    X1 = max(X for X, _, _ in items) + 1
+    Y1 = max(Y for _, Y, _ in items) + 1
+    l_emit, r_emit = np.full((K, X1 - 1), -1e30), np.full((K, Y1 - 1), -1e30)
+    match, mask = np.full((K, X1, Y1), -1e30), np.zeros((K, X1, Y1), bool)
+    trans, ends = np.empty((K, 35)), np.empty((K, 2), np.int32)
+    for k, ((X, Y, _), ((me, mk, le, re, tmat), _)) in enumerate(zip(items, cases)):
+        l_emit[k, :X], r_emit[k, :Y] = le, re
+        match[k, : X + 1, : Y + 1] = np.where(np.isfinite(me), me, -1e30)
+        mask[k, : X + 1, : Y + 1] = mk
+        trans[k], ends[k] = siblingdp.pack_table(tmat), (X, Y)
+    return (l_emit, r_emit, match, mask, trans, ends), cases
+
+
+SIBLING_BATCH = [(120, 90, 6), (300, 340, -1), (40, 1, -1), (1, 40, -1), (200, 230, -2),
+                 (3, 2, -1)]
+
+
+def test_sibling_batch_kernel_matches_host_and_single_fills(cuda):
+    """Kernel (d') on 6 items of mixed sizes in one launch: each item's
+    cells bit-equal to kernel (d)'s fill of that item alone (the same cell
+    step), within 3.64e-12 of csrc/fill.cpp (kernel (d)'s bound against
+    it), -inf where fill.cpp has -inf and past the item's corner; lp_end
+    likewise; against the plain version within 1e-9 relative (its row
+    scan's drift); 3 runs equal."""
+    from historian_tpu_torch.ops import siblingdp
+    from historian_tpu_torch.sampler.sibling import native_fill
+
+    arrays, cases = _sibling_batch(SIBLING_BATCH)
+    t = [torch.as_tensor(a, device=cuda) for a in arrays]
+    before = siblingdp.BATCH_LAUNCHES
+    runs = [siblingdp.sibling_forward_batch(*t) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert siblingdp.BATCH_LAUNCHES == before + 3
+    for c, lp in runs[1:]:
+        assert torch.equal(c, runs[0][0]) and torch.equal(lp, runs[0][1])
+    cells, lp_end = (v.cpu().numpy() for v in runs[0])
+    plain, plain_lp = (v.numpy() for v in siblingdp.sibling_forward_batch_plain(
+        *(torch.as_tensor(a) for a in arrays)))
+    for k, ((X, Y, _), ((me, mk, le, re, tmat), lay)) in enumerate(zip(SIBLING_BATCH, cases)):
+        got = cells[k, : X + 1, : Y + 1]
+        host, hlp = native_fill(le, re, me, mk, tmat)
+        assert np.array_equal(got == -np.inf, host == -np.inf)
+        live = np.isfinite(host)
+        assert np.all(np.abs(got[live] - host[live]) <= 3.64e-12), k
+        assert abs(lp_end[k] - hlp) <= 3.64e-12
+        assert np.all(cells[k, X + 1:] == -np.inf) and np.all(cells[k, :, Y + 1:] == -np.inf)
+        band, blp = siblingdp.sibling_fill_band(
+            siblingdp.upload_band(lay, me, mk, le, re, tmat, cuda))
+        assert np.array_equal(got.reshape(-1, 11)[lay.flat_index()], band.cpu().numpy()), k
+        assert lp_end[k] == blp.item()
+        p = plain[k, : X + 1, : Y + 1]
+        assert np.array_equal(p <= -1e29, ~live)
+        assert np.all(np.abs(got[live] - p[live]) <= 1e-9 * np.abs(p[live]))
+        assert abs(lp_end[k] - plain_lp[k]) <= 1e-9 * abs(plain_lp[k])
+
+
+def test_sibling_batch_kernel_rejects_float32(cuda):
+    from historian_tpu_torch.ops import siblingdp
+
+    t = [torch.as_tensor(a, device=cuda) for a in _sibling_batch([(5, 6, -1)])[0]]
+    t[2] = t[2].float()
+    with pytest.raises(ValueError, match="float64"):
+        siblingdp.sibling_forward_batch(*t)
+
+
+def _k3_lp(args):
+    return pairforward.pair_forward_lp(*(a[None] for a in args[:5]), args[6])[0]
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-9)])
+def test_sp_pair_kernel_matches_k3(cuda, n, dtype, rtol):
+    """Kernel (g2) at n shards of the card (one cooperative launch) against
+    K3's lp_end on the same pair (300 x 280; and 60 x 3000, 8 lanes a
+    thread at one shard), 3 runs equal."""
+    from historian_tpu_torch.ops import sp_pairforward
+
+    for shape in ((300, 280), (60, 3000)):
+        args = _long6_pair(*shape, dtype, cuda)
+        ref = _k3_lp(args)
+        runs = [sp_pairforward.sp_pair_forward(*args, mesh=_card_mesh(cuda, n))
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert sp_pairforward.LAST_LAUNCH["launches"] == 1
+        assert all(torch.equal(r, runs[0]) for r in runs)
+        _lp_close(runs[0][None], ref[None], rtol)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_sp_pair_kernel_banded_padding_matches_plain(cuda, n):
+    """Kernel (g2) with a banded mask and Y + 1 = 30 (padding columns at 4
+    and 8 shards, a shard of padding only at 8) against its plain version
+    and pair_forward, float64: 1e-9 relative."""
+    from historian_tpu_torch.ops import sp_pairforward
+
+    args = _long6_pair(33, 29, torch.float64, cuda, offset=100, pair=(2, 3))
+    args[5] = _pair_band(34, 30, 6, cuda)
+    got = sp_pairforward.sp_pair_forward(*args, mesh=_card_mesh(cuda, n))
+    plain = sp_pairforward.sp_pair_forward_plain(*args, n)
+    _, one = pairforward.pair_forward(*args)
+    for ref in (plain, one):
+        _lp_close(got[None], ref[None], 1e-9)
+
+
+@pytest.mark.parametrize("place", ["host", "peer"])
+@pytest.mark.parametrize("n", [2, 8])
+def test_sp_pair_kernel_system_scope_exchange(cuda, monkeypatch, place, n):
+    """Kernel (g2)'s cross-card exchange on the one card: every boundary's
+    records in pinned host memory ("host") or in the card's memory at
+    system scope ("peer"), float64; lp_end within 1e-9 of K3's, 3 runs."""
+    from historian_tpu_torch.ops import sp_pairforward
+
+    args = _long6_pair(200, 260, torch.float64, cuda)
+    ref = _k3_lp(args)
+    monkeypatch.setattr(sp_pairforward, "_record_place", lambda writer, reader: place)
+    for _ in range(3):
+        got = sp_pairforward.sp_pair_forward(*args, mesh=_card_mesh(cuda, n))
+        _lp_close(got[None], ref[None], 1e-9)
+    assert sp_pairforward.LAST_LAUNCH["places"] == [place] * (n - 1)
+
+
+def test_sp_pair_batch_kernel_matches_k3(cuda):
+    """sp_pair_forward_batch on a 2 x 4 dp x sp mesh of the card over 8
+    pairs (one launch, 32 blocks) against K3, float64."""
+    from historian_tpu_torch.ops import sp_pairforward
+
+    pairs = [_long6_pair(150, 170, torch.float64, cuda, offset=37 * k, pair=(k % 6, (k + 1) % 6))
+             for k in range(8)]
+    batch = [torch.stack([p[i] for p in pairs]) for i in range(5)]
+    ref = pairforward.pair_forward_lp(*batch, pairs[0][6])
+    got = sp_pairforward.sp_pair_forward_batch(
+        *batch, pairs[0][5], pairs[0][6], mesh=_card_mesh(cuda, 8, ("dp", "sp"), (2, 4)))
+    assert sp_pairforward.LAST_LAUNCH["blocks"] == [32]
+    _lp_close(got, ref, 1e-9)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-9)])
+def test_pp_pair_kernel_matches_k3(cuda, n, dtype, rtol):
+    """Kernel (g3) at n stages of the card against K3's lp_end: 6 pairs of
+    120 x 150 (121 rows, which 2, 4 and 8 do not divide) and 3 pairs of
+    4 x 60 (5 rows: at 8 stages three stages pass the carry through), 3
+    runs equal."""
+    from historian_tpu_torch.parallel import pp_pairforward
+
+    for count, x_len, y_len in ((6, 120, 150), (3, 4, 60)):
+        pairs = [_long6_pair(x_len, y_len, dtype, cuda, offset=50 * k, pair=(k, (k + 1) % 6))
+                 for k in range(count)]
+        batch = [torch.stack([p[i] for p in pairs]) for i in range(5)]
+        ref = pairforward.pair_forward_lp(*batch, pairs[0][6])
+        runs = [pp_pairforward.pp_pair_forward_lp(*batch, pairs[0][6],
+                                                  mesh=_card_mesh(cuda, n, ("pp",)))
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(r, runs[0]) for r in runs)
+        assert pp_pairforward.LAST_LAUNCH["launches"] == 1
+        _lp_close(runs[0], ref, rtol)
+
+
+def test_pp_pair_kernel_host_boundaries(cuda, monkeypatch):
+    """Kernel (g3) with every stage boundary in pinned host memory at
+    system scope (the buffer of two cards without peer access), 4 stages,
+    float64, against K3."""
+    from historian_tpu_torch.parallel import pp_pairforward
+
+    pairs = [_long6_pair(90, 110, torch.float64, cuda, offset=9 * k) for k in range(5)]
+    batch = [torch.stack([p[i] for p in pairs]) for i in range(5)]
+    ref = pairforward.pair_forward_lp(*batch, pairs[0][6])
+    monkeypatch.setattr(pp_pairforward, "_record_place", lambda writer, reader: "host")
+    got = pp_pairforward.pp_pair_forward_lp(*batch, pairs[0][6],
+                                            mesh=_card_mesh(cuda, 4, ("pp",)))
+    assert pp_pairforward.LAST_LAUNCH["places"] == ["host"] * 3
+    _lp_close(got, ref, 1e-9)

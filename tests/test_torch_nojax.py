@@ -143,3 +143,63 @@ def test_mesh_and_group_without_jax(tmp_path):
             rows, lp = rows_and_lp(out.stdout)
             assert len(rows) == 7 and lp < 0
     assert '"alphabet": "arndcqeghilkmfpstwyv"' in out.stdout
+
+
+PAIR_MODULES = """
+import sys
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "historian_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, NoJax())
+import numpy as np
+import torch
+from historian_tpu_torch import device
+from historian_tpu_torch.ops import pairforward, siblingdp, sp_pairforward, tropical
+from historian_tpu_torch.parallel import mesh, pp_pairforward
+from historian_tpu_torch.sampler.sibling import SiblingMatrix
+
+device.select("cpu")
+rng = np.random.default_rng(5)
+absorb = torch.from_numpy(rng.normal(-5, 1, (2, 9, 11)))
+rsx, ix = (torch.from_numpy(rng.normal(-3, 1, (2, 9))) for _ in range(2))
+rsy, iy = (torch.from_numpy(rng.normal(-3, 1, (2, 11))) for _ in range(2))
+trans = torch.from_numpy(rng.normal(-1, 0.5, 23))
+mask = torch.ones((9, 11), dtype=torch.bool)
+one = (absorb[0], rsx[0], rsy[0], ix[0], iy[0], mask, trans)
+lp = float(pairforward.pair_forward(*one)[1])
+cells, best = tropical.tropical_pair_forward(*one)
+assert cells.shape == (9, 11, 5) and float(best) <= lp
+devs = mesh.global_devices()
+sp = sp_pairforward.sp_pair_forward(*one, mesh=mesh.Mesh(devs[:3], ("sp",)))
+assert abs(float(sp) - lp) < 1e-9
+batch = sp_pairforward.sp_pair_forward_batch(absorb, rsx, rsy, ix, iy, mask, trans,
+                                             mesh=mesh.Mesh(np.array(devs[:4], dtype=object)
+                                                            .reshape(2, 2), ("dp", "sp")))
+pp = pp_pairforward.pp_pair_forward_lp(absorb, rsx, rsy, ix, iy, trans,
+                                       mesh=mesh.Mesh(devs[:3], ("pp",)))
+assert torch.allclose(batch, pp, rtol=0, atol=1e-9) and abs(float(pp[0]) - lp) < 1e-9
+tmat = np.full((12, 12), -np.inf)
+for a, b in siblingdp._KEYS:
+    tmat[siblingdp._INDEX[a], siblingdp._INDEX[b]] = np.log(rng.uniform(0.05, 0.9))
+c, l = siblingdp.sibling_forward_batch(
+    torch.from_numpy(rng.uniform(-4, -1, (1, 6))), torch.from_numpy(rng.uniform(-4, -1, (1, 5))),
+    torch.from_numpy(rng.uniform(-8, -2, (1, 7, 6))), torch.ones((1, 7, 6), dtype=torch.bool),
+    torch.from_numpy(siblingdp.pack_table(tmat))[None], torch.tensor([[6, 5]]))
+assert np.isfinite(float(l[0])) and SiblingMatrix.fill_batch([])
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "historian_tpu") for m in sys.modules)
+"""
+
+
+def test_pair_modules_without_jax():
+    """The last four modules (ops/tropical.py, ops/sp_pairforward.py,
+    parallel/pp_pairforward.py, siblingdp.sibling_forward_batch and
+    SiblingMatrix.fill_batch), which no CLI command reaches, run their plain
+    versions on seeded inputs and CPU meshes with jax refused."""
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    out = subprocess.run([sys.executable, "-c", PAIR_MODULES], capture_output=True, text=True,
+                         timeout=300, cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]

@@ -265,7 +265,7 @@ def test_bench_run_on_cpu():
     assert (w.batch, w.x_len, w.y_len, w.kernel) == (6, 3000, 3000, "k4")
 
 
-# The order in which csrc/pairforward.cu's warp step associates the row
+# The order in which K3/K4's warp step (csrc/pairstep.cuh) associates the row
 # scans, as torch: each thread composes its M lanes in order, a 32-thread
 # Hillis-Steele scan combines the thread aggregates of a warp, and the
 # carry passes from warp to warp in order, applied as lse(u_local, c + w)

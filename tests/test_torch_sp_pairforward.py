@@ -1,0 +1,90 @@
+"""Kernel (g2)'s plain version, the sequence-parallel pair Forward
+(historian_tpu_torch/ops/sp_pairforward.py), against the JAX package's
+ops/sp_pairforward.py on the CPU, float64, on the 8 virtual CPU devices of
+tests/conftest.py (the JAX package's meshes over `jax.devices()`, the
+port's over `parallel/mesh.py` `global_devices`, whose shards run in turn).
+
+Inputs: long6's sequences cut short, preset lg; the same arrays go to both
+packages.
+
+- `sp_pair_forward` at 1, 2, 3, 4 and 8 shards against the JAX function on
+  the same mesh and against the port's single-device `pair_forward`:
+  1e-9 absolute;
+- a banded mask with a Y + 1 that does not divide into the shards (the
+  padding columns, masked);
+- `sp_pair_forward_batch` on a 2 x 4 `dp` x `sp` mesh against the JAX
+  function and against `pair_forward` pair by pair;
+- a mesh that mixes device types raises.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JaxMesh
+
+from historian_tpu.ops import sp_pairforward as jax_sp
+from historian_tpu_torch import device
+from historian_tpu_torch.ops import pairforward, sp_pairforward
+from historian_tpu_torch.parallel import mesh as port_mesh
+from tests.torch_twins import band_mask, long6_pair
+
+ATOL = 1e-9
+
+
+def _meshes(shape: tuple, names: tuple):
+    device.select("cpu")
+    n = int(np.prod(shape))
+    jm = JaxMesh(np.array(jax.devices()[:n]).reshape(shape), names)
+    pm = port_mesh.Mesh(np.array(port_mesh.global_devices()[:n], dtype=object).reshape(shape),
+                        names)
+    return jm, pm
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_sp_pair_forward_matches_jax(n):
+    args = long6_pair(40, 52, torch.float64)
+    jm, pm = _meshes((n,), ("sp",))
+    lp = float(sp_pairforward.sp_pair_forward(*args, mesh=pm))
+    lp_jax = float(jax_sp.sp_pair_forward(*(a.numpy() for a in args), mesh=jm))
+    _, lp_one = pairforward.pair_forward(*args)
+    assert abs(lp - lp_jax) < ATOL
+    assert abs(lp - float(lp_one)) < ATOL
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_sp_pair_forward_banded_padding(n):
+    """Y + 1 = 30 over 4 and 8 shards: 2 masked padding columns each."""
+    args = list(long6_pair(33, 29, torch.float64, offset=100, pair=(2, 3)))
+    args[5] = band_mask(34, 30, 6)
+    jm, pm = _meshes((n,), ("sp",))
+    lp = float(sp_pairforward.sp_pair_forward(*args, mesh=pm))
+    lp_jax = float(jax_sp.sp_pair_forward(*(a.numpy() for a in args), mesh=jm))
+    _, lp_one = pairforward.pair_forward(*args)
+    assert lp > -1e29
+    assert abs(lp - lp_jax) < ATOL
+    assert abs(lp - float(lp_one)) < ATOL
+
+
+def test_sp_pair_forward_batch_dp_sp():
+    pairs = [long6_pair(30, 41, torch.float64, offset=o, pair=p)
+             for o, p in ((0, (0, 1)), (50, (2, 3)), (200, (4, 5)), (10, (1, 4)))]
+    batch = [torch.stack([p[k] for p in pairs]) for k in range(5)]
+    mask, trans = pairs[0][5], pairs[0][6]
+    jm, pm = _meshes((2, 4), ("dp", "sp"))
+    lp = sp_pairforward.sp_pair_forward_batch(*batch, mask, trans, mesh=pm).numpy()
+    lp_jax = np.asarray(jax_sp.sp_pair_forward_batch(
+        *(a.numpy() for a in batch), mask.numpy(), trans.numpy(), mesh=jm))
+    lp_one = [float(pairforward.pair_forward(*p)[1]) for p in pairs]
+    np.testing.assert_allclose(lp, lp_jax, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(lp, lp_one, rtol=0, atol=ATOL)
+
+
+def test_sp_pair_forward_mixed_mesh_raises():
+    args = long6_pair(6, 7, torch.float64)
+    mixed = port_mesh.Mesh([port_mesh.MeshDevice(0, 0, torch.device("cpu")),
+                            port_mesh.MeshDevice(0, 1, torch.device("meta"))], ("sp",))
+    with pytest.raises(RuntimeError, match="no kernel for a mesh"):
+        sp_pairforward.sp_pair_forward(*args, mesh=mixed)
+    with pytest.raises(ValueError, match="no axis"):
+        sp_pairforward.sp_pair_forward(*args, mesh=_meshes((2,), ("dp",))[1])

@@ -45,6 +45,8 @@ def test_sources_found():
     assert {f"historian_tpu_torch/parallel/{m}.py" for m in ("dist", "mesh", "pcounts", "spmerge")} \
         <= set(SOURCES)
     assert "historian_tpu_torch/ops/sp_colforward.py" in SOURCES
+    assert {"historian_tpu_torch/ops/tropical.py", "historian_tpu_torch/ops/sp_pairforward.py",
+            "historian_tpu_torch/parallel/pp_pairforward.py"} <= set(SOURCES)
     assert "lg" in PRESETS and "ECMrest" in PRESETS
 
 

@@ -91,3 +91,32 @@ def count_fills(root: str, args: list) -> tuple:
     finally:
         recon.ForwardMatrix = fill
     return bands, out.getvalue()
+
+
+def long6_pair(x_len: int, y_len: int, dtype, t_x: float = 0.7, t_y: float = 0.4,
+               offset: int = 0, pair: tuple = (0, 1)) -> tuple:
+    """The port's pair-DP inputs (absorb, rootsub_x, rootsub_y, ins_x, ins_y,
+    mask, trans; torch, on the CPU) of two long6 sequences cut to x_len and
+    y_len residues from `offset`, preset lg: the arrays a test hands to
+    both packages (the JAX package's as numpy copies)."""
+    from historian_tpu_torch.ops.pairforward import chain_pair_forward_arrays
+
+    seqs = PORT.seqs.read_fasta(os.path.join(DATA, "long6.fa"))
+    x = seqs[pair[0]].seq[offset: offset + x_len]
+    y = seqs[pair[1]].seq[offset: offset + y_len]
+    args, _ = chain_pair_forward_arrays(PORT.presets.named_model("lg"), x, y, t_x, t_y,
+                                        dtype=dtype)
+    return args
+
+
+def band_mask(X1: int, Y1: int, width: int):
+    """A diagonal band (|i (Y1-1)/(X1-1) - j| <= width) with row 0, column 0
+    and the corner in, as a bool tensor [X1, Y1]."""
+    import numpy as np
+    import torch
+
+    diag = np.arange(X1)[:, None] * ((Y1 - 1) / max(X1 - 1, 1))
+    band = np.abs(diag - np.arange(Y1)[None, :]) <= width
+    band[0, :] = band[:, 0] = True
+    band[-1, -1] = True
+    return torch.from_numpy(band)
