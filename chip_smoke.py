@@ -209,9 +209,16 @@ Phases, each fatal on failure (nothing is caught):
       (long6, f32; cut to 4095 columns in f64), the full pair in f64
       against the 8-shard run, and against its plain version on the
       first 300 rows at all columns (at 1, 4 and 8 shards), the batch
-      against K3; kernel (g3) at 2, 4 and 8 stages against K3 (the
-      headline batch) and K4 (6 x 3000 x 3000) in float64 and its plain
-      version.  Prints a {"pairmodules": ...} JSON line.
+      against K3; kernels (f) and (g2) at seven strip layouts (every
+      edge a record, clusters of 4 to 16, 1 to 4 lanes a thread) on their
+      pairs cut to 200 rows against their plain versions, each lanes a
+      thread's layouts bit-equal, (g2)'s shard boundaries through pinned
+      host memory equal to the card's own, and long8x12k's first pair
+      (10979 x 11019) through (f) in float32 and float64 and (g2) at one
+      shard against their plain versions on its first rows, timed at full
+      size (see `phase_strips`); kernel (g3) at 2, 4 and 8 stages against
+      K3 (the headline batch) and K4 (6 x 3000 x 3000) in float64 and its
+      plain version.  Prints a {"pairmodules": ...} JSON line.
 Prints the Felsenstein times, the readbacks, the branch fills, the MCMC
 and kernel (a) as JSON lines, the kernel table as one JSON line, the card
 line, and last {"ok": true, "device": {...}}.  Exits non-zero without
@@ -3379,6 +3386,133 @@ def batch_mats(K: int = 16) -> list:
     return mats
 
 
+#: the strip layouts (lanes a thread, warps, cluster) (q) holds kernels (f)
+#: and (g2) to at a cut: every edge a record (cluster 1), portable and
+#: non-portable clusters, each lanes a thread
+STRIP_LAYOUTS = ((1, 1, 1), (1, 2, 8), (1, 4, 16), (2, 2, 4), (2, 4, 1), (4, 2, 16), (4, 8, 8))
+#: rows of the strip checks' cut (all columns kept)
+STRIP_ROWS = 200
+
+
+def strip_layouts(what: str, run, plain, check, layouts=STRIP_LAYOUTS) -> list:
+    """`run(lanes, warps, cluster)` at each layout against `plain` (the
+    plain version's output, `check(what, got, plain)` -> its error), and
+    the layouts of one lanes a thread bit-equal to each other: a strip
+    boundary at a warp boundary passes what the warp ring passes.  Returns
+    each layout's description and error."""
+    out, by_lanes = [], {}
+    for lanes, warps, cluster in layouts:
+        got, launch = run(lanes, warps, cluster)
+        e = check(f"{what} lanes {lanes} warps {warps} cluster {cluster}", got, plain)
+        first = by_lanes.setdefault(lanes, got)
+        same = all(torch.equal(g, f) for g, f in zip(
+            got if isinstance(got, tuple) else (got,), first if isinstance(first, tuple)
+            else (first,)))
+        if not same:
+            raise AssertionError(f"{what}: lanes {lanes} warps {warps} cluster {cluster} is "
+                                 f"not bit-equal to lanes {lanes}'s first layout")
+        out.append(dict(lanes=lanes, warps=warps, cluster=cluster, err=e,
+                        cluster_edges=launch["cluster_edges"],
+                        record_edges=launch["record_edges"]))
+    return out
+
+
+def phase_strips(long12: list, long6: list) -> dict:
+    """(q)'s strip checks: kernels (f) and (g2) at every layout of
+    STRIP_LAYOUTS on their main-path pairs cut to STRIP_ROWS rows (all
+    columns) against their plain versions, each lanes a thread's layouts
+    bit-equal; (g2)'s shard boundaries through pinned host memory at
+    system scope (the boundary of two cards without peer access) equal to
+    the card's own; then long8x12k's first pair (10979 x 11019, wider than
+    one block of the one-block design took): (f) in float32 and float64
+    and (g2) at 1 shard in float64, each against its plain version on its
+    first STRIP_ROWS rows and at full size timed (the full run's rows
+    above the cut's last bit-equal to the cut's)."""
+    from historian_tpu_torch.ops import sp_pairforward, tropical
+
+    f32, f64 = torch.float32, torch.float64
+    name = lambda dt: str(dt)[6:]  # noqa: E731
+    summary = {}
+    for dt in (f32, f64):
+        cut = cut_pair(pair_arrays(long12[0], long12[1], dt), STRIP_ROWS, len(long12[1]) + 1)
+        plain = tropical.tropical_pair_forward_plain(*cut)
+
+        def run(m, w, c):
+            return tropical.tropical_pair_forward(*cut, lanes=m, warps=w, cluster=c), \
+                dict(tropical.LAST_LAUNCH)
+
+        def check(what, got, ref):
+            return max(tropical_check(what, got[0], ref[0], TROPICAL_RTOL[dt]),
+                       tropical_check(what, got[1][None], ref[1][None], TROPICAL_RTOL[dt]))
+        summary[f"f {name(dt)}"] = strip_layouts(f"(q) strips (f) {name(dt)}", run, plain, check)
+    cut = cut_pair(pair_arrays(long6[0], long6[1], f64), STRIP_ROWS, len(long6[1]) + 1)
+    for n in (1, 8):
+        plain = sp_pairforward.sp_pair_forward_plain(*cut, n)
+
+        def run(m, w, c):
+            got = sp_pairforward.sp_pair_forward(*cut, mesh=card_mesh(n), lanes=m, warps=w,
+                                                 cluster=c)
+            return got, sp_pairforward.LAST_LAUNCH["layouts"][0]
+        summary[f"g2 float64 {n} shards"] = strip_layouts(
+            f"(q) strips (g2) {n} shards", run, plain,
+            lambda what, got, ref: rel_err(what, got, ref, PAIR_RTOL[f64]))
+    own = sp_pairforward.sp_pair_forward(*cut, mesh=card_mesh(4))
+    place = sp_pairforward._record_place
+    sp_pairforward._record_place = lambda writer, reader: "host"
+    try:
+        host = sp_pairforward.sp_pair_forward(*cut, mesh=card_mesh(4))
+        places = list(sp_pairforward.LAST_LAUNCH["places"])
+    finally:
+        sp_pairforward._record_place = place
+    if places != ["host"] * 3 or not torch.equal(host, own):
+        raise AssertionError(f"(q) strips (g2): shard boundaries in pinned host memory {places} "
+                             f"give {float(host)!r}, the card's own {float(own)!r}")
+    for what, rows in summary.items():
+        errs = ", ".join(f"{r['lanes']}/{r['warps']}/{r['cluster']} {r['err']:.2e}" for r in rows)
+        print(f"(q) strips {what}, {STRIP_ROWS} rows, lanes/warps/cluster and error against the "
+              f"plain version: {errs}; each lanes a thread's layouts bit-equal", flush=True)
+    print(f"(q) strips (g2) 4 shards, boundaries through pinned host memory (system scope): "
+          f"lp_end equal to the card's own", flush=True)
+    # long8x12k's first pair: wider than the one-block design's 8192 columns
+    wide = [s for _, s in read_fasta(os.path.join(REPO, "tests", "data", "long8x12k.fa"))]
+    for dt in (f32, f64):
+        full = pair_arrays(wide[0], wide[1], dt)
+        X1f, Y1f = full[0].shape
+        cut = cut_pair(full, STRIP_ROWS, Y1f)
+        ref, ref_lp = tropical.tropical_pair_forward_plain(*cut)
+        got, got_lp = tropical.tropical_pair_forward(*cut)
+        e = max(tropical_check(f"(q) long8x12k (f) {name(dt)} cut", got, ref, TROPICAL_RTOL[dt]),
+                tropical_check(f"(q) long8x12k (f) {name(dt)} cut lp_best", got_lp[None],
+                               ref_lp[None], TROPICAL_RTOL[dt]))
+        (cells, lp_best), ms = event_ms(lambda: tropical.tropical_pair_forward(*full))
+        launch = dict(tropical.LAST_LAUNCH)
+        if not torch.equal(cells[:STRIP_ROWS - 1], got[:STRIP_ROWS - 1]) \
+                or bool(cells.isnan().any()) or not -1e29 < float(lp_best) < 0:
+            raise AssertionError(f"(q) long8x12k (f) {name(dt)}: the full run's first rows "
+                                 f"differ from the cut's, or NaN cells, or no path")
+        summary[f"long8x12k f {name(dt)}"] = dict(shape=[X1f, Y1f], ms=ms, cut_err=e, **launch)
+        print(f"(q) long8x12k (f) {name(dt)} {X1f} x {Y1f} ({launch['strips']} strips of "
+              f"{launch['width']}, {launch['lanes']} lanes x {launch['warps']} warps, clusters "
+              f"of {launch['cluster']}): {ms:.3f} ms ({ms * 1e3 / X1f:.3f} us a row); first "
+              f"{STRIP_ROWS} rows against the plain version {e:.3e}, bit-equal to the full "
+              f"run's", flush=True)
+        del cells, got, ref, full, cut
+    full = pair_arrays(wide[0], wide[1], f64)
+    cut = cut_pair(full, STRIP_ROWS, full[0].shape[1])
+    got = sp_pairforward.sp_pair_forward(*cut, mesh=card_mesh(1))
+    e = rel_err("(q) long8x12k (g2) cut", got, sp_pairforward.sp_pair_forward_plain(*cut, 1),
+                PAIR_RTOL[f64])
+    lp, ms = event_ms(lambda: sp_pairforward.sp_pair_forward(*full, mesh=card_mesh(1)))
+    lay = sp_pairforward.LAST_LAUNCH["layouts"][0]
+    if not -1e29 < float(lp) < 0:
+        raise AssertionError(f"(q) long8x12k (g2): lp_end {float(lp)}")
+    summary["long8x12k g2 float64 1"] = dict(ms=ms, cut_rel_err=e, lp=float(lp), **lay)
+    print(f"(q) long8x12k (g2) f64 1 shard {tuple(full[0].shape)} ({lay['strips']} strips of "
+          f"{lay['width']}): {ms:.3f} ms, lp_end {float(lp):.6f}; first {STRIP_ROWS} rows "
+          f"{e:.3e} of |lp| from the plain version", flush=True)
+    return summary
+
+
 def phase_pair_modules() -> dict:
     """(q) The last four modules the JAX package has, each on its
     hand-written kernel: (f) the tropical pair DP, (d') the batched sibling
@@ -3412,6 +3546,7 @@ def phase_pair_modules() -> dict:
     CUDA events); against its plain version on the pair's first SP_ROWS
     rows at all its columns (the full pair's shards: float32 at 4 shards,
     float64 at 1, 4 and 8); the batch against K3;
+    (f) and (g2): `phase_strips`;
     (g3) at 2, 4 and 8 stages on K3's headline shape and K4's long shape
     (6 x 3000 x 3000) against K3 / K4 in float64, timed; against its plain
     version on 8 pairs of the headline shape.  Prints a {"pairmodules":
@@ -3494,9 +3629,11 @@ def phase_pair_modules() -> dict:
                                         full_bound_ms=bnd_full["bound_ms"], k4_f32_ms=k4_ms,
                                         lp_best=float(lp_best), k4_lp_end=float(k4_lp[0]),
                                         cut_neg_inf_cells=cut_inf, full_neg_inf_cells=full_inf,
-                                        lanes=launch["lanes"], threads=launch["threads"])
-        print(f"(q) (f) {name(dt)}: {X1} x {Y1} (the first rows, {launch['lanes']} lanes a "
-              f"thread, {launch['threads']} threads) {ms_cut:.3f} ms, plain {p_ms:.1f} ms, max "
+                                        lanes=launch["lanes"], warps=launch["warps"],
+                                        strips=launch["strips"], cluster=launch["cluster"])
+        print(f"(q) (f) {name(dt)}: {X1} x {Y1} (the first rows; {launch['strips']} strips of "
+              f"{launch['lanes']} lanes x {launch['warps']} warps, clusters of "
+              f"{launch['cluster']}) {ms_cut:.3f} ms, plain {p_ms:.1f} ms, max "
               f"abs err {e:.3e}, {cut_inf} -inf cells in both, bound {bnd_cut['bound_ms']:.4f} "
               f"ms ({bnd_cut['bound_by']}); full {X1f} x {Y1f} {ms_full:.3f} ms "
               f"({ms_full * 1e3 / X1f:.3f} us a row; rows 0-{X1 - 2} bit-equal to the cut's; "
@@ -3587,8 +3724,10 @@ def phase_pair_modules() -> dict:
             e = rel_err(f"(g2) {case} {n} shards vs {'8 shards' if case == 'full f64' else 'K4'}",
                         got, ref, PAIR_RTOL[dt])
             sp_times[f"{case} {n}"] = dict(ms=ms_n, rel_err_k4=e)
+            lay = sp_pairforward.LAST_LAUNCH["layouts"][0]
             print(f"(q) (g2) {case} {tuple(args[0].shape)} on {n} shards "
-                  f"{sp_pairforward.LAST_LAUNCH['cols']}: {ms_n:.3f} ms, lp_end "
+                  f"{sp_pairforward.LAST_LAUNCH['cols']} ({lay['strips']} strips of "
+                  f"{lay['width']}): {ms_n:.3f} ms, lp_end "
                   f"{float(got):.6f}, {e:.3e} of |lp| from "
                   f"{'the 8-shard run' if case == 'full f64' else 'K4'} {name(ref.dtype)}",
                   flush=True)
@@ -3631,6 +3770,9 @@ def phase_pair_modules() -> dict:
           f"{k4_ms[f32]:.3f} ms, at 4095 columns f64 {k4_ms[f64]:.3f} ms", flush=True)
     out["sppairforward"]["err"] = err_g2
     del sp_args, cut64
+
+    # ---- (f), (g2): every strip layout, the host-memory boundary, long8x12k
+    summary["strips"] = phase_strips(long12, long6)
 
     # ---- (g3): 2, 4, 8 stages against K3 and K4, float64
     long64 = bench.build("long", cuda, f64)

@@ -13,8 +13,8 @@
 // warp in shared memory and a per-warp count of published rows, stored
 // with release and polled with acquire at CTA scope; a warp does not
 // overwrite a slot that warp w+1 has not read.  Warp 0 takes its left
-// neighbour's values from an `Edge`: the grid's left edge, or the record
-// of the block to its left (kernel (g2)'s shards).
+// neighbour's values from an `Edge`: the grid's left edge, or the strip
+// to its left (kernels (f) and (g2), the strip section below).
 //
 // Row i, as ops/pairforward.py `pair_forward` computes it, in a semiring S
 // (LogSum: log-sum-exp; MaxPlus: max):
@@ -220,9 +220,11 @@ __device__ __forceinline__ void wait_at_least(const int* p, int want) {
 
 // Warp 0's left neighbour when the block starts at the grid's column 0:
 // K3Rules take NEG for all five values, JaxRules the scans' identity -inf
-// for the two u (`max_affine_scan`'s u[-1]).
+// for the two u (`max_affine_scan`'s u[-1]).  kIoWarps: warps at the end
+// of the block that run no row (an `Edge`'s own; none here).
 template <typename R>
 struct GridEdge {
+  static constexpr int kIoWarps = 0;
   template <typename T>
   __device__ __forceinline__ void operator()(int, T&, T&, T&, T& c1, T& c2) const {
     if constexpr (R::kJax) c1 = c2 = T(-INFINITY);
@@ -252,7 +254,8 @@ __device__ __forceinline__ void warp_row(Lanes<T, M>& st, int step, const RowX<T
   using S = typename R::S;
   const T neg = T(kNeg);
   const unsigned full = kFull;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x >> 5) - Edge::kIoWarps;
   const int l0 = threadIdx.x * M;
   const bool start = x.start;
   const T* tr = sm.tr;
@@ -486,7 +489,7 @@ int lanes_per_thread(int n) {
   return 0;
 }
 
-//: the most lanes a block of the JaxRules kernels takes: 32 warps of 8
+//: the most lanes a block of kernel (g3) takes: 32 warps of 8
 constexpr int kMaxCols = 8192;
 
 inline int threads_for(int n, int M) { return 32 * ((n + 32 * M - 1) / (32 * M)); }
@@ -502,8 +505,8 @@ int capacity(K kernel, int threads) {
   return sms * per_sm;
 }
 
-// f(NWMAX, M) (as std::integral_constant) for the instance of a JaxRules
-// kernel that takes n lanes of T: at most 32 warps in float32 (64
+// f(NWMAX, M) (as std::integral_constant) for the instance of kernel
+// (g3) that takes n lanes of T: at most 32 warps in float32 (64
 // registers a thread); in float64 at most 16 (128 registers, for the wider
 // state) up to 4096 lanes, as K3 and K4 take them, and 32 beyond;
 // cudaErrorInvalidValue past kMaxCols.
@@ -585,6 +588,338 @@ __device__ __forceinline__ void wait_global(const int* p, int want, bool sys) {
     if (n >= kMaxPolls) __trap();
     if (n >= 32) __nanosleep(64);
   }
+}
+
+// ------------------------------------------ strips over SMs (kernels (f), (g2))
+//
+// Kernels (f) and (g2) cut a pair's columns (or each shard's) into strips
+// of whole warps, one block a strip (ops/pairstrips.py `strip_plan`), so
+// that a wide row runs over tens of SMs at about one warp step's latency a
+// row rather than at one SM's issue rate over the whole row.  A strip
+// block runs `warps` row warps as above and one io warp, its last, which
+// runs no row: it moves the strip's boundary values between blocks, so
+// the row warps only touch their own block's shared memory, at CTA scope.
+// - In: warp 0's left neighbour comes from the block's `in` ring (kEdge
+//   row slots; `in_prog` rows published at CTA scope).  From the left
+//   strip of the same thread block cluster, the left block's io warp
+//   stores the rows straight into this ring through distributed shared
+//   memory (mapa, st.shared::cluster) and publishes them in `in_remote`
+//   with a cluster-scope release; this block's io warp hands them on to
+//   warp 0 and sends warp 0's progress back to the left block's
+//   `right_ack`, so the left never overwrites a slot warp 0 has not read.
+//   From a strip of another cluster, or a shard on another card, this io
+//   warp polls the left strip's record counter and copies every row it
+//   shows into the ring, up to kEdge rows ahead of warp 0: the acquire's
+//   latency overlaps the rows before instead of standing on each row.
+// - Out: the thread of the strip's last column puts each row's five values
+//   in the block's `out` ring (CTA scope); the io warp sends them on, to
+//   the right block's `in` ring (at most kEdge rows ahead of the right
+//   block's warp 0) or to the record buffer [X1, 8], publishing what it
+//   wrote with one release of the counter (system scope where the record
+//   crosses cards).
+// A record is never waited on by its writer, so a block waits on a block
+// of another cluster only to its left: with every block resident (the
+// layout is checked against cudaOccupancyMaxActiveClusters) no wait closes
+// a cycle.  A cluster synchronises after its counters are set and before
+// it exits, so no block's shared memory is written before it is set or
+// after it is gone.
+
+//: row warps a strip at most
+constexpr int kStripWarps = 8;
+//: row slots of each edge ring
+constexpr int kEdge = 32;
+//: values a row's record in global memory (5 used)
+constexpr int kRecord = 8;
+//: the kinds of a strip's left and right edge
+constexpr long long kNone = 0, kCluster = 1, kRecordEdge = 2;
+
+// One block of a strip layout (ops/pairstrips.py `strip_table`): 10 int64.
+struct StripEntry {
+  long long chain, c0, nc;      // the pair (g2) and the strip's columns; nc 0: an idle block
+  long long left, right;        // kNone (the chain's end), kCluster or kRecordEdge
+  long long in_rec, in_cnt;     // left == kRecordEdge: the left strip's records [X1, 8], counter
+  long long out_rec, out_cnt;   // right == kRecordEdge: this strip's
+  long long sys;                // a record of this block crosses cards: system scope
+};
+
+template <typename T>
+struct EdgeSmem {
+  T in[kEdge][kSlot];   // the left strip's rows, read by warp 0
+  T out[kEdge][kSlot];  // the strip's last column, sent on by the io warp
+  int in_prog;          // rows of `in` published to warp 0 (CTA scope)
+  int in_remote;        // rows the left block's io warp stored in `in` (cluster scope)
+  int out_prog;         // rows of `out` the tail thread published (CTA scope)
+  int out_sent;         // rows of `out` the io warp has sent on (CTA scope)
+  int right_ack;        // rows the right block's warp 0 has read (cluster scope)
+};
+
+// The edge counters to 0; the caller's block barrier (`setup`) and the
+// cluster barrier that follows publish them.
+template <typename T>
+__device__ __forceinline__ void strip_init(EdgeSmem<T>& es) {
+  if (threadIdx.x == 0) es.in_prog = es.in_remote = es.out_prog = es.out_sent = es.right_ack = 0;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster (release, then acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of the cluster with rank `rank`.
+__device__ __forceinline__ unsigned remote_addr(const void* p, unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_remote(unsigned a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_remote(unsigned a, double v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_release_remote(unsigned a, int v) {
+  asm volatile("st.release.cluster.shared::cluster.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+
+// A counter of this block's shared memory that another block of the
+// cluster stores into.
+__device__ __forceinline__ int ld_acquire_cluster(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cluster.shared::cta.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p))
+               : "memory");
+  return v;
+}
+
+// Warp 0's left neighbour in a strip block: the chain's edge (GridEdge's
+// values) or row i of the `in` ring (lane 0 waits and reads, the warp
+// takes the values by shuffles).
+template <typename R, typename T>
+struct StripEdge {
+  static constexpr int kIoWarps = 1;
+  const EdgeSmem<T>* es;
+  bool live;  // the strip has a left neighbour
+  __device__ __forceinline__ void operator()(int i, T& src, T& so, T& io, T& c1, T& c2) const {
+    if (!live) {
+      GridEdge<R>{}(i, src, so, io, c1, c2);
+      return;
+    }
+    T v[kSlot] = {};
+    if ((threadIdx.x & 31) == 0) {
+      wait_at_least(&es->in_prog, i + 1);
+      const T* s = es->in[i % kEdge];
+#pragma unroll
+      for (int k = 0; k < kSlot; ++k) ld_slot(s + k, v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kSlot; ++k) v[k] = __shfl_sync(kFull, v[k], 0);
+    src = v[0];
+    so = v[1];
+    io = v[2];
+    c1 = v[3];
+    c2 = v[4];
+  }
+};
+
+// The strip's last column, row i, into the `out` ring (the thread that
+// holds it; none where the strip ends its chain).
+template <typename T>
+struct StripTail {
+  EdgeSmem<T>* es;
+  bool live;  // the strip has a right neighbour
+  __device__ __forceinline__ void operator()(int i, T src, T so, T io, T u1, T u2) const {
+    if (!live) return;
+    if (i >= kEdge) wait_at_least(&es->out_sent, i - kEdge + 1);
+    T* s = es->out[i % kEdge];
+    st_slot(s, src);
+    st_slot(s + 1, so);
+    st_slot(s + 2, io);
+    st_slot(s + 3, u1);
+    st_slot(s + 4, u2);
+    st_release_cta(&es->out_prog, i + 1);
+  }
+};
+
+// The io warp of a strip block (all its lanes): moves X1 rows in and out
+// as the section's note says; prog0 counts the rows warp 0 has finished.
+// Every count it polls is taken by each lane's own acquire, then the
+// warp's least, so the lanes agree and each lane's reads are ordered
+// after its acquire.
+template <typename T>
+__device__ void strip_io(const StripEntry& e, EdgeSmem<T>& es, const int* prog0, int X1) {
+  const int lane = threadIdx.x & 31;
+  const bool sys = e.sys != 0;
+  const unsigned rank = cluster_rank();
+  const unsigned left_ack = e.left == kCluster ? remote_addr(&es.right_ack, rank - 1) : 0u;
+  const unsigned right_in = e.right == kCluster ? remote_addr(&es.in[0][0], rank + 1) : 0u;
+  const unsigned right_cnt = e.right == kCluster ? remote_addr(&es.in_remote, rank + 1) : 0u;
+  const T* in_rec = reinterpret_cast<const T*>(e.in_rec);
+  const int* in_cnt = reinterpret_cast<const int*>(e.in_cnt);
+  T* out_rec = reinterpret_cast<T*>(e.out_rec);
+  int* out_cnt = reinterpret_cast<int*>(e.out_cnt);
+  // got: rows handed to warp 0; acked: warp 0's rows told to the left
+  // block; known: rows the left record's counter showed; sent: rows sent
+  // on; taken: rows the right block's warp 0 has read
+  int got = 0, acked = 0, known = 0, sent = 0, taken = 0;
+  bool in_open = e.left != kNone, out_open = e.right != kNone;
+  long long idle = 0;
+  while (in_open || out_open) {
+    bool moved = false;
+    if (in_open) {
+      const int done = __reduce_min_sync(kFull, ld_acquire_cta(prog0));
+      if (e.left == kRecordEdge) {
+        const int space = min(done + kEdge, X1) - got;
+        if (space > 0 && known <= got) known = __reduce_min_sync(kFull, ld_acquire(in_cnt, sys));
+        const int n = min(known - got, space);
+        if (n > 0) {
+          for (int v = lane; v < n * kSlot; v += 32) {
+            const int r = got + v / kSlot, k = v % kSlot;
+            st_slot(&es.in[r % kEdge][k], ld_shared_value(in_rec + size_t(r) * kRecord + k, sys));
+          }
+          __syncwarp();
+          got += n;
+          if (lane == 0) st_release_cta(&es.in_prog, got);
+          moved = true;
+        }
+        in_open = got < X1;
+      } else {
+        const int r = __reduce_min_sync(kFull, ld_acquire_cluster(&es.in_remote));
+        if (r > got) {
+          got = r;
+          if (lane == 0) st_release_cta(&es.in_prog, got);
+          moved = true;
+        }
+        if (done > acked) {
+          acked = done;
+          if (lane == 0) st_release_remote(left_ack, acked);
+          moved = true;
+        }
+        in_open = acked < X1;
+      }
+    }
+    if (out_open) {
+      int n = __reduce_min_sync(kFull, ld_acquire_cta(&es.out_prog)) - sent;
+      if (e.right == kCluster) {
+        if (n > taken + kEdge - sent) taken = __reduce_min_sync(kFull, ld_acquire_cluster(&es.right_ack));
+        n = min(n, taken + kEdge - sent);
+      }
+      if (n > 0) {
+        for (int v = lane; v < n * kSlot; v += 32) {
+          const int r = sent + v / kSlot, k = v % kSlot;
+          T x;
+          ld_slot(&es.out[r % kEdge][k], x);
+          if (e.right == kCluster) {
+            st_remote(right_in + unsigned(((r % kEdge) * kSlot + k) * sizeof(T)), x);
+          } else {
+            out_rec[size_t(r) * kRecord + k] = x;
+          }
+        }
+        __syncwarp();
+        sent += n;
+        if (lane == 0) {
+          if (e.right == kCluster) {
+            st_release_remote(right_cnt, sent);
+          } else {
+            if (sys) {
+              __threadfence_system();
+            } else {
+              __threadfence();
+            }
+            st_release(out_cnt, sent, sys);
+          }
+          st_release_cta(&es.out_sent, sent);
+        }
+        moved = true;
+      }
+      out_open = sent < X1;
+    }
+    if (moved) {
+      idle = 0;
+    } else {
+      if (++idle >= kMaxPolls) __trap();
+      __nanosleep(32);
+    }
+  }
+}
+
+// A strip launch's configuration: `blocks` blocks of `threads` in clusters
+// of `cluster` along x.
+inline void strip_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int blocks,
+                         int threads, size_t smem, int cluster, cudaStream_t s) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// Blocks of a strip kernel (`warps` row warps and the io warp, `smem`
+// dynamic bytes) that can be resident at once in clusters of `cluster`
+// (cudaOccupancyMaxActiveClusters times the cluster), or -(CUDA error).
+template <typename K>
+int strip_capacity(K kernel, int warps, size_t smem, int cluster) {
+  if (warps < 1 || warps > kStripWarps || cluster < 1 || cluster > 16) {
+    return -int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSuccess;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  }
+  if (err != cudaSuccess) return -int(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  strip_config(cfg, attr, cluster, 32 * (warps + 1), smem, cluster, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err != cudaSuccess ? -int(err) : n * cluster;
+}
+
+// Launches a strip kernel on `args`: `blocks` blocks (a whole number of
+// clusters) of `warps` row warps and the io warp.  A layout that cannot be
+// resident at once is refused (cudaErrorCooperativeLaunchTooLarge).
+template <typename K, typename A>
+int strip_launch(K kernel, const A& args, int blocks, int warps, int cluster, size_t smem,
+                 cudaStream_t s) {
+  if (blocks < 1 || cluster < 1 || blocks % cluster) return int(cudaErrorInvalidValue);
+  const int cap = strip_capacity(kernel, warps, smem, cluster);
+  if (cap < 0) return -cap;
+  if (blocks > cap) return int(cudaErrorCooperativeLaunchTooLarge);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  strip_config(cfg, attr, blocks, 32 * (warps + 1), smem, cluster, s);
+  void* argv[] = {const_cast<A*>(&args)};
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), argv);
+  return err != cudaSuccess ? int(err) : int(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, M>) for the lanes a thread the strip
+// kernels are built for (1, 2, 4); cudaErrorInvalidValue for any other.
+template <typename F>
+int by_lanes(int lanes, F&& f) {
+  switch (lanes) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace pairstep

@@ -9,32 +9,33 @@
 // log2(n)-step ring scan (`_ring_affine_carry`), and the device that holds
 // column Y1 - 1 gives lp_end (`psum`).
 //
-// Design: a block a shard of a pair, run as K3's block (pairforward.cu):
-// the LogSum instance of its row step under the JAX rules (pairstep.cuh
-// `warp_row`, JaxRules<LogSum>), the shard's columns M lanes a thread, the
-// rows piped down the warps.  In place of the ring scan the carries pass
-// from shard to shard in order: the thread that holds a shard's last
-// column, once it has row i, writes a record of five values (the IMM
-// source, the two scans' sources and the two scans' u there) to the right
-// shard's buffer [X1, 8] and publishes the row with a release store of a
-// counter; lane 0 of the right shard's warp 0 acquires that counter,
-// reads the record and hands it to its warp as the row's left edge.  So
-// the warps of a pair's shards form one pipeline, shard d's warp 0 on row
-// i while shard d - 1's last warp is on row i + 1, and the values are the
-// JAX kernel's up to the association of the scans' sums.  Columns past Y1
-// (the JAX kernel's padding, masked) are not computed: they lie right of
-// every real column and change none.  The blocks of one card are one
-// cooperative launch, so every shard's left neighbour is resident (two
-// launches on two streams could deadlock); between cards the buffer lies
-// in the reading card's memory (peer access) or in pinned host memory,
-// and the counter is published and acquired at system scope
+// Design: each shard of a pair cut into strips of whole warps, one block a
+// strip on its own SM (ops/pairstrips.py `strip_plan`; the strip section
+// of pairstep.cuh), each block K3's row step under the JAX rules
+// (pairstep.cuh `warp_row`, JaxRules<LogSum>) on its strip, M lanes a
+// thread, the rows piped down its few warps.  In place of the ring scan
+// the carries pass from strip to strip in order: the thread of a strip's
+// last column hands each row's five values (the IMM source, the two scans'
+// sources and the two scans' u) to its block's io warp, which sends them
+// to the right strip, through distributed shared memory within a thread
+// block cluster, or as a record [X1, 8] with a counter between clusters
+// and at every shard boundary; the right strip's warp 0 takes them as the
+// row's left edge.  So the warps of a pair's strips form one pipeline, and
+// the values are the JAX kernel's up to the association of the scans'
+// sums.  Columns past Y1 (the JAX kernel's padding, masked) are not
+// computed: they lie right of every real column and change none.  The
+// blocks of one card are one launch whose layout is checked to be
+// resident at once; between cards a shard boundary's record lies in the
+// reading card's memory (peer access) or in pinned host memory, and its
+// counter is published and acquired at system scope
 // (ops/sp_colforward.py `_record_place`, `_record_buffer`, as kernel (g1)
-// places its records).
+// places its records).  A strip of a few warps of one or two lanes runs a
+// float64 row at about one warp step's latency, where a shard of 12 warps
+// on one SM was bound by that SM's float64 pipe.
 //
 // What bounds it on this card: a pair's rows are a chain of X1 steps, each
-// a chain of shifts and scans across its shards (a record hop a shard);
-// bytes: absorb and the mask read once; operations: ~13 log-sum-exps and
-// ~26 adds a cell.
+// a chain of shifts and scans across its strips; bytes: absorb and the
+// mask read once; operations: ~13 log-sum-exps and ~26 adds a cell.
 
 #include <cstdint>
 
@@ -45,17 +46,9 @@ namespace {
 using namespace pairstep;
 using Rules = JaxRules<LogSum>;
 
-// One block as the wrapper lays it out (ops/sp_pairforward.py): 8 int64.
-struct SpEntry {
-  long long pair, c0, nc;
-  long long in_rec, in_cnt;    // the left shard's records [X1, 8] and counter (0: first shard)
-  long long out_rec, out_cnt;  // the right shard's (0: last shard)
-  long long sys;               // a boundary of this block crosses cards
-};
-
 template <typename T>
 struct Args {
-  const SpEntry* table;
+  const StripEntry* table;
   const T *absorb, *rsx, *rsy, *ix, *iy;  // [B, X1, Y1], [B, X1], [B, Y1], [B, X1], [B, Y1]
   const uint8_t* mask;                    // [X1, Y1], shared by the batch
   const T* trans;                         // [23]
@@ -63,134 +56,109 @@ struct Args {
   int X1, Y1;
 };
 
-constexpr int kRecord = 8;  // values a row's record
-
-// Warp 0's left edge: the grid's, or the left shard's record of the row.
-template <typename T>
-struct RecordEdge {
-  const T* rec;  // null: the first shard
-  const int* cnt;
-  bool sys;
-  __device__ __forceinline__ void operator()(int i, T& src, T& so, T& io, T& c1, T& c2) const {
-    if (rec == nullptr) {
-      GridEdge<Rules>{}(i, src, so, io, c1, c2);
-      return;
-    }
-    T v[kSlot];
-    if ((threadIdx.x & 31) == 0) {
-      wait_global(cnt, i + 1, sys);
-#pragma unroll
-      for (int k = 0; k < kSlot; ++k) v[k] = ld_shared_value(rec + size_t(i) * kRecord + k, sys);
-    }
-#pragma unroll
-    for (int k = 0; k < kSlot; ++k) v[k] = __shfl_sync(kFull, v[k], 0);
-    src = v[0];
-    so = v[1];
-    io = v[2];
-    c1 = v[3];
-    c2 = v[4];
-  }
-};
-
-// The shard's last column to the right shard's record of the row.
-template <typename T>
-struct RecordTail {
-  T* rec;  // null: the last shard
-  int* cnt;
-  bool sys;
-  __device__ __forceinline__ void operator()(int i, T src, T so, T io, T u1, T u2) const {
-    if (rec == nullptr) return;
-    T* r = rec + size_t(i) * kRecord;
-    r[0] = src;
-    r[1] = so;
-    r[2] = io;
-    r[3] = u1;
-    r[4] = u2;
-    if (sys) __threadfence_system();
-    st_release(cnt, i + 1, sys);
-  }
-};
-
-template <typename T, int M, int NWMAX>
-__global__ void __launch_bounds__(NWMAX * 32, 1) sppair_kernel(const Args<T> a) {
-  __shared__ PfSmem<T, NWMAX> sm;
-  const SpEntry e = a.table[blockIdx.x];
-  const int l0 = threadIdx.x * M;
+template <typename T, int M>
+__global__ void __launch_bounds__(32 * (kStripWarps + 1), 1) sppair_kernel(const Args<T> a) {
+  __shared__ PfSmem<T, kStripWarps> sm;
+  __shared__ EdgeSmem<T> es;
+  const StripEntry e = a.table[blockIdx.x];
   const int X1 = a.X1, Y1 = a.Y1, c0 = int(e.c0), nc = int(e.nc);
-  const bool sys = e.sys != 0;
+  const int rows_warps = (blockDim.x >> 5) - 1;
+  strip_init(es);
   setup<LogSum>(sm, a.trans);
-  const size_t b = size_t(e.pair);
-  const T* absorb = a.absorb + b * X1 * Y1 + c0;
-  const T* rsx = a.rsx + b * X1;
-  const T* ix = a.ix + b * X1;
-  const T* rsy = a.rsy + b * Y1 + c0;
-  const T* iy = a.iy + b * Y1 + c0;
-  const uint8_t* mask = a.mask + c0;
-  const RecordEdge<T> edge{reinterpret_cast<const T*>(e.in_rec),
-                           reinterpret_cast<const int*>(e.in_cnt), sys};
-  const RecordTail<T> tail{reinterpret_cast<T*>(e.out_rec), reinterpret_cast<int*>(e.out_cnt),
-                           sys};
-  const Cols g{nc, c0, Y1 - 1 - c0, Y1 == 1};
-  Lanes<T, M> st;
-  fill_neg(st);
-  T ab[M], next[M];
-  load_row(next, absorb, l0, nc);
-  unsigned in_next = load_mask<M>(mask, l0, nc);
-  for (int i = 0; i < X1; ++i) {
+  cluster_sync();
+  if (nc > 0 && (threadIdx.x >> 5) == rows_warps) {
+    strip_io(e, es, &sm.prog[0], X1);
+  } else if (nc > 0) {
+    const int l0 = threadIdx.x * M;
+    const size_t b = size_t(e.chain);
+    const T* absorb = a.absorb + b * X1 * Y1 + c0;
+    const T* rsx = a.rsx + b * X1;
+    const T* ix = a.ix + b * X1;
+    const T* rsy = a.rsy + b * Y1 + c0;
+    const T* iy = a.iy + b * Y1 + c0;
+    const uint8_t* mask = a.mask + c0;
+    const StripEdge<Rules, T> edge{&es, e.left != kNone};
+    const StripTail<T> tail{&es, e.right != kNone};
+    const Cols g{nc, c0, Y1 - 1 - c0, Y1 == 1};
+    Lanes<T, M> st;
+    fill_neg(st);
+    T ab[M], next[M];
+    load_row(next, absorb, l0, nc);
+    unsigned in_next = load_mask<M>(mask, l0, nc);
+    for (int i = 0; i < X1; ++i) {
 #pragma unroll
-    for (int k = 0; k < M; ++k) ab[k] = next[k];
-    const RowX<T> x{LogSum::clamp(__ldg(rsx + i)), LogSum::clamp(__ldg(ix + i)), i == 0,
-                    i < X1 - 1 || X1 == 1, in_next};
-    if (i + 1 < X1) {  // row i+1's loads fly while row i is computed
-      load_row(next, absorb + size_t(i + 1) * Y1, l0, nc);
-      in_next = load_mask<M>(mask + size_t(i + 1) * Y1, l0, nc);
+      for (int k = 0; k < M; ++k) ab[k] = next[k];
+      const RowX<T> x{LogSum::clamp(__ldg(rsx + i)), LogSum::clamp(__ldg(ix + i)), i == 0,
+                      i < X1 - 1 || X1 == 1, in_next};
+      if (i + 1 < X1) {  // row i+1's loads fly while row i is computed
+        load_row(next, absorb + size_t(i + 1) * Y1, l0, nc);
+        in_next = load_mask<M>(mask + size_t(i + 1) * Y1, l0, nc);
+      }
+      warp_row<Rules, T, M, kStripWarps>(st, i, x, ab, rsy, iy, g, sm, edge, tail);
     }
-    warp_row<Rules, T, M, NWMAX>(st, i, x, ab, rsy, iy, g, sm, edge, tail);
+    T lp;
+    if (c0 + nc == Y1 && end_value<LogSum>(st, sm.tr, l0, g.ylast, lp)) a.lp_end[b] = lp;
   }
-  T lp;
-  if (c0 + nc == Y1 && end_value<LogSum>(st, sm.tr, l0, g.ylast, lp)) a.lp_end[b] = lp;
+  __syncwarp();
+  cluster_sync();
 }
 
 template <typename T>
-int launch(const void* table, int blocks, int nc, const T* absorb, const T* rsx, const T* rsy,
-           const T* ix, const T* iy, const uint8_t* mask, const T* trans, T* lp_end, int X1,
-           int Y1, void* stream) {
-  if (blocks < 1 || nc < 1 || X1 < 1 || Y1 < 1) return int(cudaErrorInvalidValue);
-  const Args<T> a{static_cast<const SpEntry*>(table), absorb, rsx, rsy, ix, iy, mask, trans,
+int launch(const void* table, int blocks, int lanes, int warps, int cluster, const T* absorb,
+           const T* rsx, const T* rsy, const T* ix, const T* iy, const uint8_t* mask,
+           const T* trans, T* lp_end, int X1, int Y1, void* stream) {
+  if (X1 < 1 || Y1 < 1) return int(cudaErrorInvalidValue);
+  const Args<T> a{static_cast<const StripEntry*>(table), absorb, rsx, rsy, ix, iy, mask, trans,
                   lp_end, X1, Y1};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch<T>(nc, [&](auto nw, auto m) {
-    constexpr int NWMAX = decltype(nw)::value, M = decltype(m)::value;
-    const int threads = threads_for(nc, M);
-    auto kernel = sppair_kernel<T, M, NWMAX>;
-    if (blocks > capacity(kernel, threads)) return int(cudaErrorCooperativeLaunchTooLarge);
-    void* args[] = {const_cast<Args<T>*>(&a)};
-    const cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                                        dim3(blocks), dim3(threads), args, 0, s);
-    return err ? int(err) : int(cudaGetLastError());
+  return by_lanes(lanes, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return strip_launch(sppair_kernel<T, M>, a, blocks, warps, cluster, 0,
+                        static_cast<cudaStream_t>(stream));
+  });
+}
+
+template <typename T>
+int capacity_of(int lanes, int warps, int cluster) {
+  if (lanes != 1 && lanes != 2 && lanes != 4) return -int(cudaErrorInvalidValue);
+  return by_lanes(lanes, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return strip_capacity(sppair_kernel<T, M>, warps, 0, cluster);
   });
 }
 
 }  // namespace
 
-// table: `blocks` SpEntry rows on the device (one a shard of a pair), nc
-// the widest shard's columns (at most pairstep::kMaxCols); absorb [B, X1,
-// Y1], rsx and ix [B, X1], rsy and iy [B, Y1], mask [X1, Y1] bytes, trans
-// [23] on the device; lp_end [B] gets each pair whose last shard is here.
-// Returns the launch's error (cudaErrorCooperativeLaunchTooLarge: more
-// blocks than can be resident).
-extern "C" int sppairforward_f32(const void* table, int blocks, int nc, const float* absorb,
-                                 const float* rsx, const float* rsy, const float* ix,
-                                 const float* iy, const uint8_t* mask, const float* trans,
-                                 float* lp_end, int X1, int Y1, void* stream) {
-  return launch<float>(table, blocks, nc, absorb, rsx, rsy, ix, iy, mask, trans, lp_end, X1, Y1,
-                       stream);
+// table: `blocks` StripEntry rows on the device (ops/pairstrips.py; a strip
+// of a shard of a pair, `chain` the pair), each `warps` warps of `lanes`
+// lanes a thread, in clusters of `cluster`; absorb [B, X1, Y1], rsx and ix
+// [B, X1], rsy and iy [B, Y1], mask [X1, Y1] bytes, trans [23] on the
+// device; lp_end [B] gets each pair whose last strip is here.  Returns the
+// launch's error (cudaErrorCooperativeLaunchTooLarge: more blocks than can
+// be resident at once).
+extern "C" int sppairforward_f32(const void* table, int blocks, int lanes, int warps, int cluster,
+                                 const float* absorb, const float* rsx, const float* rsy,
+                                 const float* ix, const float* iy, const uint8_t* mask,
+                                 const float* trans, float* lp_end, int X1, int Y1,
+                                 void* stream) {
+  return launch<float>(table, blocks, lanes, warps, cluster, absorb, rsx, rsy, ix, iy, mask,
+                       trans, lp_end, X1, Y1, stream);
 }
 
-extern "C" int sppairforward_f64(const void* table, int blocks, int nc, const double* absorb,
-                                 const double* rsx, const double* rsy, const double* ix,
-                                 const double* iy, const uint8_t* mask, const double* trans,
-                                 double* lp_end, int X1, int Y1, void* stream) {
-  return launch<double>(table, blocks, nc, absorb, rsx, rsy, ix, iy, mask, trans, lp_end, X1, Y1,
-                        stream);
+extern "C" int sppairforward_f64(const void* table, int blocks, int lanes, int warps, int cluster,
+                                 const double* absorb, const double* rsx, const double* rsy,
+                                 const double* ix, const double* iy, const uint8_t* mask,
+                                 const double* trans, double* lp_end, int X1, int Y1,
+                                 void* stream) {
+  return launch<double>(table, blocks, lanes, warps, cluster, absorb, rsx, rsy, ix, iy, mask,
+                        trans, lp_end, X1, Y1, stream);
+}
+
+// Blocks of kernel (g2) with `warps` row warps of `lanes` lanes a thread
+// that can be resident at once in clusters of `cluster`, or -(CUDA error).
+extern "C" int sppairforward_capacity_f32(int lanes, int warps, int cluster) {
+  return capacity_of<float>(lanes, warps, cluster);
+}
+
+extern "C" int sppairforward_capacity_f64(int lanes, int warps, int cluster) {
+  return capacity_of<double>(lanes, warps, cluster);
 }

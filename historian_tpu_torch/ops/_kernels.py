@@ -93,12 +93,17 @@ _SIGNATURES = {
     "spcolforward_capacity": [],
     # writer, reader -> 1 with peer access on, 0 without, -(CUDA error)
     "spcolforward_peer": [_I, _I],
-    # absorb, rsx, rsy, ix, iy, mask, trans, cells, lp_best, X1, Y1, stream:
-    # kernel (f), the tropical pair DP
-    "tropical": [_P] * 9 + [_I] * 2 + [_P],
-    # table, blocks, nc, absorb, rsx, rsy, ix, iy, mask, trans, lp_end, X1, Y1,
-    # stream: kernel (g2), the sequence-parallel pair Forward on one device
-    "sppairforward": [_P, _I, _I] + [_P] * 8 + [_I, _I, _P],
+    # table, blocks, lanes, warps, cluster, absorb, rsx, rsy, ix, iy, mask,
+    # trans, cells, lp_best, X1, Y1, stream: kernel (f), the tropical pair DP
+    "tropical": [_P] + [_I] * 4 + [_P] * 9 + [_I] * 2 + [_P],
+    # lanes, warps, cluster -> blocks of kernel (f) resident at once
+    "tropical_capacity": [_I] * 3,
+    # table, blocks, lanes, warps, cluster, absorb, rsx, rsy, ix, iy, mask,
+    # trans, lp_end, X1, Y1, stream: kernel (g2), the sequence-parallel pair
+    # Forward on one device
+    "sppairforward": [_P] + [_I] * 4 + [_P] * 8 + [_I] * 2 + [_P],
+    # lanes, warps, cluster -> blocks of kernel (g2) resident at once
+    "sppairforward_capacity": [_I] * 3,
     # table, stages, absorb, rsx, rsy, ix, iy, trans, lp_end, pairs, X1, Y1,
     # groups (out), stream: kernel (g3), the pipeline-parallel pair Forward
     "pppairforward": [_P, _I] + [_P] * 7 + [_I] * 3 + [_P, _P],

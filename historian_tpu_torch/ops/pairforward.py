@@ -47,20 +47,10 @@ MAX_LANES = {torch.float32: 8192, torch.float64: 4096}
 #: shared memory a K4 block leaves to its transitions and handoff ring
 #: (a static_assert in csrc/pairforward.cu)
 K4_STATIC_SMEM = 8192
-#: the most columns a block of kernels (f), (g2), (g3) takes (K3's row
-#: step under the JAX rules, csrc/pairstep.cuh kMaxCols): 32 warps of 8
+#: the most columns a block of kernel (g3) takes (K3's row step under the
+#: JAX rules, csrc/pairstep.cuh kMaxCols): 32 warps of 8; kernels (f) and
+#: (g2) cut a row into strips over many blocks and take any width
 ROW_MAX_COLS = 8192
-
-
-def row_block(cols: int, dtype) -> tuple:
-    """(lanes a thread, warps) of a block of kernels (f), (g2), (g3) for
-    `cols` columns (csrc/pairstep.cuh `dispatch`): at most 32 warps in
-    float32; in float64 16 up to 4096 columns, as K3 and K4 take them, and
-    32 beyond; the fewest of 1, 2, 4, 6, 8 lanes that cover the columns."""
-    nwmax = 16 if dtype == torch.float64 and cols <= 4096 else 32
-    need = -(-cols // (32 * nwmax))
-    lanes = next(m for m in (1, 2, 4, 6, 8) if need <= m)
-    return lanes, -(-cols // (32 * lanes))
 
 
 def emission_tensors(x_onehot, y_onehot, sub_l, sub_r, log_root, log_cpt_weight, log_ins_l,

@@ -11,16 +11,19 @@ shard that holds column Y.
   as a batch dimension, the three shifted values passed from each shard
   to the next (`sp_colforward._shift1`) and each scan's carry composed
   across the shards from the shards' summaries (`_global_affine`), as the
-  JAX ring scan composes them.
+  JAX ring scan composes them; given `strips`, each shard's columns are
+  cut into strips whose carries compose in the same way, as the kernel
+  hands them on.
 - `sp_pair_forward` / `sp_pair_forward_batch` are the entries: on a mesh
   of CPU devices the plain version (a pair at a time for the batch, whose
   pairs the `dp` axis only distributes); on a mesh of CUDA devices the
-  hand-written kernel csrc/sppairforward.cu, a block a shard of a pair
-  (K3's block and row step under the JAX rules), each row's five
-  boundary values passed from shard to shard in order in
-  place of the ring scan (the same function up to round-off).  The mesh
-  may repeat a device: the blocks of one card are one cooperative launch;
-  between cards each boundary's records lie where kernel (g1)'s do
+  hand-written kernel csrc/sppairforward.cu: each shard of a pair cut
+  into strips over many SMs (ops/pairstrips.py), each a block of K3's row
+  step under the JAX rules, each row's five boundary values passed from
+  strip to strip in order in place of the ring scan (the same function
+  up to round-off).  The mesh may repeat a device: the blocks of one card
+  are one launch, checked to be resident at once; between cards each
+  shard boundary's records lie where kernel (g1)'s do
   (`sp_colforward._record_place`, `_record_buffer`).  A mesh that mixes
   device types, holds another process's device or another device type
   raises.
@@ -34,37 +37,44 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from historian_tpu_torch.ops.pairforward import ROW_MAX_COLS, _lse, affine_scan
+from historian_tpu_torch.ops.pairforward import _lse, affine_scan
 from historian_tpu_torch.ops.sp_colforward import _record_buffer, _record_place, _shift1
 
 NEG = -1e30
 #: kernel launches (one a device a call; never the plain version's)
 LAUNCHES = 0
 #: the last kernel call: pairs, shards a pair and their columns, devices,
-#: launches, the boundaries' places and record bytes
+#: launches, blocks, the shard boundaries' places, record bytes and each
+#: device's strip layout (`StripPlan.describe`)
 LAST_LAUNCH: dict = {}
 
 
-def _global_affine(a, b):
-    """u[j] = lse(a[j], u[j-1] + b[j]) over the whole sharded row [n, y]:
-    each shard scans its block from -inf, then the carry into shard d is
-    the shards before it composed left to right from NEG (the JAX ring
+def _global_affine(a, b, width: int):
+    """u[j] = lse(a[j], u[j-1] + b[j]) over the whole sharded row [n, y],
+    each shard's columns in strips of `width`: each strip scans its block
+    from -inf, then the carry into a strip is the strips before it (shard
+    by shard, in order) composed left to right from NEG (the JAX ring
     scan's exclusive prefix), and it is folded into every lane."""
-    u_local = affine_scan(a, b)
-    cumb = torch.cumsum(b, dim=1)
-    carry = [u_local.new_full((), NEG)]
-    for d in range(a.shape[0] - 1):
-        carry.append(torch.logaddexp(u_local[d, -1], carry[-1] + cumb[d, -1]))
-    return torch.logaddexp(u_local, torch.stack(carry)[:, None] + cumb)
+    starts = range(0, a.shape[1], width)
+    u_local = [affine_scan(a[:, s:s + width], b[:, s:s + width]) for s in starts]
+    cumb = [torch.cumsum(b[:, s:s + width], dim=1) for s in starts]
+    carry, into = u_local[0].new_full((), NEG), [[] for _ in starts]
+    for d in range(a.shape[0]):
+        for p in range(len(u_local)):
+            into[p].append(carry)
+            carry = torch.logaddexp(u_local[p][d, -1], carry + cumb[p][d, -1])
+    return torch.cat([torch.logaddexp(u, torch.stack(c)[:, None] + w)
+                      for u, c, w in zip(u_local, into, cumb)], dim=1)
 
 
 def sp_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans,
-                          n_shards: int):
+                          n_shards: int, strips: int = 1):
     """The JAX `_sp_kernel` over `n_shards` shards of Y + 1 (padded with
     masked NEG columns), on the inputs' device and dtype: lp_end, a 0-d
-    tensor."""
-    if n_shards < 1:
-        raise ValueError(f"n_shards must be positive, got {n_shards}")
+    tensor.  `strips` cuts each shard into that many strips of equal width
+    (the last shorter) for the two scans (`_global_affine`)."""
+    if n_shards < 1 or strips < 1:
+        raise ValueError(f"n_shards and strips must be positive, got {n_shards}, {strips}")
     (imm_imm, imm_imd, imm_idm, imm_imi, imm_iiw, imm_eee,
      imd_imm, imd_imd, imd_idm, imd_eee,
      idm_imm, idm_imd, idm_idm, idm_eee,
@@ -79,6 +89,7 @@ def sp_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
         ins_y = torch.cat([ins_y, ins_y.new_full((pad,), NEG)])
         mask = torch.cat([mask, mask.new_zeros((X1, pad))], dim=1)
     y_loc = (Y1 + pad) // n
+    width = -(-y_loc // strips)
     col = torch.arange(n * y_loc, device=absorb.device).reshape(n, y_loc)
     y_ready = (col < Y1 - 1) | (Y1 == 1)
     rsy, iy = rootsub_y.reshape(n, y_loc), ins_y.reshape(n, y_loc)
@@ -105,11 +116,11 @@ def sp_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
         gate = mask_row & x_ready
         a_idm = _shift1(_lse(imm + imm_idm, imd + imd_idm, iiw + iiw_idm)) + rsy
         idm = _global_affine(torch.where(gate, a_idm, NEG),
-                             torch.where(gate, idm_idm + rsy, NEG))
+                             torch.where(gate, idm_idm + rsy, NEG), width)
         idm = torch.where(gate, idm, NEG)
         a_imi = _shift1(imm + imm_imi) + iy
         imi = _global_affine(torch.where(gate, a_imi, NEG),
-                             torch.where(gate, imi_imi + iy, NEG))
+                             torch.where(gate, imi_imi + iy, NEG), width)
         imi = torch.where(gate, imi, NEG)
     lp = _lse(imm + imm_eee, imd + imd_eee, idm + idm_eee, imi + imi_eee, iiw + iiw_eee)
     return lp.reshape(-1)[Y1 - 1]
@@ -165,22 +176,21 @@ def _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, batched: boo
                              f"{shape} {tdt} on {absorb.device}")
 
 
-def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list):
+def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list, force: dict):
     """Kernel (g2) on B pairs [B, X1, Y1] (mask [X1, Y1] shared), pair b's
-    shards on the CUDA devices placement[b] (n each): lp_end [B] on
-    absorb's device."""
+    shards on the CUDA devices placement[b] (n each), each device's shards
+    cut into strips (ops/pairstrips.py `strip_plan`; `force` its lanes,
+    warps, cluster): lp_end [B] on absorb's device."""
     global LAUNCHES
-    from historian_tpu_torch.ops import _kernels
+    from historian_tpu_torch.ops import _kernels, pairstrips
 
     B, X1, Y1 = absorb.shape
     n = len(placement[0])
     y_loc = -(-Y1 // n)
-    if y_loc > ROW_MAX_COLS:
-        raise ValueError(f"(g2) takes at most {ROW_MAX_COLS} columns a shard, got {y_loc}")
     shards = -(-Y1 // y_loc)  # those holding a real column; the rest hold padding only
     dtype = absorb.dtype
     suffix = "f32" if dtype == torch.float32 else "f64"
-    inputs, outs, rows, order = {}, {}, {}, []
+    inputs, outs, chains, ends, order = {}, {}, {}, {}, []
     places, edges = [], []
     for b, devs in enumerate(placement):
         for d in range(shards):
@@ -189,7 +199,7 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list):
                 inputs[dev] = [t.to(dev).contiguous() for t in (absorb, rsx, rsy, ix, iy)] + [
                     mask.to(dev).contiguous().view(torch.uint8), trans.to(dev).contiguous()]
                 outs[dev] = torch.full((B,), NEG, dtype=dtype, device=dev)
-                rows[dev] = []
+                chains[dev], ends[dev] = [], {}
                 order.append(dev)
         bounds = []
         for d in range(1, shards):
@@ -198,19 +208,27 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list):
             places.append(place)
         edges += bounds
         for d in range(shards):
-            left = bounds[d - 1] if d > 0 else None
-            right = bounds[d] if d + 1 < shards else None
-            rows[devs[d]].append([
-                b, d * y_loc, min(y_loc, Y1 - d * y_loc),
-                left[0].data_ptr() if left else 0, left[1].data_ptr() if left else 0,
-                right[0].data_ptr() if right else 0, right[1].data_ptr() if right else 0,
-                int(bool((left and left[2]) or (right and right[2])))])
+            j = len(chains[devs[d]])
+            chains[devs[d]].append((b, d * y_loc, min(y_loc, Y1 - d * y_loc)))
+            if d > 0:
+                ends[devs[d]][(j, "left")] = bounds[d - 1]
+            if d + 1 < shards:
+                ends[devs[d]][(j, "right")] = bounds[d]
     lib = _kernels.lib()
+    layouts, keep = [], []  # keep: every device's table and records outlive its launch
     for dev in order:
-        table = torch.tensor(rows[dev], dtype=torch.int64).to(dev)
+        plan = pairstrips.card_plan("sppairforward", dtype, dev,
+                                    [(c0, nc) for _, c0, nc in chains[dev]], **force)
+        table, records = pairstrips.strip_table(plan, X1, dtype, dev, ends[dev])
+        # a strip's chain in the table is its pair
+        live = plan.chain >= 0
+        table[live, 0] = np.asarray([b for b, _, _ in chains[dev]])[plan.chain[live]]
+        table = torch.from_numpy(table).to(dev)
+        keep.append((table, records))
+        layouts.append(plan.describe())
         with torch.cuda.device(dev):
             code = getattr(lib, f"sppairforward_{suffix}")(
-                table.data_ptr(), len(rows[dev]), y_loc,
+                table.data_ptr(), plan.blocks, plan.lanes, plan.warps, plan.cluster,
                 *(t.data_ptr() for t in inputs[dev]), outs[dev].data_ptr(), X1, Y1,
                 torch.cuda.current_stream(dev).cuda_stream)
         _kernels.check(code, "sppairforward")
@@ -225,25 +243,27 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list):
     LAST_LAUNCH.clear()
     LAST_LAUNCH.update(pairs=B, shards=n, cols=[min(y_loc, Y1 - d * y_loc) for d in range(shards)],
                        devices=[str(d) for d in order], launches=len(order),
-                       blocks=[len(rows[d]) for d in order], places=places,
-                       record_bytes=sum(e[0].numel() * e[0].element_size() for e in edges))
+                       blocks=[lay["blocks"] for lay in layouts], places=places,
+                       record_bytes=sum(e[0].numel() * e[0].element_size() for e in edges),
+                       layouts=layouts)
     return lp
 
 
 def sp_pair_forward(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, mesh,
-                    axis: str = "sp"):
+                    axis: str = "sp", *, lanes: int | None = None, warps: int | None = None,
+                    cluster: int | None = None):
     """lp_end (a 0-d tensor) of one pair with its Y + 1 columns over the
     devices of `mesh`'s `axis`, args as ops/pairforward.py
     `pair_forward`'s.  A mesh of CPU devices: the plain version with one
     shard a device; of CUDA devices: kernel (g2), the inputs on any of
-    them."""
+    them (`lanes`, `warps` and `cluster` force its strip layout)."""
     _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, False)
     devices = _torch_devices(_axis_devices(mesh, axis)[:, 0])
     if _on_cpu(devices + [absorb.device], "(g2)"):
         return sp_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans,
                                      len(devices))
     return _kernel(absorb[None], rootsub_x[None], rootsub_y[None], ins_x[None], ins_y[None],
-                   mask, trans, [devices])[0]
+                   mask, trans, [devices], dict(lanes=lanes, warps=warps, cluster=cluster))[0]
 
 
 def sp_pair_forward_batch(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, mesh,
@@ -270,4 +290,4 @@ def sp_pair_forward_batch(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
         return torch.stack([sp_pair_forward_plain(absorb[b], rootsub_x[b], rootsub_y[b],
                                                   ins_x[b], ins_y[b], mask, trans,
                                                   grid.shape[1]) for b in range(B)])
-    return _kernel(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, placement)
+    return _kernel(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, placement, {})

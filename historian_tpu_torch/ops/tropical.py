@@ -12,11 +12,13 @@ the Forward one is); never for fills whose sums over paths feed sampling,
 counts, posteriors or reported likelihoods.
 
 - `tropical_pair_forward_plain` is the JAX row scan in PyTorch, row by
-  row as `pair_forward` is, the two scans along y by `max_affine_scan`.
+  row as `pair_forward` is, the two scans along y by `max_affine_scan`;
+  given `strips`, the scans run strip by strip with the left strip's u
+  carried in, as the kernel hands it on.
 - `tropical_pair_forward` is the entry: the plain version for CPU
   tensors; for CUDA tensors the hand-written kernel csrc/tropical.cu
-  (K3's block and row step in max-plus, every cell written); any other
-  device raises.
+  (K3's row step in max-plus, every cell written, the columns in strips
+  over many SMs: ops/pairstrips.py); any other device raises.
 
 NEG = -1e30 is the semiring's zero, as in the JAX package: a masked cell
 holds exactly NEG, and any cell no path reaches at most about NEG.  Every
@@ -30,12 +32,13 @@ from __future__ import annotations
 
 import torch
 
-from historian_tpu_torch.ops.pairforward import ROW_MAX_COLS, _shift, row_block
+from historian_tpu_torch.ops.pairforward import _shift
 
 NEG = -1e30
 #: kernel launches made by `tropical_pair_forward` (never by the plain version)
 LAUNCHES = 0
-#: the last launch: dtype, rows, columns, lanes a thread and threads
+#: the last launch: dtype, rows, columns and the strip layout
+#: (`StripPlan.describe`)
 LAST_LAUNCH: dict = {}
 
 
@@ -61,16 +64,38 @@ def max_affine_scan(a, b):
     return v
 
 
-def tropical_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans):
+def strip_scan(a, b, width: int):
+    """`max_affine_scan` along the last axis by strips of `width` lanes, as
+    kernel (f) runs it: each strip scanned from the identity, then the
+    left strip's last u carried in, u = max(v, carry + w), w the strip's
+    running sum of b."""
+    n = a.shape[-1]
+    out, carry = [], None
+    for s in range(0, n, width):
+        v = max_affine_scan(a[..., s:s + width], b[..., s:s + width])
+        if carry is not None:
+            v = torch.maximum(v, carry[..., None] + torch.cumsum(b[..., s:s + width], dim=-1))
+        out.append(v)
+        carry = v[..., -1]
+    return torch.cat(out, dim=-1)
+
+
+def tropical_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans,
+                                strips: int = 1):
     """The JAX `tropical_pair_forward` in PyTorch, on the inputs' device
     and dtype: (cells [X+1, Y+1, 5] in IMM, IMD, IDM, IMI, IIW order,
-    lp_best, a 0-d tensor)."""
+    lp_best, a 0-d tensor).  `strips` cuts the columns into that many
+    strips of equal width (the last shorter) for the two scans
+    (`strip_scan`)."""
     (imm_imm, imm_imd, imm_idm, imm_imi, imm_iiw, imm_eee,
      imd_imm, imd_imd, imd_idm, imd_eee,
      idm_imm, idm_imd, idm_idm, idm_eee,
      imi_imm, imi_imd, imi_imi, imi_iiw, imi_eee,
      iiw_imm, iiw_idm, iiw_iiw, iiw_eee) = trans.tolist()
     X1, Y1 = absorb.shape
+    if strips < 1:
+        raise ValueError(f"strips must be positive, got {strips}")
+    width = -(-Y1 // strips)
     neg_row = absorb.new_full((Y1,), NEG)
     cols = torch.arange(Y1, device=absorb.device)
     y_ready = (cols < Y1 - 1) | (Y1 == 1)
@@ -97,10 +122,10 @@ def tropical_pair_forward_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask
         gate = mask_row & x_ready
         a_idm = torch.where(gate, _shift(_tmax(imm + imm_idm, imd + imd_idm, iiw + iiw_idm), 1,
                                          NEG) + rootsub_y, NEG)
-        idm = max_affine_scan(a_idm, torch.where(gate, idm_idm + rootsub_y, NEG))
+        idm = strip_scan(a_idm, torch.where(gate, idm_idm + rootsub_y, NEG), width)
         idm = torch.where(gate, idm, NEG)
         a_imi = torch.where(gate, _shift(imm + imm_imi, 1, NEG) + ins_y, NEG)
-        imi = max_affine_scan(a_imi, torch.where(gate, imi_imi + ins_y, NEG))
+        imi = strip_scan(a_imi, torch.where(gate, imi_imi + ins_y, NEG), width)
         imi = torch.where(gate, imi, NEG)
         p = (imm, imd, idm, imi, iiw)
         cells[i] = torch.stack(p, dim=-1)
@@ -128,12 +153,15 @@ def _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans) -> None:
                              f"{shape} {tdt} on {absorb.device}")
 
 
-def tropical_pair_forward(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans):
+def tropical_pair_forward(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, *,
+                          lanes: int | None = None, warps: int | None = None,
+                          cluster: int | None = None):
     """Kernel (f): (cells [X+1, Y+1, 5], lp_best) of one pair, as the JAX
     package's `tropical_pair_forward` returns them; lp_best is no greater
     than `pair_forward`'s lp_end.  The plain version for CPU tensors; for
-    CUDA tensors (float32 or float64, at most ROW_MAX_COLS columns) the
-    kernel; any other device raises."""
+    CUDA tensors (float32 or float64, any width) the kernel, its strips
+    laid out by ops/pairstrips.py `strip_plan` (`lanes`, `warps` and
+    `cluster` force a layout); any other device raises."""
     global LAUNCHES
     _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans)
     dev = absorb.device
@@ -142,11 +170,13 @@ def tropical_pair_forward(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
                                            trans)
     if dev.type != "cuda":
         raise RuntimeError(f"the tropical pair DP has no kernel for device {dev}")
-    X1, Y1 = absorb.shape
-    if Y1 > ROW_MAX_COLS:
-        raise ValueError(f"kernel (f) takes at most {ROW_MAX_COLS} columns (Y + 1), got {Y1}")
-    from historian_tpu_torch.ops import _kernels
+    from historian_tpu_torch.ops import _kernels, pairstrips
 
+    X1, Y1 = absorb.shape
+    plan = pairstrips.card_plan("tropical", absorb.dtype, dev, [(0, Y1)], lanes=lanes,
+                                warps=warps, cluster=cluster)
+    table, _records = pairstrips.strip_table(plan, X1, absorb.dtype, dev)
+    table = torch.from_numpy(table).to(dev)
     args = [t.contiguous() for t in (absorb, rootsub_x, rootsub_y, ins_x, ins_y)]
     mask_b = mask.contiguous().view(torch.uint8)
     cells = torch.empty((X1, Y1, 5), dtype=absorb.dtype, device=dev)
@@ -154,13 +184,12 @@ def tropical_pair_forward(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
     suffix = "f32" if absorb.dtype == torch.float32 else "f64"
     with torch.cuda.device(dev):
         code = getattr(_kernels.lib(), f"tropical_{suffix}")(
+            table.data_ptr(), plan.blocks, plan.lanes, plan.warps, plan.cluster,
             *(t.data_ptr() for t in args), mask_b.data_ptr(), trans.contiguous().data_ptr(),
             cells.data_ptr(), lp_best.data_ptr(), X1, Y1,
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(code, "tropical")
     LAUNCHES += 1
-    lanes, warps = row_block(Y1, absorb.dtype)
     LAST_LAUNCH.clear()
-    LAST_LAUNCH.update(dtype=str(absorb.dtype)[6:], rows=X1, cols=Y1, lanes=lanes,
-                       threads=32 * warps)
+    LAST_LAUNCH.update(dtype=str(absorb.dtype)[6:], rows=X1, cols=Y1, **plan.describe())
     return cells, lp_best[0]

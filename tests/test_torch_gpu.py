@@ -1367,13 +1367,13 @@ def test_sp_kernel_rejects_ragged_shards(cuda):
 
 
 # --------------------------------------------- kernels (f), (d'), (g2), (g3)
-def _long6_pair(x_len, y_len, dtype, dev, offset=0, pair=(0, 1)):
-    """Pair-DP inputs of two long6 sequences cut to x_len and y_len
-    residues from `offset` (preset lg) on `dev`."""
+def _long6_pair(x_len, y_len, dtype, dev, offset=0, pair=(0, 1), data="long6.fa"):
+    """Pair-DP inputs of two long6 sequences (or `data`'s) cut to x_len and
+    y_len residues from `offset` (preset lg) on `dev`."""
     from historian_tpu_torch.core.seqs import read_fasta
     from historian_tpu_torch.models.presets import named_model
 
-    seqs = read_fasta(os.path.join(os.path.dirname(__file__), "data", "long6.fa"))
+    seqs = read_fasta(os.path.join(os.path.dirname(__file__), "data", data))
     x = seqs[pair[0]].seq[offset: offset + x_len]
     y = seqs[pair[1]].seq[offset: offset + y_len]
     args, _ = pairforward.chain_pair_forward_arrays(named_model("lg"), x, y, 0.7, 0.4,
@@ -1404,8 +1404,8 @@ TROPICAL_SHAPES = [(0, 40, -1), (1, 0, -1), (36, 28, -1), (60, 74, 5), (300, 600
 @pytest.mark.parametrize("shape", TROPICAL_SHAPES,
                          ids=[f"{a}x{b}b{c}" for a, b, c in TROPICAL_SHAPES])
 def test_tropical_kernel_matches_plain(cuda, shape, dtype, rtol):
-    """Kernel (f) against its plain version (1 to 8 lanes a thread; float64
-    past 4096 columns on 32 warps):
+    """Kernel (f) against its plain version (the rule's strips: one strip
+    of one block up to 128 columns, 40 strips at 5001):
     the cells above -1e29 within rtol, every other cell at or below -1e29
     in both (-inf in the same cells), a masked cell exactly NEG, lp_best
     likewise; 3 runs equal."""
@@ -1431,6 +1431,87 @@ def test_tropical_kernel_matches_plain(cuda, shape, dtype, rtol):
         assert np.all(np.abs(g[live] - r[live]) <= rtol * np.abs(r[live]))
     neg = torch.tensor(NEG, dtype=dtype)
     assert bool((cells.cpu()[~args[5].cpu()] == neg).all())
+
+
+def _tropical_close(got, want, rtol):
+    """(f)'s cells or lp_best against the plain version's: the -1e29 rule,
+    -inf in the same cells, rtol on the rest."""
+    g, r = got.cpu().double().numpy(), want.cpu().double().numpy()
+    live = r > -1e29
+    assert np.array_equal(g > -1e29, live)
+    assert np.array_equal(g == -np.inf, r == -np.inf)
+    assert np.all(np.abs(g[live] - r[live]) <= rtol * np.abs(r[live]))
+
+
+#: strip layouts (lanes a thread, warps, cluster): every edge a record
+#: (cluster 1), portable and non-portable clusters, a cluster wider than
+#: the strips, each lanes a thread
+STRIP_LAYOUTS = [(1, 1, 1), (1, 2, 8), (1, 4, 16), (1, 3, 5), (2, 2, 1), (2, 4, 8),
+                 (4, 1, 16), (4, 8, 2)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", [(120, 3000, 200), (40, 1100, -1)], ids=["3000b200", "1100"])
+def test_tropical_strip_layouts_match_plain(cuda, shape, dtype, rtol):
+    """Kernel (f) at every layout of STRIP_LAYOUTS against its plain
+    version, and the layouts of one lanes a thread bit-equal to each other
+    (a strip boundary at a warp boundary passes what the warp ring
+    passes); each run twice, equal."""
+    from historian_tpu_torch.ops import tropical
+
+    x_len, y_len, band = shape
+    args = _long6_pair(x_len, y_len, dtype, cuda)
+    if band >= 0:
+        args[5] = _pair_band(x_len + 1, y_len + 1, band, cuda)
+    ref, ref_lp = tropical.tropical_pair_forward_plain(*args)
+    first = {}
+    for lanes, warps, cluster in STRIP_LAYOUTS:
+        runs = [tropical.tropical_pair_forward(*args, lanes=lanes, warps=warps, cluster=cluster)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        launch = tropical.LAST_LAUNCH
+        assert (launch["lanes"], launch["warps"], launch["cluster"]) == (lanes, warps, cluster)
+        cells, lp = runs[0]
+        assert torch.equal(runs[1][0], cells) and torch.equal(runs[1][1], lp)
+        _tropical_close(cells, ref, rtol)
+        _tropical_close(lp[None], ref_lp[None], rtol)
+        c0, lp0 = first.setdefault(lanes, (cells, lp))
+        assert torch.equal(cells, c0) and torch.equal(lp, lp0), (lanes, warps, cluster)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_tropical_kernel_past_8192_columns(cuda, dtype, rtol):
+    """Kernel (f) on long8x12k's first pair cut to 60 rows at all 11019
+    columns (past the one-block design's 8192) against its plain version,
+    on the rule's strips and on clusters of 16."""
+    from historian_tpu_torch.ops import tropical
+
+    args = _long6_pair(59, 11018, dtype, cuda, data="long8x12k.fa")
+    assert args[0].shape == (60, 11019)
+    ref, ref_lp = tropical.tropical_pair_forward_plain(*args)
+    for force in ({}, dict(lanes=2, warps=4, cluster=16)):
+        cells, lp = tropical.tropical_pair_forward(*args, **force)
+        assert tropical.LAST_LAUNCH["strips"] > 1
+        _tropical_close(cells, ref, rtol)
+        _tropical_close(lp[None], ref_lp[None], rtol)
+
+
+def test_strip_layout_not_resident_raises(cuda):
+    """A layout with more blocks than can be resident at once raises for
+    (f) and (g2); nothing falls back to fewer blocks."""
+    from historian_tpu_torch.ops import pairstrips, sp_pairforward, tropical
+
+    args = _long6_pair(1, 3000, torch.float32, cuda)
+    wide = [torch.cat([t] * 80, dim=-1) if t.dim() and t.shape[-1] == 3001 else t for t in args]
+    cap = pairstrips.card_capacity("tropical", "f32", torch.cuda.current_device(), 1, 1, 1)
+    assert wide[0].shape[1] // 32 > cap
+    before = tropical.LAUNCHES
+    with pytest.raises(ValueError, match="cannot be resident"):
+        tropical.tropical_pair_forward(*wide, lanes=1, warps=1, cluster=1)
+    with pytest.raises(ValueError, match="cannot be resident"):
+        sp_pairforward.sp_pair_forward(*wide, mesh=_card_mesh(cuda, 1), lanes=1, warps=1,
+                                       cluster=1)
+    assert tropical.LAUNCHES == before
 
 
 def _sibling_batch(items):
@@ -1543,6 +1624,43 @@ def test_sp_pair_kernel_banded_padding_matches_plain(cuda, n):
     _, one = pairforward.pair_forward(*args)
     for ref in (plain, one):
         _lp_close(got[None], ref[None], 1e-9)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-9)])
+def test_sp_pair_strip_layouts_match_k3(cuda, n, dtype, rtol):
+    """Kernel (g2) at n shards of the card at every layout of
+    STRIP_LAYOUTS against K3's lp_end (60 x 3000), the layouts of one
+    lanes a thread bit-equal to each other, each run twice, equal."""
+    from historian_tpu_torch.ops import sp_pairforward
+
+    args = _long6_pair(60, 3000, dtype, cuda)
+    ref = _k3_lp(args)
+    first = {}
+    for lanes, warps, cluster in STRIP_LAYOUTS:
+        runs = [sp_pairforward.sp_pair_forward(*args, mesh=_card_mesh(cuda, n), lanes=lanes,
+                                               warps=warps, cluster=cluster) for _ in range(2)]
+        torch.cuda.synchronize()
+        lay = sp_pairforward.LAST_LAUNCH["layouts"][0]
+        assert (lay["lanes"], lay["warps"], lay["cluster"]) == (lanes, warps, cluster)
+        assert torch.equal(runs[0], runs[1])
+        _lp_close(runs[0][None], ref[None], rtol)
+        assert torch.equal(runs[0], first.setdefault(lanes, runs[0])), (lanes, warps, cluster)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_sp_pair_kernel_past_8192_columns(cuda, n):
+    """Kernel (g2) on long8x12k's first pair cut to 60 rows at all 11019
+    columns (at 1 shard a shard past the one-block design's 8192) against
+    its plain version: 1e-9."""
+    from historian_tpu_torch.ops import sp_pairforward
+
+    args = _long6_pair(59, 11018, torch.float64, cuda, data="long8x12k.fa")
+    assert args[0].shape == (60, 11019)
+    got = sp_pairforward.sp_pair_forward(*args, mesh=_card_mesh(cuda, n))
+    assert sp_pairforward.LAST_LAUNCH["layouts"][0]["strips"] > 1
+    plain = sp_pairforward.sp_pair_forward_plain(*args, n)
+    _lp_close(got[None], plain[None], 1e-9)
 
 
 @pytest.mark.parametrize("place", ["host", "peer"])

@@ -14,8 +14,14 @@ packages.
   padding columns, masked);
 - `sp_pair_forward_batch` on a 2 x 4 `dp` x `sp` mesh against the JAX
   function and against `pair_forward` pair by pair;
-- a mesh that mixes device types raises.
+- a mesh that mixes device types raises;
+- the plain version with each shard cut into strips (1, 2, 3, 8 strips at
+  1 and 3 shards; the scans' carries composed strip by strip, as kernel
+  (g2) hands them on) against the JAX function, and a few rows at 8300
+  columns (past the one-block design's 8192 a shard) on one shard.
 """
+
+import os
 
 import jax
 import numpy as np
@@ -88,3 +94,46 @@ def test_sp_pair_forward_mixed_mesh_raises():
         sp_pairforward.sp_pair_forward(*args, mesh=mixed)
     with pytest.raises(ValueError, match="no axis"):
         sp_pairforward.sp_pair_forward(*args, mesh=_meshes((2,), ("dp",))[1])
+
+
+_JAX_LP: dict = {}
+
+
+def _jax_lp(key, args, n: int) -> float:
+    """The JAX function's lp_end on n shards, once a case (it compiles for
+    each call)."""
+    if key not in _JAX_LP:
+        jm, _ = _meshes((n,), ("sp",))
+        _JAX_LP[key] = float(jax_sp.sp_pair_forward(*(a.numpy() for a in args), mesh=jm))
+    return _JAX_LP[key]
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("strips", [1, 2, 3, 8])
+def test_sp_pair_forward_plain_by_strips_matches_jax(n, strips):
+    """The plain version with each shard cut into strips, the scans'
+    carries composed strip by strip as kernel (g2) hands them on, against
+    the JAX function on the same mesh and `pair_forward`: 1e-9."""
+    args = long6_pair(40, 52, torch.float64, offset=60)
+    lp = float(sp_pairforward.sp_pair_forward_plain(*args, n, strips))
+    lp_jax = _jax_lp(("40x52", n), args, n)
+    _, lp_one = pairforward.pair_forward(*args)
+    assert abs(lp - lp_jax) < ATOL
+    assert abs(lp - float(lp_one)) < ATOL
+
+
+@pytest.mark.parametrize("strips", [1, 3])
+def test_sp_pair_forward_past_8192_columns_matches_jax(strips):
+    """A few rows at 8300 columns (past the one-block design's 8192 a
+    shard) from long8x12k's first pair on one shard: the plain version,
+    whole and by strips, against the JAX function: 1e-9."""
+    from historian_tpu_torch.ops.pairforward import chain_pair_forward_arrays
+    from tests.torch_twins import DATA, PORT
+
+    seqs = PORT.seqs.read_fasta(os.path.join(DATA, "long8x12k.fa"))
+    args, _ = chain_pair_forward_arrays(PORT.presets.named_model("lg"), seqs[0].seq[:3],
+                                        seqs[1].seq[:8299], 0.5, 0.5, dtype=torch.float64)
+    assert args[0].shape == (4, 8300)
+    lp = float(sp_pairforward.sp_pair_forward_plain(*args, 1, strips))
+    lp_jax = _jax_lp("8300", args, 1)
+    assert abs(lp - lp_jax) < ATOL
