@@ -187,7 +187,9 @@ Phases, each fatal on failure (nothing is caught):
       1, 2, 4 and 8 shards on the card, bit-equal to K1 at long12's
       first-merge shape (full grid and banded) in float32 and float64 and
       on a DAG y in float64, timed beside K1, with its exchange bytes and
-      bound, and against its plain version; `recon -fast` on small6 with
+      bound, and against its plain version; by part (one strip, two, the
+      48 with every edge a record and in the rule's clusters), each beside
+      K1; `recon -fast` on small6 with
       HISTORIAN_SP=1 on four shards of the card == the CPU; `count` and
       `fit -maxiter 2` with `-mesh 1` on (j)'s long12 reconstruction ==
       the plain run (1e-9); `-mesh 2` raises; HISTORIAN_DIST=1 (a one-rank
@@ -218,7 +220,11 @@ Phases, each fatal on failure (nothing is caught):
       shard against their plain versions on its first rows, timed at full
       size (see `phase_strips`); kernel (g3) at 2, 4 and 8 stages against
       K3 (the headline batch) and K4 (6 x 3000 x 3000) in float64 and its
-      plain version.  Prints a {"pairmodules": ...} JSON line.
+      plain version, and on 4 stages at K4's long shape and long8x12k's
+      first pair against its plain version on their first 64 rows at all
+      columns, timed at full size (long8x12k's lp_end against (g2)'s);
+      (g2)'s batch past what one launch holds (headline pairs), in waves,
+      against K3.  Prints a {"pairmodules": ...} JSON line.
 Prints the Felsenstein times, the readbacks, the branch fills, the MCMC
 and kernel (a) as JSON lines, the kernel table as one JSON line, the card
 line, and last {"ok": true, "device": {...}}.  Exits non-zero without
@@ -2497,11 +2503,11 @@ def direct_proposals(sampler, fills: list) -> list:
 
 
 #: the cuts n x n of the long6 node-align proposal's SiblingMatrix at which
-#: sibling_routes times both routes, from ~0.3e6 to ~2e6 in-mask
-#: state-cells: under its guide envelope (1.0e6 at 2100, 1.5e6 at 3000),
-#: and with a full mask (0.3e6 at 165 to 2.0e6 at 426; fill.cpp's OpenMP
-#: wavefront starts between 240 and 270)
-SIBLING_ROUTE_CUTS = {"banded": (700, 1400, 2100, 3000, 4000), "full": (165, 240, 301, 426)}
+#: sibling_routes times both routes, around the route rule's 1.0e6 in-mask
+#: state-cells: under its guide envelope (0.7e6 at 1400, 1.0e6 at 2100,
+#: 1.5e6 at 3000), and with a full mask (0.6e6 at 240, 1.0e6 at 301;
+#: fill.cpp's OpenMP wavefront starts between 240 and 270)
+SIBLING_ROUTE_CUTS = {"banded": (1400, 2100, 3000), "full": (240, 301)}
 
 
 def sibling_routes(matrix_args) -> list:
@@ -2688,7 +2694,7 @@ DAG_OPS = (44, 38, 32)
 #: four sequences cut to these lengths, the root merge ((t1, t2), (t3, t4))
 #: of two sampled profiles (below 500 aa its x is a chain: the sampled
 #: traces agree)
-DAG_SWEEP = (500, 1000, 2000, 4000)
+DAG_SWEEP = (500, 2000)
 
 
 @contextlib.contextmanager
@@ -3104,7 +3110,10 @@ def phase_sp(cli, colforward, work: str, small6_cpu: str) -> dict:
     inputs, timed beside it (CUDA events, the wrappers' calls), with its
     exchange buffers' bytes and its bound (K1's bytes, plus the records
     written and read once); against its plain version (8 shards) on the
-    DAG y in float64.  Then the main path: `recon -fast` on small6 in
+    DAG y in float64.  By part, float32 and float64, each bit-equal to K1
+    and timed beside it: x cut to one 128-lane strip and to two (one and
+    two shards), and the full grid with every strip edge a record
+    (clusters of 1) and in the rule's clusters.  Then the main path: `recon -fast` on small6 in
     float64 with HISTORIAN_SP=1 on a mesh of four shards of the one card
     (a mesh of the card repeated, made here: `-mesh 4` asks for four cards
     and raises on this one), its launches counted from 0, byte for byte
@@ -3158,6 +3167,32 @@ def phase_sp(cli, colforward, work: str, small6_cpu: str) -> dict:
                 print(f"(p) (g1) {name} {str(dtype)[6:]}, 8 shards, against its plain version "
                       f"(8 shards): max abs err {e:.3e}, plain {p_ms:.1f} ms", flush=True)
             del args, ref, got
+
+    # (g1) by part at long12's first merge: x cut to one strip and to two
+    # (every column), and the full grid with every strip edge a record
+    # (clusters of 1) beside the clusters of the rule
+    parts = {}
+    for dtype in (f32, f64):
+        full = k1_inputs(SX, SY, 1, False, 17, dtype)
+        for cols, n, cluster in ((128, 1, None), (256, 1, None), (256, 2, None), (SX, 1, 1),
+                                 (SX, 1, None)):
+            args = full if cols == SX else tuple(
+                t[..., :cols].contiguous() if k in (3, 4, 5) else t for k, t in enumerate(full))
+            ref = colforward.col_forward_planes(*args)
+            got = sp._planes(*args, None, [cuda] * n, cluster)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"(g1) part {cols} lanes {n} shards {dtype}: not bit-equal")
+            lay = sp.LAST_LAUNCH["layouts"][0]
+            ms = cuda_ms(lambda: sp._planes(*args, None, [cuda] * n, cluster))
+            k1_ms = cuda_ms(lambda: colforward.col_forward_planes(*args))
+            key = f"{cols} lanes {n} shards cluster {lay['cluster']} {str(dtype)[6:]}"
+            parts[key] = dict(ms=ms, k1_ms=k1_ms, us_a_column=ms * 1e3 / SY,
+                              k1_us_a_column=k1_ms * 1e3 / SY, strips=lay["strips"])
+            print(f"(p) (g1) part: {key} ({lay['strips']} strips): {ms:.3f} ms "
+                  f"({ms * 1e3 / SY:.3f} us a column), K1 {k1_ms:.3f} ms "
+                  f"({k1_ms * 1e3 / SY:.3f}); bit-equal", flush=True)
+        del full, args, ref, got
 
     # the main path: recon -fast on small6 over four shards of the card
     fa = write_small6(work)
@@ -3261,8 +3296,8 @@ def phase_sp(cli, colforward, work: str, small6_cpu: str) -> dict:
         raise AssertionError("HISTORIAN_DIST=1: count or mcmc differs from the plain run")
     print("(p) HISTORIAN_DIST=1: a one-rank NCCL group; small6 count and mcmc -samples 1 == "
           "the plain run", flush=True)
-    print(json.dumps({"spcolforward": {f"{k[0]} {k[1]} {k[2]}": v for k, v in times.items()}}),
-          flush=True)
+    print(json.dumps({"spcolforward": {f"{k[0]} {k[1]} {k[2]}": v for k, v in times.items()},
+                      "spcolforward_parts": parts}), flush=True)
     return dict(res, err=err, launches=launches)
 
 
@@ -3278,9 +3313,9 @@ TROPICAL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 #: lp_end: another association of the row scans; K3/K4's float32 takes
 #: ex2.approx / lg2.approx
 PAIR_RTOL = {torch.float32: 1e-5, torch.float64: 1e-9}
-#: the rows at which (q) holds kernels (f) and (g2) against their plain
-#: versions, every column kept (so at the block shape of the full pair)
-TROPICAL_ROWS, SP_ROWS = 400, 300
+#: the rows at which (q) holds kernels (f), (g2) and (g3) against their
+#: plain versions, every column kept (so at the block shape of the full pair)
+TROPICAL_ROWS, SP_ROWS, PP_ROWS = 400, 300, 64
 
 
 def pair_arrays(x: str, y: str, dtype, dev=torch.device("cuda")) -> list:
@@ -3549,10 +3584,17 @@ def phase_pair_modules() -> dict:
     (f) and (g2): `phase_strips`;
     (g3) at 2, 4 and 8 stages on K3's headline shape and K4's long shape
     (6 x 3000 x 3000) against K3 / K4 in float64, timed; against its plain
-    version on 8 pairs of the headline shape.  Prints a {"pairmodules":
-    ...} JSON line; returns each kernel's line entries."""
+    version on 8 pairs of the headline shape; on 4 stages at K4's long
+    shape and long8x12k's first pair (10979 x 11019, past the one-block
+    design's 8192 columns) against its plain version on the first PP_ROWS
+    rows at every column, then timed at full size (long8x12k's lp_end
+    against (g2)'s at one shard, PAIR_RTOL);
+    (g2)'s batch of the card's capacity at its widest strip plus 9
+    headline pairs, in waves, against K3 and (its first two pairs) the
+    plain version.  Prints a {"pairmodules": ...} JSON line; returns each
+    kernel's line entries."""
     from historian_tpu_torch import bench, device
-    from historian_tpu_torch.ops import pairforward, siblingdp, sp_pairforward, tropical
+    from historian_tpu_torch.ops import pairforward, pairstrips, siblingdp, sp_pairforward, tropical
     from historian_tpu_torch.parallel import pp_pairforward
     from historian_tpu_torch.sampler import sibling
 
@@ -3792,9 +3834,11 @@ def phase_pair_modules() -> dict:
             B, X1, Y1 = args[0].shape
             bnd = bound(nbytes(*args, got) + 2 * launch["boundary_bytes"],
                         PF_OPS_PER_CELL * B * X1 * Y1, f64)
-            pp_times[f"{case} {n}"] = dict(ms=ms_n, ref_ms=ref_ms, rel_err=e, **bnd)
-            print(f"(q) (g3) {case} {B} x {X1 - 1} x {Y1 - 1} f64 on {n} stages "
-                  f"({list(launch['groups'].values())[0]} blocks a stage): {ms_n:.3f} ms, "
+            lay = next(iter(launch["layouts"].values()))
+            pp_times[f"{case} {n}"] = dict(ms=ms_n, ref_ms=ref_ms, rel_err=e, layout=lay, **bnd)
+            print(f"(q) (g3) {case} {B} x {X1 - 1} x {Y1 - 1} f64 on {n} stages ({lay['slots']} "
+                  f"slots for {lay['items']} items, strips of {lay['lanes']} lanes x "
+                  f"{lay['warps']} warps, clusters of {lay['cluster']}): {ms_n:.3f} ms, "
                   f"{'K3' if case == 'headline' else 'K4'} {ref_ms:.3f} ms, {e:.3e} of |lp|; "
                   f"boundaries {launch['boundary_bytes']} B; bound {bnd['bound_ms']:.4f} ms "
                   f"({bnd['bound_by']})", flush=True)
@@ -3812,7 +3856,60 @@ def phase_pair_modules() -> dict:
           f"{e:.3e} of |lp|; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
     out["pppairforward"] = dict(ms=ms, plain_ms=p_ms, err=float((got - plain).abs().max()),
                                 **bnd)
+    # K4's long shape and long8x12k's first pair (past the one-block
+    # design's 8192 columns) on 4 stages: against the plain version on
+    # their first PP_ROWS rows at every column, then at full size timed
+    wide = [s for _, s in read_fasta(os.path.join(REPO, "tests", "data", "long8x12k.fa"))]
+    wide_args = [t[None].contiguous() for t in pair_arrays(wide[0], wide[1], f64)]
+    for case, args in (("long", long64), ("long8x12k", wide_args[:5] + [wide_args[6][0]])):
+        cut = [t[:, :PP_ROWS].contiguous() if t.dim() > 1 and k in (0, 1, 3) else t
+               for k, t in enumerate(args)]
+        got = pp_pairforward.pp_pair_forward_lp(*cut, mesh=card_mesh(4, ("pp",)))
+        plain, p_ms = host_ms(lambda: pp_pairforward.pp_pair_forward_lp_plain(*cut, 4))
+        e = rel_err(f"(g3) {case} first {PP_ROWS} rows vs plain", got, plain, PAIR_RTOL[f64])
+        lp, ms = event_ms(lambda: pp_pairforward.pp_pair_forward_lp(
+            *args, mesh=card_mesh(4, ("pp",))))
+        lay = next(iter(pp_pairforward.LAST_LAUNCH["layouts"].values()))
+        if not bool((lp > -1e29).all() & (lp < 0).all()):
+            raise AssertionError(f"(g3) {case} full size: lp_end {lp.tolist()}")
+        P, X1, Y1 = args[0].shape
+        pp_times[f"{case} full 4"] = dict(ms=ms, cut_rel_err=e, cut_plain_ms=p_ms, layout=lay,
+                                          lp=lp.tolist())
+        print(f"(q) (g3) {case} {P} x {X1} x {Y1} f64 on 4 stages ({lay['slots']} slots, "
+              f"strips of {lay['width']}): {ms:.3f} ms ({ms * 1e3 / X1:.3f} us a row); first "
+              f"{PP_ROWS} rows at all columns {e:.3e} of |lp| from the plain version "
+              f"({p_ms:.1f} ms)", flush=True)
+    wide_lp = float(pp_times["long8x12k full 4"]["lp"][0])
+    g2_wide = summary["strips"]["long8x12k g2 float64 1"]["lp"]
+    e = rel_err("(g3) long8x12k vs (g2) 1 shard", torch.tensor([wide_lp]),
+                torch.tensor([g2_wide]), PAIR_RTOL[f64])
+    print(f"(q) (g3) long8x12k lp_end {wide_lp:.6f}, (g2)'s {g2_wide:.6f}: {e:.3e} of |lp|; K4 "
+          f"on the long shape {refs['long'][2]:.3f} ms", flush=True)
     summary["g3"] = pp_times
+    del long64, wide_args
+
+    # ---- (g2): a batch past what one launch holds, in waves
+    cap = pairstrips.card_capacity("sppairforward", "f64", torch.cuda.current_device(), 4, 8, 1)
+    reps = -(-(cap + 9) // head64[0].shape[0])
+    big = [torch.cat([t] * reps)[:cap + 9].contiguous() for t in head64[:5]]
+    ones = torch.ones(big[0].shape[1:], dtype=torch.bool, device=cuda)
+    got, ms = event_ms(lambda: sp_pairforward.sp_pair_forward_batch(
+        *big, ones, head64[5], mesh=card_mesh(1, ("dp", "sp"), (1, 1))))
+    waves = list(sp_pairforward.LAST_LAUNCH["waves"])
+    if len(waves) < 2 or sum(waves) != cap + 9:
+        raise AssertionError(f"(g2) batch of {cap + 9}: waves {waves}")
+    k3_lp, k3_ms = event_ms(lambda: pairforward.pair_forward_lp(*big, head64[5]))
+    e = rel_err("(g2) batch past capacity vs K3", got, k3_lp, PAIR_RTOL[f64])
+    plain = torch.stack([sp_pairforward.sp_pair_forward_plain(*(t[b] for t in big), ones,
+                                                              head64[5], 1) for b in (0, 1)])
+    e_p = rel_err("(g2) batch past capacity vs plain", got[:2], plain, PAIR_RTOL[f64])
+    summary["g2 waves"] = dict(pairs=cap + 9, capacity=cap, waves=waves, ms=ms, k3_ms=k3_ms,
+                               rel_err_k3=e, rel_err_plain=e_p)
+    print(f"(q) (g2) sp_pair_forward_batch of {cap + 9} headline pairs f64 (one launch holds "
+          f"{cap} at the widest strip): waves {waves}, {ms:.3f} ms, K3 {k3_ms:.3f} ms, "
+          f"{e:.3e} of |lp| from K3, {e_p:.3e} from the plain version (first 2 pairs)",
+          flush=True)
+    del big
     print(json.dumps({"pairmodules": dict(summary, launches=launches)}), flush=True)
     return dict(out, launches=launches)
 

@@ -53,15 +53,29 @@ __device__ __forceinline__ double lse2(double x, double y) {
   return __dadd_rn(x, y);  // nan propagation
 }
 
+// The barrier of the threads that run a block scan: the whole block, or
+// (NamedBar) the first N threads, where the block has more warps (an io
+// warp) that do not take part.
+struct BlockBar {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+template <int N>
+struct NamedBar {
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+  }
+};
+
 // Value of `v` at lane l-1.  Lane 0 of the tile takes the previous tile's
 // last lane, lane 0 of tile 0 takes `neg`.  buf holds each warp's last
 // lane, by tile parity.
-template <typename T, int NT>
+template <typename T, int NT, typename Bar = BlockBar>
 __device__ __forceinline__ T prev_lane(T v, T (&buf)[2][NT / 32], int par,
                                        int t, int lane, int warp, T neg) {
   T up = __shfl_up_sync(0xffffffffu, v, 1);
   if (lane == 31) buf[par][warp] = v;
-  __syncthreads();
+  Bar{}();
   if (lane == 0) up = warp > 0 ? buf[par][warp - 1] : (t > 0 ? buf[par ^ 1][NT / 32 - 1] : neg);
   return up;
 }
@@ -75,7 +89,7 @@ struct ScanSmem {
 // Two inclusive affine scans over lanes, tile t of a row: on entry
 // (v1, w1) and (v2, w2) are each lane's (a, b); on exit v1 and v2 are u.
 // Every thread of the block calls it.
-template <typename T, int NT>
+template <typename T, int NT, typename Bar = BlockBar>
 __device__ __forceinline__ void block_affine_scan2(T& v1, T& w1, T& v2, T& w2,
                                                    ScanSmem<T, NT>& s, int par, int t,
                                                    int tid, int lane, int warp, T neg) {
@@ -98,7 +112,7 @@ __device__ __forceinline__ void block_affine_scan2(T& v1, T& w1, T& v2, T& w2,
     s.sc[2][par][warp] = v2;
     s.sc[3][par][warp] = w2;
   }
-  __syncthreads();
+  Bar{}();
   if (warp == 0) {
     T sv1 = lane < NW ? s.sc[0][par][lane] : neg;
     T sw1 = lane < NW ? s.sc[1][par][lane] : neg;
@@ -123,7 +137,7 @@ __device__ __forceinline__ void block_affine_scan2(T& v1, T& w1, T& v2, T& w2,
       s.sc[3][par][lane] = sw2;
     }
   }
-  __syncthreads();
+  Bar{}();
   if (warp > 0) {  // prefix of the earlier warps of this tile
     v1 = lse(v1, s.sc[0][par][warp - 1] + w1);
     w1 = cmax(w1 + s.sc[1][par][warp - 1], neg);

@@ -14,7 +14,7 @@
 // with release and polled with acquire at CTA scope; a warp does not
 // overwrite a slot that warp w+1 has not read.  Warp 0 takes its left
 // neighbour's values from an `Edge`: the grid's left edge, or the strip
-// to its left (kernels (f) and (g2), the strip section below).
+// to its left (kernels (f), (g2) and (g3), the strip section below).
 //
 // Row i, as ops/pairforward.py `pair_forward` computes it, in a semiring S
 // (LogSum: log-sum-exp; MaxPlus: max):
@@ -489,59 +489,6 @@ int lanes_per_thread(int n) {
   return 0;
 }
 
-//: the most lanes a block of kernel (g3) takes: 32 warps of 8
-constexpr int kMaxCols = 8192;
-
-inline int threads_for(int n, int M) { return 32 * ((n + 32 * M - 1) / (32 * M)); }
-
-// Blocks of `kernel` with `threads` threads that can be resident at once on
-// the current device (a cooperative launch's limit), or 0.
-template <typename K>
-int capacity(K kernel, int threads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0))
-    return 0;
-  return sms * per_sm;
-}
-
-// f(NWMAX, M) (as std::integral_constant) for the instance of kernel
-// (g3) that takes n lanes of T: at most 32 warps in float32 (64
-// registers a thread); in float64 at most 16 (128 registers, for the wider
-// state) up to 4096 lanes, as K3 and K4 take them, and 32 beyond;
-// cudaErrorInvalidValue past kMaxCols.
-template <typename T, typename F>
-int dispatch(int n, F&& f) {
-  if (n > kMaxCols) return int(cudaErrorInvalidValue);
-  using W16 = std::integral_constant<int, 16>;
-  using W32 = std::integral_constant<int, 32>;
-  if constexpr (sizeof(T) == 8) {
-    if (n <= 16 * 32 * 8) {
-      switch (lanes_per_thread<16>(n)) {
-        case 1: return f(W16{}, std::integral_constant<int, 1>{});
-        case 2: return f(W16{}, std::integral_constant<int, 2>{});
-        case 4: return f(W16{}, std::integral_constant<int, 4>{});
-        case 6: return f(W16{}, std::integral_constant<int, 6>{});
-        case 8: return f(W16{}, std::integral_constant<int, 8>{});
-      }
-      return int(cudaErrorInvalidValue);
-    }
-    switch (lanes_per_thread<32>(n)) {
-      case 6: return f(W32{}, std::integral_constant<int, 6>{});
-      case 8: return f(W32{}, std::integral_constant<int, 8>{});
-    }
-  } else {
-    switch (lanes_per_thread<32>(n)) {
-      case 1: return f(W32{}, std::integral_constant<int, 1>{});
-      case 2: return f(W32{}, std::integral_constant<int, 2>{});
-      case 4: return f(W32{}, std::integral_constant<int, 4>{});
-      case 6: return f(W32{}, std::integral_constant<int, 6>{});
-      case 8: return f(W32{}, std::integral_constant<int, 8>{});
-    }
-  }
-  return int(cudaErrorInvalidValue);
-}
-
 // ------------------------------------------ exchange between blocks (global)
 __device__ __forceinline__ int ld_acquire(const int* p, bool sys) {
   int v;
@@ -582,6 +529,15 @@ __device__ __forceinline__ double ld_shared_value(const double* p, bool sys) {
   return v;
 }
 
+// *p += v with release semantics (system scope for sys).
+__device__ __forceinline__ void red_release(int* p, int v, bool sys) {
+  if (sys) {
+    asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  } else {
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  }
+}
+
 // Wait until *p >= want (one thread); traps when it never comes.
 __device__ __forceinline__ void wait_global(const int* p, int want, bool sys) {
   for (long long n = 0; ld_acquire(p, sys) < want; ++n) {
@@ -590,10 +546,11 @@ __device__ __forceinline__ void wait_global(const int* p, int want, bool sys) {
   }
 }
 
-// ------------------------------------------ strips over SMs (kernels (f), (g2))
+// ------------------------------------------ strips over SMs (kernels (f), (g2), (g3))
 //
-// Kernels (f) and (g2) cut a pair's columns (or each shard's) into strips
-// of whole warps, one block a strip (ops/pairstrips.py `strip_plan`), so
+// Kernels (f), (g2) and (g3) cut a pair's columns (or each shard's, or
+// each slot's) into strips of whole warps, one block a strip
+// (ops/pairstrips.py `strip_plan`, `slot_plan`), so
 // that a wide row runs over tens of SMs at about one warp step's latency a
 // row rather than at one SM's issue rate over the whole row.  A strip
 // block runs `warps` row warps as above and one io warp, its last, which
@@ -626,6 +583,9 @@ __device__ __forceinline__ void wait_global(const int* p, int want, bool sys) {
 
 //: row warps a strip at most
 constexpr int kStripWarps = 8;
+//: row warps of kernel (g3)'s whole-row strips at most (16 warps a block
+//: with the io warp: 128 registers a thread, as K3's float64 block takes)
+constexpr int kRowWarps = 15;
 //: row slots of each edge ring
 constexpr int kEdge = 32;
 //: values a row's record in global memory (5 used)
@@ -868,12 +828,13 @@ inline void strip_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int
   cfg.numAttrs = 1;
 }
 
-// Blocks of a strip kernel (`warps` row warps and the io warp, `smem`
-// dynamic bytes) that can be resident at once in clusters of `cluster`
-// (cudaOccupancyMaxActiveClusters times the cluster), or -(CUDA error).
+// Blocks of a strip kernel (`warps` row warps, at most `max_warps`, and
+// the io warp, `smem` dynamic bytes) that can be resident at once in
+// clusters of `cluster` (cudaOccupancyMaxActiveClusters times the
+// cluster), or -(CUDA error).
 template <typename K>
-int strip_capacity(K kernel, int warps, size_t smem, int cluster) {
-  if (warps < 1 || warps > kStripWarps || cluster < 1 || cluster > 16) {
+int strip_capacity(K kernel, int warps, size_t smem, int cluster, int max_warps = kStripWarps) {
+  if (warps < 1 || warps > max_warps || cluster < 1 || cluster > 16) {
     return -int(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSuccess;
@@ -897,9 +858,9 @@ int strip_capacity(K kernel, int warps, size_t smem, int cluster) {
 // resident at once is refused (cudaErrorCooperativeLaunchTooLarge).
 template <typename K, typename A>
 int strip_launch(K kernel, const A& args, int blocks, int warps, int cluster, size_t smem,
-                 cudaStream_t s) {
+                 cudaStream_t s, int max_warps = kStripWarps) {
   if (blocks < 1 || cluster < 1 || blocks % cluster) return int(cudaErrorInvalidValue);
-  const int cap = strip_capacity(kernel, warps, smem, cluster);
+  const int cap = strip_capacity(kernel, warps, smem, cluster, max_warps);
   if (cap < 0) return -cap;
   if (blocks > cap) return int(cudaErrorCooperativeLaunchTooLarge);
   cudaLaunchConfig_t cfg;

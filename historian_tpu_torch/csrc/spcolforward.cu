@@ -11,36 +11,46 @@
 // colforward_step.cuh) already is a pipeline of 128-lane strips in which
 // exactly two dependencies cross a strip boundary: the diagonal halo and
 // the IMD/IIW scan carry.  A shard here is a run of whole K1 strips with
-// its own planes [5, SY, W], x vectors and emission; inside a shard the
-// strips run K1's body unchanged, and at a shard boundary the left shard's
-// last strip hands the right shard's first strip a record a column
-// (colforward_step.cuh `Exchange`: its last lane's five cells and its two
-// pre-scan sources, 7 values, then a column counter with a release store).
-// The right strip forms the halo and the carry from the records with K1's
-// own arithmetic, so the cells are bit-equal to K1's in the same dtype for
-// any number of shards.  The JAX kernel's five messages become one record;
-// the halo is formed on the reading side because a strip skips a column in
-// which it has no band lane and so computes no t5 there, while its right
-// neighbour may still need that halo.
+// its own planes [5, SY, W], x vectors and emission, and each strip runs
+// K1's per-lane arithmetic unchanged, so the cells are bit-equal to K1's
+// in the same dtype for any number of shards.  What differs is how the
+// two dependencies travel (colforward_step.cuh `StripLink`, `col_io`):
+// each strip block has an io warp beside its 128 lanes; a strip's last
+// lane puts a record a column (its five cells, its two pre-scan sources
+// and its t5a, the right strip's halo) in shared memory, and the io warp
+// sends it on: into
+// the right block's shared memory through distributed shared memory
+// within a thread block cluster of up to 8 adjacent strips of a shard (a
+// cluster-scope release), else into a record [SY, 8] in device memory
+// with a counter published once a batch (across a cluster's end; at a
+// shard boundary the exchange record, at system scope where it crosses
+// cards).  The right block takes the halo and the carry from the record of
+// the column, which hold K1's own arithmetic's values, its compute
+// threads reading only its own shared memory; where the left strip has
+// no band lane in the column (so computes no t5a there) the right block
+// forms the halo from the left's records of the in-edges' columns.  The
+// strip's own previous column stays in registers for a chain y's in-edge;
+// in-edges older than the ring (kHalo columns; a DAG y) read the planes
+// and the left edge's record in device memory, which every edge then has.
 //
-// Launches: one cooperative launch a device, holding every strip of every
-// shard placed on that device, block b the b-th of them in shard order.
-// The shards of one card therefore exchange inside one cooperative launch
-// whose blocks are all resident: the other choice, a launch a shard on a
-// stream of its own, cannot be made safe, since nothing orders two
-// launches on two streams and a right shard scheduled first would hold the
-// SMs its left neighbour needs while it waits.  Between cards nothing
-// waits in a cycle (a shard waits only on its left neighbour), so each
-// card's launch may start in any order.  Where the boundary crosses cards
-// the record buffer lies in the reading card's memory, written through
-// peer access, or in mapped pinned host memory where the cards have no
-// peer access (`sys`: system-scope release, acquire and loads).  Every
-// wait is K1's bounded spin that ends in __trap().
+// Launches: one launch a device, holding every strip of every shard
+// placed on that device, in shard order, in clusters (ops/pairstrips.py
+// `strip_plan` at 1 lane x 4 warps, K1's 128 lanes), checked against
+// cudaOccupancyMaxActiveClusters so that all its blocks are resident at
+// once; no cooperative launch.  A block waits only on its left strip (in
+// its cluster, or through a record written by a resident block or by
+// another card), and within a cluster a left block on its right block's
+// progress, so no wait closes a cycle.  Between cards nothing waits in a
+// cycle (a shard waits only on its left neighbour), so each card's launch
+// may start in any order.  Where the boundary crosses cards the record
+// buffer lies in the reading card's memory, written through peer access,
+// or in mapped pinned host memory where the cards have no peer access
+// (`sys`: system-scope release, acquire and loads).  Every wait is
+// bounded and ends in __trap().
 //
 // What bounds it on this card: K1's column chain (latency, see
-// colforward_step.cuh); a boundary adds one record write and one counter
-// publication a column on the left and the record reads on the right.
-// Bytes: K1's plus 8 values a column a boundary.
+// colforward_step.cuh), the strips' hand-offs on it; bytes: K1's plus 8
+// values a column an edge kept in device memory.
 
 #include <cstring>
 
@@ -48,86 +58,115 @@
 
 namespace {
 
+using pairstep::StripEntry;
+
 // One shard as the wrapper lays it out (ops/sp_colforward.py, a row of
-// its host table): 10 pointers, then 4 integers, all 64-bit.
+// its host table): 4 pointers, then 2 integers, all 64-bit.
 template <typename T>
 struct SpShard {
-  const T* absorb;   // [SY, W]
-  const T* maskg;    // [SY, W]
-  const T* xvec;     // [4, W]
-  T* out;            // [5, SY, W]
-  int* progress;     // [nstrips]
-  T* rec;            // [nstrips, SY, 4]
-  const T* in;       // [SY, 8] records of the left shard (null: first shard)
-  const int* in_cnt;
-  T* out_x;          // [SY, 8] the right shard's buffer (null: last shard)
-  int* out_cnt;
-  long long lane0, W, nstrips, sys;
+  const T* absorb;  // [SY, W]
+  const T* maskg;   // [SY, W]
+  const T* xvec;    // [4, W]
+  T* out;           // [5, SY, W]
+  long long lane0, W;
 };
 
 constexpr int kNS = 128;  // K1's strip width: whole K1 strips make the bits K1's
 constexpr int kMaxShards = 16;  // shards a launch (a device) takes
+constexpr int kWarps = kNS / 32;  // compute warps a block; the io warp follows
 
-// The device's shards, passed by value as a kernel parameter (no copy up).
+// The launch's arguments, passed by value as a kernel parameter (no copy up).
 template <typename T>
-struct SpTable {
+struct Args {
   SpShard<T> s[kMaxShards];
+  const StripEntry* table;  // a block a strip (ops/pairstrips.py; `chain` its shard)
+  const int* y_src;
+  const T *y_lp, *y_flags, *trans;
+  const int* lanes;
+  int SY, KY;
 };
 
 template <typename T, int NT>
-__global__ void __launch_bounds__(NT) spcolforward_kernel(
-    const __grid_constant__ SpTable<T> table, int n_shards, const int* __restrict__ y_src,
-    const T* __restrict__ y_lp, const T* __restrict__ y_flags, const T* __restrict__ trans,
-    const int* __restrict__ lanes, int SY, int KY) {
-  int b = blockIdx.x, d = 0;
-  while (d + 1 < n_shards && b >= int(table.s[d].nstrips)) {
-    b -= int(table.s[d].nstrips);
-    ++d;
+__global__ void __launch_bounds__(NT + 32, 1)
+    spcolforward_kernel(const __grid_constant__ Args<T> a) {
+  __shared__ colfill::LinkSmem<T> ls;
+  const StripEntry e = a.table[blockIdx.x];
+  colfill::link_init(ls);
+  __syncthreads();
+  pairstep::cluster_sync();
+  if (e.nc > 0) {
+    const SpShard<T>& sh = a.s[e.chain];
+    const int gi0 = int(e.c0), gi_end = int(e.c0 + e.nc);
+    if (threadIdx.x >= NT) {
+      colfill::col_io<T, NT>(e, ls, a.lanes, gi0, gi_end, a.SY);
+    } else {
+      colfill::PlaneEmission<T> em{sh.absorb, sh.maskg};
+      const colfill::Strips g{int((e.c0 - sh.lane0) / NT), int((sh.W + NT - 1) / NT),
+                              int(sh.lane0), int(sh.W)};
+      const colfill::StripLink<T> link{&ls, reinterpret_cast<const T*>(e.in_rec),
+                                       reinterpret_cast<const int*>(e.in_cnt),
+                                       e.left != pairstep::kNone, e.right != pairstep::kNone,
+                                       e.sys != 0};
+      colfill::column_fill<T, NT>(a.y_src, a.y_lp, a.y_flags, 4, sh.xvec, a.trans, a.lanes,
+                                  nullptr, nullptr, sh.out, a.SY, g, a.KY, em, link);
+    }
   }
-  const SpShard<T>& sh = table.s[d];
-  colfill::PlaneEmission<T> em{sh.absorb, sh.maskg};
-  const colfill::Strips g{b, int(sh.nstrips), int(sh.lane0), int(sh.W)};
-  const colfill::Exchange<T> edge{sh.in, sh.in_cnt, sh.out_x, sh.out_cnt, sh.sys != 0};
-  colfill::column_fill<T, NT>(y_src, y_lp, y_flags, 4, sh.xvec, trans, lanes, sh.progress,
-                              sh.rec, sh.out, SY, g, KY, em, edge);
+  __syncwarp();
+  pairstep::cluster_sync();
 }
 
 template <typename T>
-int launch(const void* shards, int n_shards, int strips, const int* y_src, const T* y_lp,
-           const T* y_flags, const T* trans, const int* lanes, int SY, int KY, int NS,
-           cudaStream_t stream) {
+int launch(const void* shards, int n_shards, const void* table, int blocks, int cluster,
+           const int* y_src, const T* y_lp, const T* y_flags, const T* trans, const int* lanes,
+           int SY, int KY, int NS, cudaStream_t stream) {
   if (NS != kNS || n_shards < 1 || n_shards > kMaxShards) return int(cudaErrorInvalidValue);
-  SpTable<T> table{};
-  std::memcpy(table.s, shards, sizeof(SpShard<T>) * n_shards);
-  void* args[] = {&table, &n_shards, &y_src, &y_lp, &y_flags, &trans, &lanes, &SY, &KY};
-  return colfill::launch_strips(spcolforward_kernel<T, kNS>, strips, kNS, 0, args, stream);
+  Args<T> a{};
+  std::memcpy(a.s, shards, sizeof(SpShard<T>) * n_shards);
+  a.table = static_cast<const StripEntry*>(table);
+  a.y_src = y_src;
+  a.y_lp = y_lp;
+  a.y_flags = y_flags;
+  a.trans = trans;
+  a.lanes = lanes;
+  a.SY = SY;
+  a.KY = KY;
+  return pairstep::strip_launch(spcolforward_kernel<T, kNS>, a, blocks, kWarps, cluster, 0,
+                                stream);
 }
 
 }  // namespace
 
 // shards: the device's SpShard rows in host memory (at most kMaxShards);
-// strips: their strips in all (the grid).
-extern "C" int spcolforward_f32(const void* shards, int n_shards, int strips, const int* y_src,
-                                const float* y_lp, const float* y_flags, const float* trans,
-                                const int* lanes, int SY, int KY, int NS, void* stream) {
-  return launch<float>(shards, n_shards, strips, y_src, y_lp, y_flags, trans, lanes, SY, KY, NS,
-                       static_cast<cudaStream_t>(stream));
+// table: `blocks` StripEntry rows on the device (ops/pairstrips.py, 1
+// lane x 4 warps; `chain` the row of `shards`), in clusters of `cluster`.
+// Returns the launch's error (cudaErrorCooperativeLaunchTooLarge: more
+// blocks than can be resident at once).
+extern "C" int spcolforward_f32(const void* shards, int n_shards, const void* table, int blocks,
+                                int cluster, const int* y_src, const float* y_lp,
+                                const float* y_flags, const float* trans, const int* lanes,
+                                int SY, int KY, int NS, void* stream) {
+  return launch<float>(shards, n_shards, table, blocks, cluster, y_src, y_lp, y_flags, trans,
+                       lanes, SY, KY, NS, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int spcolforward_f64(const void* shards, int n_shards, int strips, const int* y_src,
-                                const double* y_lp, const double* y_flags, const double* trans,
-                                const int* lanes, int SY, int KY, int NS, void* stream) {
-  return launch<double>(shards, n_shards, strips, y_src, y_lp, y_flags, trans, lanes, SY, KY,
-                        NS, static_cast<cudaStream_t>(stream));
+extern "C" int spcolforward_f64(const void* shards, int n_shards, const void* table, int blocks,
+                                int cluster, const int* y_src, const double* y_lp,
+                                const double* y_flags, const double* trans, const int* lanes,
+                                int SY, int KY, int NS, void* stream) {
+  return launch<double>(shards, n_shards, table, blocks, cluster, y_src, y_lp, y_flags, trans,
+                        lanes, SY, KY, NS, static_cast<cudaStream_t>(stream));
 }
 
-// Strips of kNS lanes that can be resident at once on the current device
-// (the cooperative launch's limit), or -(CUDA error).
-extern "C" int spcolforward_capacity_f32() {
-  return colfill::resident_blocks(spcolforward_kernel<float, kNS>, kNS, 0);
+// Blocks of kernel (g1) (1 lane a thread, 4 compute warps: K1's 128
+// lanes, and the io warp) that can be resident at once in clusters of
+// `cluster`, or -(CUDA error); any other block shape is refused.
+extern "C" int spcolforward_capacity_f32(int lanes, int warps, int cluster) {
+  if (lanes != 1 || warps != kWarps) return -int(cudaErrorInvalidValue);
+  return pairstep::strip_capacity(spcolforward_kernel<float, kNS>, kWarps, 0, cluster);
 }
-extern "C" int spcolforward_capacity_f64() {
-  return colfill::resident_blocks(spcolforward_kernel<double, kNS>, kNS, 0);
+extern "C" int spcolforward_capacity_f64(int lanes, int warps, int cluster) {
+  if (lanes != 1 || warps != kWarps) return -int(cudaErrorInvalidValue);
+  return pairstep::strip_capacity(spcolforward_kernel<double, kNS>, kWarps, 0, cluster);
 }
 
 // Lets `writer` store into `reader`'s memory: 1 when peer access is on

@@ -86,11 +86,12 @@ _SIGNATURES = {
     "dagfill_capacity": [_I],
     # trans18, steps, split, out, stream: the dependency floors' steps
     "dagfill_chain": [_P, _I, _I, _P, _P],
-    # shard table, n_shards, strips, y_src, y_lp, y_flags, trans, lanes, SY, KY,
-    # NS, stream: the sequence-parallel fill's launch on one device
-    "spcolforward": [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P],
-    # strips of the SP fill that can be resident at once
-    "spcolforward_capacity": [],
+    # shard table, n_shards, strip table, blocks, cluster, y_src, y_lp, y_flags,
+    # trans, lanes, SY, KY, NS, stream: the sequence-parallel fill's launch
+    # on one device
+    "spcolforward": [_P, _I, _P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P],
+    # lanes, warps, cluster -> strips of the SP fill resident at once
+    "spcolforward_capacity": [_I] * 3,
     # writer, reader -> 1 with peer access on, 0 without, -(CUDA error)
     "spcolforward_peer": [_I, _I],
     # table, blocks, lanes, warps, cluster, absorb, rsx, rsy, ix, iy, mask,
@@ -104,9 +105,12 @@ _SIGNATURES = {
     "sppairforward": [_P] + [_I] * 4 + [_P] * 8 + [_I] * 2 + [_P],
     # lanes, warps, cluster -> blocks of kernel (g2) resident at once
     "sppairforward_capacity": [_I] * 3,
-    # table, stages, absorb, rsx, rsy, ix, iy, trans, lp_end, pairs, X1, Y1,
-    # groups (out), stream: kernel (g3), the pipeline-parallel pair Forward
-    "pppairforward": [_P, _I] + [_P] * 7 + [_I] * 3 + [_P, _P],
+    # table, blocks, lanes, warps, cluster, stages, items, n_items, slots,
+    # absorb, rsx, rsy, ix, iy, trans, lp_end, X1, Y1, stream: kernel (g3),
+    # the pipeline-parallel pair Forward
+    "pppairforward": [_P] + [_I] * 4 + [_P, _P, _I, _I] + [_P] * 7 + [_I] * 2 + [_P],
+    # lanes, warps, cluster -> blocks of kernel (g3) resident at once
+    "pppairforward_capacity": [_I] * 3,
     # l_emit, r_emit, emit, mask, t144, ends, cells, lp_end, K, sx, sy, width,
     # stream: kernel (d'), K sibling fills in one launch
     "siblingbatch": [_P] * 8 + [_I] * 4 + [_P],

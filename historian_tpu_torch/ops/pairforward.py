@@ -47,10 +47,6 @@ MAX_LANES = {torch.float32: 8192, torch.float64: 4096}
 #: shared memory a K4 block leaves to its transitions and handoff ring
 #: (a static_assert in csrc/pairforward.cu)
 K4_STATIC_SMEM = 8192
-#: the most columns a block of kernel (g3) takes (K3's row step under the
-#: JAX rules, csrc/pairstep.cuh kMaxCols): 32 warps of 8; kernels (f) and
-#: (g2) cut a row into strips over many blocks and take any width
-ROW_MAX_COLS = 8192
 
 
 def emission_tensors(x_onehot, y_onehot, sub_l, sub_r, log_root, log_cpt_weight, log_ins_l,

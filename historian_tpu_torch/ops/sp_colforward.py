@@ -16,11 +16,16 @@ y_src [SY, KY] int32, y_lp [SY, KY], y_flags [SY, 4], absorb and maskg
 - `sp_col_forward_planes` is the wrapper: the plain version for CPU
   tensors; for CUDA tensors the kernel csrc/spcolforward.cu, whose
   shards are runs of whole K1 strips (`shard_bounds`) and whose cells
-  are bit-equal to K1's for any cut.  `devices` lists a device a shard
-  and may repeat one: the shards of one card run in one cooperative
-  launch on it; between cards, each boundary's record buffer lies in
-  the reading card's memory (peer access) or in pinned host memory.
-  `sp_col_forward_shards` takes inputs already cut and placed.
+  are bit-equal to K1's for any cut.  A strip block hands its last
+  lane's record a column to the next strip through distributed shared
+  memory within a thread block cluster of up to 8 strips of a shard,
+  through a record in device memory between clusters
+  (ops/pairstrips.py's layout at K1's 128 lanes).  `devices` lists a
+  device a shard and may repeat one: the strips of one card run in one
+  launch on it, checked to be resident at once; between cards, each
+  boundary's record buffer lies in the reading card's memory (peer
+  access) or in pinned host memory.  `sp_col_forward_shards` takes
+  inputs already cut and placed.
 
 `LAUNCHES` counts kernel launches (one a device a fill), never the plain
 path; `LAST_LAUNCH` describes the last one.
@@ -42,12 +47,17 @@ from historian_tpu_torch.ops.colforward import (
 #: kernel launches made by the wrapper (never by the plain path)
 LAUNCHES = 0
 #: the last kernel fill: shards, their devices, lanes and strips, the
-#: launches it took and the bytes of its exchange buffers
+#: launches it took, the bytes of its shard boundaries' exchange buffers,
+#: their places, and each launch's strip layout (`StripPlan.describe`,
+#: with `deep`: every edge also in device memory)
 LAST_LAUNCH: dict = {}
 #: values a column's exchange record holds (csrc/colforward_step.cuh kRecord)
 RECORD = 8
 #: shards one device's launch takes (csrc/spcolforward.cu kMaxShards)
 MAX_SHARDS_A_DEVICE = 16
+#: in-edges at most this many columns back travel on chip between strips
+#: (csrc/colforward_step.cuh kHalo)
+HALO = 16
 
 
 def _shift1(v):
@@ -180,15 +190,45 @@ def _record_buffer(place: str, reader: torch.device, SY: int, dtype) -> tuple:
             torch.zeros(1, dtype=torch.int32, device=reader), place == "peer")
 
 
+def deep_edges(y_src) -> bool:
+    """Whether some in-edge of y comes from more than the kernel's ring
+    (csrc/colforward_step.cuh kHalo columns) back, so that every strip
+    edge keeps its records in device memory too."""
+    j = torch.arange(y_src.shape[0], device=y_src.device)[:, None]
+    back = torch.where(y_src < j, j - y_src, torch.zeros_like(y_src))
+    return bool(back.numel()) and int(back.max()) > HALO
+
+
+def strip_layout(cuts: list, sms: int, capacity, cluster: int | None = None):
+    """The kernel's blocks for shards of (first lane, lanes) `cuts` in
+    order (one device's): ops/pairstrips.py `strip_plan` at K1's strip,
+    1 lane a thread x STRIP_WIDTH / 32 warps, each shard a chain of whole
+    strips, in clusters of `cluster` (default: up to 8 strips of a shard);
+    `capacity(lanes, warps, cluster)` the blocks resident at once.  Raises
+    ValueError where they cannot all be resident."""
+    from historian_tpu_torch.ops import pairstrips
+
+    return pairstrips.strip_plan("spcolforward", cuts, sms, capacity, lanes=1,
+                                 warps=STRIP_WIDTH // 32, cluster=cluster)
+
+
 def sp_col_forward_shards(y_src, y_lp, y_flags, trans, lanes, shards: list) -> list:
     """The kernel over shards already cut and placed: `shards` lists, in
     lane order, (absorb [SY, W], maskg [SY, W], xvec [4, W]) on the shard's
     CUDA device, every W a multiple of STRIP_WIDTH but the last.  y_src,
     y_lp, y_flags, trans and lanes (int32 [SY, 3] in the grid's lanes, or
-    None: every lane) go to each device.  Returns each shard's planes
+    None: every lane) go to each device.  Each device's strips run in one
+    launch, in clusters of ops/pairstrips.py's rule (up to 8 strips of a
+    shard), every block resident at once.  Returns each shard's planes
     [5, SY, W] on its device."""
+    return _shards(y_src, y_lp, y_flags, trans, lanes, shards, None)
+
+
+def _shards(y_src, y_lp, y_flags, trans, lanes, shards: list, cluster) -> list:
+    """sp_col_forward_shards in clusters of `cluster` strips (None: the
+    rule's), the seam by which the card tests and the benches force it."""
     global LAUNCHES
-    from historian_tpu_torch.ops import _kernels
+    from historian_tpu_torch.ops import _kernels, pairstrips
 
     SY = y_flags.shape[0]
     dtype = shards[0][0].dtype
@@ -213,7 +253,7 @@ def sp_col_forward_shards(y_src, y_lp, y_flags, trans, lanes, shards: list) -> l
         if tuple(t.shape) != shape or (name != "y_src" and t.dtype != dtype):
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected {shape}")
     devs = [s[0].device for s in shards]
-    outs, progress, recs = [], [], []
+    outs = []
     for (absorb, maskg, xvec), dev, (_, W) in zip(shards, devs, cuts):
         for name, t, shape in (("absorb", absorb, (SY, W)), ("maskg", maskg, (SY, W)),
                                ("xvec", xvec, (4, W))):
@@ -221,50 +261,52 @@ def sp_col_forward_shards(y_src, y_lp, y_flags, trans, lanes, shards: list) -> l
                     or not t.is_contiguous():
                 raise ValueError(f"{name} of a shard on {dev}: {tuple(t.shape)} {t.dtype} "
                                  f"on {t.device}, expected {shape} {dtype} contiguous")
-        strips = -(-W // STRIP_WIDTH)
         outs.append(torch.full((5, SY, W), NEG, dtype=dtype, device=dev) if lanes is not None
                     else torch.empty((5, SY, W), dtype=dtype, device=dev))
-        progress.append(torch.zeros(strips, dtype=torch.int32, device=dev))
-        recs.append(torch.empty((strips, SY, 4), dtype=dtype, device=dev))
+    deep = deep_edges(y_src)
     places = [_record_place(devs[d - 1], devs[d]) for d in range(1, len(shards))]
     edges = [_record_buffer(p, devs[d], SY, dtype) for d, p in enumerate(places, 1)]
     rows, order = {}, []
     for d, ((absorb, maskg, xvec), dev, (l0, W)) in enumerate(zip(shards, devs, cuts)):
-        left = edges[d - 1] if d > 0 else None
-        right = edges[d] if d + 1 < len(shards) else None
-        ptr = [absorb.data_ptr(), maskg.data_ptr(), xvec.data_ptr(), outs[d].data_ptr(),
-               progress[d].data_ptr(), recs[d].data_ptr(),
-               left[0].data_ptr() if left else 0, left[1].data_ptr() if left else 0,
-               right[0].data_ptr() if right else 0, right[1].data_ptr() if right else 0,
-               l0, W, progress[d].numel(), int(bool((left and left[2]) or (right and right[2])))]
         if dev not in rows:
             rows[dev] = []
             order.append(dev)
-        rows[dev].append(ptr)
-    tables = []
+        rows[dev].append((d, [absorb.data_ptr(), maskg.data_ptr(), xvec.data_ptr(),
+                              outs[d].data_ptr(), l0, W]))
+    layouts, keep = [], []  # keep: every table and record outlives its launch
     for dev in order:
         if len(rows[dev]) > MAX_SHARDS_A_DEVICE:
             raise ValueError(f"(g1) takes at most {MAX_SHARDS_A_DEVICE} shards a device, "
                              f"not {len(rows[dev])} on {dev}")
-        table = torch.tensor(rows[dev], dtype=torch.int64)  # host rows: a kernel parameter
-        tables.append(table)
-        strips = sum(r[12] for r in rows[dev])
+        ends = {}
+        for j, (d, _) in enumerate(rows[dev]):
+            if d > 0:
+                ends[(j, "left")] = edges[d - 1]
+            if d + 1 < len(shards):
+                ends[(j, "right")] = edges[d]
+        index = torch.device(dev).index
+        index = torch.cuda.current_device() if index is None else index
+        plan = strip_layout([cuts[d] for d, _ in rows[dev]],
+                            torch.cuda.get_device_properties(index).multi_processor_count,
+                            lambda m, w, c: pairstrips.card_capacity("spcolforward", suffix,
+                                                                     index, m, w, c), cluster)
+        table, records = pairstrips.strip_table(plan, SY, dtype, dev, ends,
+                                                cluster_records=deep)
+        shard_rows = torch.tensor([r for _, r in rows[dev]], dtype=torch.int64)  # a parameter
+        table = torch.from_numpy(table).to(dev)
+        keep.append((table, records))
+        layouts.append(dict(plan.describe(), deep=deep))
         with torch.cuda.device(dev):
-            cap = getattr(lib, f"spcolforward_capacity_{suffix}")()
-            if cap < 0:
-                raise RuntimeError(f"spcolforward: the capacity query failed: CUDA error {-cap}")
-            if strips > cap:
-                raise RuntimeError(f"spcolforward: {strips} strips on {dev}, "
-                                   f"{cap} can be resident at once")
             lanes_d = None if lanes is None else lanes.to(dev)
             if lanes_d is not None:
                 _check_lanes(lanes_d, SY, dev)
             args = [t.to(dev).contiguous() for t in (y_src, y_lp, y_flags, trans)]
-            stream = torch.cuda.current_stream(dev).cuda_stream
+            keep.append((args, lanes_d))
             code = getattr(lib, f"spcolforward_{suffix}")(
-                table.data_ptr(), len(rows[dev]), strips, args[0].data_ptr(),
-                args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
-                0 if lanes_d is None else lanes_d.data_ptr(), SY, KY, STRIP_WIDTH, stream)
+                shard_rows.data_ptr(), len(rows[dev]), table.data_ptr(), plan.blocks,
+                plan.cluster, *(t.data_ptr() for t in args),
+                0 if lanes_d is None else lanes_d.data_ptr(), SY, KY, STRIP_WIDTH,
+                torch.cuda.current_stream(dev).cuda_stream)
         _kernels.check(code, "spcolforward")
         LAUNCHES += 1
     if len(order) > 1:
@@ -275,9 +317,9 @@ def sp_col_forward_shards(y_src, y_lp, y_flags, trans, lanes, shards: list) -> l
     LAST_LAUNCH.clear()
     LAST_LAUNCH.update(
         shards=len(shards), devices=[str(d) for d in devs], cuts=cuts,
-        strips=[p.numel() for p in progress], launches=len(order), lanes=lanes,
+        strips=[-(-W // STRIP_WIDTH) for _, W in cuts], launches=len(order), lanes=lanes,
         exchange_bytes=sum(e[0].numel() * e[0].element_size() + 4 for e in edges),
-        places=places, system_scope=[bool(e[2]) for e in edges])
+        places=places, system_scope=[bool(e[2]) for e in edges], layouts=layouts)
     return outs
 
 
@@ -289,6 +331,12 @@ def sp_col_forward_planes(y_src, y_lp, y_flags, absorb, maskg, xvec, trans, lane
     by `shard_bounds`, each shard's inputs copied to its device; the
     planes [5, SY, SX] come back on absorb's device.  lanes: as K1's
     (int32 [SY, 3], or None), ignored by the plain version."""
+    return _planes(y_src, y_lp, y_flags, absorb, maskg, xvec, trans, lanes, devices, None)
+
+
+def _planes(y_src, y_lp, y_flags, absorb, maskg, xvec, trans, lanes, devices, cluster):
+    """sp_col_forward_planes with the kernel's strips in clusters of
+    `cluster` (None: the rule's; the card tests and the benches force it)."""
     _check_inputs(y_src, y_lp, y_flags, absorb, maskg, xvec, trans)
     dev = absorb.device
     devices = [dev] if devices is None else [torch.device(d) for d in devices]
@@ -305,5 +353,5 @@ def sp_col_forward_planes(y_src, y_lp, y_flags, absorb, maskg, xvec, trans, lane
     bounds = shard_bounds(absorb.shape[1], len(devices))
     shards = [tuple(t[..., a:b].contiguous().to(d) for t in (absorb, maskg, xvec))
               for (a, b), d in zip(bounds, devices)]
-    outs = sp_col_forward_shards(y_src, y_lp, y_flags, trans, lanes, shards)
+    outs = _shards(y_src, y_lp, y_flags, trans, lanes, shards, cluster)
     return torch.cat([o.to(dev) for o in outs], dim=2)

@@ -22,13 +22,14 @@ shard that holds column Y.
   step under the JAX rules, each row's five boundary values passed from
   strip to strip in order in place of the ring scan (the same function
   up to round-off).  The mesh may repeat a device: the blocks of one card
-  are one launch, checked to be resident at once; between cards each
+  are one launch, checked to be resident at once (a batch too large for
+  that in waves of pairs, a launch each); between cards each
   shard boundary's records lie where kernel (g1)'s do
   (`sp_colforward._record_place`, `_record_buffer`).  A mesh that mixes
   device types, holds another process's device or another device type
   raises.
 
-`LAUNCHES` counts kernel launches (one a device a call), never the plain
+`LAUNCHES` counts kernel launches (one a device a wave), never the plain
 version's calls; `LAST_LAUNCH` describes the last call.
 """
 
@@ -41,11 +42,11 @@ from historian_tpu_torch.ops.pairforward import _lse, affine_scan
 from historian_tpu_torch.ops.sp_colforward import _record_buffer, _record_place, _shift1
 
 NEG = -1e30
-#: kernel launches (one a device a call; never the plain version's)
+#: kernel launches (one a device a wave; never the plain version's)
 LAUNCHES = 0
 #: the last kernel call: pairs, shards a pair and their columns, devices,
-#: launches, blocks, the shard boundaries' places, record bytes and each
-#: device's strip layout (`StripPlan.describe`)
+#: launches, the pairs of each wave, blocks, the shard boundaries' places,
+#: record bytes and each launch's strip layout (`StripPlan.describe`)
 LAST_LAUNCH: dict = {}
 
 
@@ -180,7 +181,10 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list, force: dict)
     """Kernel (g2) on B pairs [B, X1, Y1] (mask [X1, Y1] shared), pair b's
     shards on the CUDA devices placement[b] (n each), each device's shards
     cut into strips (ops/pairstrips.py `strip_plan`; `force` its lanes,
-    warps, cluster): lp_end [B] on absorb's device."""
+    warps, cluster): lp_end [B] on absorb's device.  The pairs go in waves
+    (`pairstrips.strip_waves`), one launch a device each, every wave's
+    blocks resident at once on every card; the waves are the same on every
+    card, so that a wave waits only on itself and the waves before it."""
     global LAUNCHES
     from historian_tpu_torch.ops import _kernels, pairstrips
 
@@ -190,7 +194,7 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list, force: dict)
     shards = -(-Y1 // y_loc)  # those holding a real column; the rest hold padding only
     dtype = absorb.dtype
     suffix = "f32" if dtype == torch.float32 else "f64"
-    inputs, outs, chains, ends, order = {}, {}, {}, {}, []
+    inputs, outs, chains, order = {}, {}, {}, []
     places, edges = [], []
     for b, devs in enumerate(placement):
         for d in range(shards):
@@ -199,7 +203,7 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list, force: dict)
                 inputs[dev] = [t.to(dev).contiguous() for t in (absorb, rsx, rsy, ix, iy)] + [
                     mask.to(dev).contiguous().view(torch.uint8), trans.to(dev).contiguous()]
                 outs[dev] = torch.full((B,), NEG, dtype=dtype, device=dev)
-                chains[dev], ends[dev] = [], {}
+                chains[dev] = [[] for _ in range(B)]
                 order.append(dev)
         bounds = []
         for d in range(1, shards):
@@ -208,31 +212,52 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list, force: dict)
             places.append(place)
         edges += bounds
         for d in range(shards):
-            j = len(chains[devs[d]])
-            chains[devs[d]].append((b, d * y_loc, min(y_loc, Y1 - d * y_loc)))
-            if d > 0:
-                ends[devs[d]][(j, "left")] = bounds[d - 1]
-            if d + 1 < shards:
-                ends[devs[d]][(j, "right")] = bounds[d]
-    lib = _kernels.lib()
-    layouts, keep = [], []  # keep: every device's table and records outlive its launch
+            chains[devs[d]][b].append((d * y_loc, min(y_loc, Y1 - d * y_loc),
+                                       bounds[d - 1] if d > 0 else None,
+                                       bounds[d] if d + 1 < shards else None))
+    # the waves: every card's cuts, so each wave is resident on every card
+    cuts = {B}
     for dev in order:
-        plan = pairstrips.card_plan("sppairforward", dtype, dev,
-                                    [(c0, nc) for _, c0, nc in chains[dev]], **force)
-        table, records = pairstrips.strip_table(plan, X1, dtype, dev, ends[dev])
-        # a strip's chain in the table is its pair
-        live = plan.chain >= 0
-        table[live, 0] = np.asarray([b for b, _, _ in chains[dev]])[plan.chain[live]]
-        table = torch.from_numpy(table).to(dev)
-        keep.append((table, records))
-        layouts.append(plan.describe())
-        with torch.cuda.device(dev):
-            code = getattr(lib, f"sppairforward_{suffix}")(
-                table.data_ptr(), plan.blocks, plan.lanes, plan.warps, plan.cluster,
-                *(t.data_ptr() for t in inputs[dev]), outs[dev].data_ptr(), X1, Y1,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _kernels.check(code, "sppairforward")
-        LAUNCHES += 1
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        index = torch.device(dev).index
+        cap = (lambda m, w, c, index=index: pairstrips.card_capacity(
+            "sppairforward", suffix, index, m, w, c))
+        held = [b for b in range(B) if chains[dev][b]]
+        groups = [[(c0, nc) for c0, nc, _, _ in chains[dev][b]] for b in held]
+        cuts.update(held[e - 1] + 1 for _, e in pairstrips.strip_waves(
+            "sppairforward", groups, sms, cap, **force))
+    cuts = sorted(cuts)
+    lib = _kernels.lib()
+    layouts, keep, waves = [], [], []  # keep: every table and record outlives its launch
+    for w0, w1 in zip([0] + cuts[:-1], cuts):
+        waves.append(w1 - w0)
+        for dev in order:
+            runs, ends = [], {}
+            for b in range(w0, w1):
+                for c0, nc, left, right in chains[dev][b]:
+                    if left is not None:
+                        ends[(len(runs), "left")] = left
+                    if right is not None:
+                        ends[(len(runs), "right")] = right
+                    runs.append((b, c0, nc))
+            if not runs:
+                continue
+            plan = pairstrips.card_plan("sppairforward", dtype, dev,
+                                        [(c0, nc) for _, c0, nc in runs], **force)
+            table, records = pairstrips.strip_table(plan, X1, dtype, dev, ends)
+            # a strip's chain in the table is its pair
+            live = plan.chain >= 0
+            table[live, 0] = np.asarray([b for b, _, _ in runs])[plan.chain[live]]
+            table = torch.from_numpy(table).to(dev)
+            keep.append((table, records))
+            layouts.append(plan.describe())
+            with torch.cuda.device(dev):
+                code = getattr(lib, f"sppairforward_{suffix}")(
+                    table.data_ptr(), plan.blocks, plan.lanes, plan.warps, plan.cluster,
+                    *(t.data_ptr() for t in inputs[dev]), outs[dev].data_ptr(), X1, Y1,
+                    torch.cuda.current_stream(dev).cuda_stream)
+            _kernels.check(code, "sppairforward")
+            LAUNCHES += 1
     if len(order) > 1 or any(p != "device" for p in places):
         # the boundaries' buffers lie outside any one stream's order: finish
         # every card before they can be freed
@@ -242,7 +267,7 @@ def _kernel(absorb, rsx, rsy, ix, iy, mask, trans, placement: list, force: dict)
                       for b, devs in enumerate(placement)])
     LAST_LAUNCH.clear()
     LAST_LAUNCH.update(pairs=B, shards=n, cols=[min(y_loc, Y1 - d * y_loc) for d in range(shards)],
-                       devices=[str(d) for d in order], launches=len(order),
+                       devices=[str(d) for d in order], launches=len(layouts), waves=waves,
                        blocks=[lay["blocks"] for lay in layouts], places=places,
                        record_bytes=sum(e[0].numel() * e[0].element_size() for e in edges),
                        layouts=layouts)
@@ -273,7 +298,8 @@ def sp_pair_forward_batch(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
     B / dp contiguous parts over `dp_axis`, each pair's columns over the
     `sp_axis` devices of its part, as the JAX `shard_map` lays them out.
     CPU devices: the plain version a pair at a time; CUDA devices: kernel
-    (g2), every pair in one launch a device."""
+    (g2), the pairs in waves that can each be resident at once, one launch
+    a device a wave."""
     _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, trans, True)
     if dp_axis not in mesh.axis_names or sp_axis not in mesh.axis_names:
         raise ValueError(f"the mesh's axes are {mesh.axis_names}, not {dp_axis!r} and "

@@ -11,16 +11,22 @@ lp_end [PAIRS].  No mask.
 - `pp_pair_forward_lp_plain` is the plain PyTorch version: the stages and
   the pairs in the JAX schedule's order (pipeline step s runs pair s - k
   on stage k), each stage's rows as ops/pairforward.py `pair_forward`
-  computes them, the boundary row passed between stages.
+  computes them, the boundary row passed between stages; given `strips`,
+  the row's columns are cut into strips whose scans' carries compose as
+  the kernel hands them on (sp_pairforward's `_global_affine`).
 - `pp_pair_forward_lp` is the entry: on a mesh of CPU devices the plain
   version; on a mesh of CUDA devices the hand-written kernel
-  csrc/pppairforward.cu, the stages as groups of blocks (K3's block and
-  row step under the JAX rules) of one cooperative launch a card, a ready flag for each (stage, pair) so that
-  stage k starts pair p only once stage k - 1 has finished it.  Between
-  cards a boundary's rows and flags lie in the reading card's memory or in
-  pinned host memory, as kernel (g1)'s records do.  A mesh that mixes
-  device types, holds another process's device or another device type
-  raises.
+  csrc/pppairforward.cu.  A card's work items, a (stage, pair) each, go
+  round-robin in stage order to slots, each slot a chain of strips of the
+  row's columns over many SMs (K3's row step under the JAX rules, the
+  row's values handed strip to strip through distributed shared memory;
+  ops/pairstrips.py `slot_plan`), all resident at once, one launch a
+  card.  Strip s of stage k publishes its slice of a pair's last row and
+  a flag for (k, p, s), on which strip s of stage k + 1 alone waits.
+  Between cards a boundary's rows and flags lie in the reading card's
+  memory or in pinned host memory, as kernel (g1)'s records do.  Any
+  width runs.  A mesh that mixes device types, holds another process's
+  device or another device type raises.
 
 `LAUNCHES` counts kernel launches (one a device a call), never the plain
 version's calls; `LAST_LAUNCH` describes the last call.
@@ -28,17 +34,24 @@ version's calls; `LAST_LAUNCH` describes the last call.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from historian_tpu_torch.ops.pairforward import ROW_MAX_COLS, _lse, _shift, affine_scan
+from historian_tpu_torch.ops.pairforward import _lse, _shift, affine_scan
 from historian_tpu_torch.ops.sp_colforward import _record_place
-from historian_tpu_torch.ops.sp_pairforward import _axis_devices, _on_cpu, _torch_devices
+from historian_tpu_torch.ops.sp_pairforward import (
+    _axis_devices,
+    _global_affine,
+    _on_cpu,
+    _torch_devices,
+)
 
 NEG = -1e30
 #: kernel launches (one a device a call; never the plain version's)
 LAUNCHES = 0
-#: the last kernel call: stages, rows a stage, blocks a stage, devices,
-#: launches, the boundaries' places and bytes
+#: the last kernel call: stages, rows a stage, devices, launches, each
+#: card's items and slots and strip layout (`StripPlan.describe`), the
+#: boundaries' places and bytes
 LAST_LAUNCH: dict = {}
 
 
@@ -48,11 +61,13 @@ def _stage_rows(X1: int, n: int, k: int) -> tuple:
     return k * xb, min((k + 1) * xb, X1)
 
 
-def pp_pair_forward_lp_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, n_stages: int):
+def pp_pair_forward_lp_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, n_stages: int,
+                             strips: int = 1):
     """The JAX `_pp_kernel`'s schedule over `n_stages` stages, on the
-    inputs' device and dtype: lp_end [PAIRS]."""
-    if n_stages < 1:
-        raise ValueError(f"n_stages must be positive, got {n_stages}")
+    inputs' device and dtype: lp_end [PAIRS].  `strips` cuts the row into
+    that many strips of equal width (the last shorter) for the two scans."""
+    if n_stages < 1 or strips < 1:
+        raise ValueError(f"n_stages and strips must be positive, got {n_stages}, {strips}")
     (imm_imm, imm_imd, imm_idm, imm_imi, imm_iiw, imm_eee,
      imd_imm, imd_imd, imd_idm, imd_eee,
      idm_imm, idm_imd, idm_idm, idm_eee,
@@ -60,6 +75,13 @@ def pp_pair_forward_lp_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, 
      iiw_imm, iiw_idm, iiw_iiw, iiw_eee) = trans.tolist()
     PAIRS, X1, Y1 = absorb.shape
     n = n_stages
+    width = -(-Y1 // strips)
+
+    def scan(a, b):
+        if strips == 1:
+            return affine_scan(a, b)
+        return _global_affine(a[None], b.expand_as(a)[None], width)[0]
+
     col = torch.arange(Y1, device=absorb.device)
     y_ready = (col < Y1 - 1) | (Y1 == 1)
     neg_row = absorb.new_full((Y1,), NEG)
@@ -90,8 +112,8 @@ def pp_pair_forward_lp_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, 
                     imd = iiw = neg_row
                 if x_ready:
                     a = _shift(_lse(imm + imm_idm, imd + imd_idm, iiw + iiw_idm), 1, NEG) + rsy
-                    idm = affine_scan(a, idm_idm + rsy)
-                    imi = affine_scan(_shift(imm + imm_imi, 1, NEG) + iy, imi_imi + iy)
+                    idm = scan(a, idm_idm + rsy)
+                    imi = scan(_shift(imm + imm_imi, 1, NEG) + iy, imi_imi + iy)
                 else:
                     idm = imi = neg_row
             if k == n - 1:
@@ -116,64 +138,103 @@ def _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans) -> None:
         if tuple(t.shape) != shape or t.dtype != dt or t.device != absorb.device:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, expected "
                              f"{shape} {dt} on {absorb.device}")
-    if Y1 > ROW_MAX_COLS:
-        raise ValueError(f"(g3) takes at most {ROW_MAX_COLS} columns (Y + 1), got {Y1}")
 
 
-def _boundary(place: str, reader: torch.device, PAIRS: int, Y1: int, dtype) -> tuple:
-    """A stage boundary's rows [PAIRS, 5, Y1] and ready flags [PAIRS] at
-    `place` (sp_colforward._record_place's): (rows, flags, system scope)."""
+def _boundary(place: str, reader: torch.device, PAIRS: int, Y1: int, strips: int, dtype) -> tuple:
+    """A stage boundary's rows [PAIRS, 5, Y1] and ready counts [PAIRS,
+    strips] (a strip's row warps that have written their lanes) at `place`
+    (sp_colforward._record_place's): (rows, counts, system scope)."""
     if place == "host":
         return (torch.empty((PAIRS, 5, Y1), dtype=dtype).pin_memory(),
-                torch.zeros(PAIRS, dtype=torch.int32).pin_memory(), True)
+                torch.zeros((PAIRS, strips), dtype=torch.int32).pin_memory(), True)
     return (torch.empty((PAIRS, 5, Y1), dtype=dtype, device=reader),
-            torch.zeros(PAIRS, dtype=torch.int32, device=reader), place == "peer")
+            torch.zeros((PAIRS, strips), dtype=torch.int32, device=reader), place == "peer")
 
 
-def _kernel(absorb, rsx, rsy, ix, iy, trans, devices: list):
+def _items(stages: list, PAIRS: int) -> np.ndarray:
+    """A card's work items [stages * PAIRS, 2] (its stage's index among the
+    card's stages, pair), stage by stage: an item's own dependency, the
+    same pair on the stage before, comes earlier."""
+    return np.array([(k, p) for k in range(len(stages)) for p in range(PAIRS)],
+                    dtype=np.int32).reshape(-1, 2)
+
+
+def _kernel(absorb, rsx, rsy, ix, iy, trans, devices: list, force: dict):
+    """Kernel (g3) with the stages on `devices`; `force` (lanes, warps,
+    cluster, slots: the card tests and the benches) sets its layout in
+    place of `slot_plan`'s rule."""
     global LAUNCHES
-    from historian_tpu_torch.ops import _kernels
+    from historian_tpu_torch.ops import _kernels, pairstrips
 
     PAIRS, X1, Y1 = absorb.shape
     n = len(devices)
     dtype = absorb.dtype
     suffix = "f32" if dtype == torch.float32 else "f64"
-    places = [_record_place(devices[k - 1], devices[k]) for k in range(1, n)]
-    bounds = [_boundary(p, devices[k], PAIRS, Y1, dtype) for k, p in enumerate(places, 1)]
-    inputs, rows, order = {}, {}, []
+    order, stages = [], {}
     for k, dev in enumerate(devices):
-        if dev not in inputs:
-            inputs[dev] = [t.to(dev).contiguous() for t in (absorb, rsx, rsy, ix, iy, trans)]
-            rows[dev] = []
+        if dev not in stages:
+            stages[dev] = []
             order.append(dev)
-        left = bounds[k - 1] if k > 0 else None
-        right = bounds[k] if k + 1 < n else None
-        rows[dev].append([*_stage_rows(X1, n, k),
-                          left[0].data_ptr() if left else 0, left[1].data_ptr() if left else 0,
-                          right[0].data_ptr() if right else 0, right[1].data_ptr() if right else 0,
-                          int(bool((left and left[2]) or (right and right[2]))), 0])
+        stages[dev].append(k)
+    # one block shape on every card, so that a boundary's strips are the
+    # same on both sides; each card as many slots as it holds
+    first = order[0]
+    sms = torch.cuda.get_device_properties(first).multi_processor_count
+
+    def capacity(dev):
+        index = torch.device(dev).index
+        return lambda m, w, c: pairstrips.card_capacity("pppairforward", suffix, index, m, w, c)
+
+    shape = pairstrips.slot_plan(len(stages[first]) * PAIRS, PAIRS, Y1, sms, capacity(first),
+                                 **force)
+    nstrips = -(-Y1 // shape.width)
+    places = [_record_place(devices[k - 1], devices[k]) for k in range(1, n)]
+    bounds = [_boundary(p, devices[k], PAIRS, Y1, nstrips, dtype)
+              for k, p in enumerate(places, 1)]
     last = devices[-1]
     lp = torch.full((PAIRS,), NEG, dtype=dtype, device=last)
     lib = _kernels.lib()
-    groups = {}
+    layouts, keep = {}, []
     for dev in order:
-        table = torch.tensor(rows[dev], dtype=torch.int64).to(dev)
+        rows = []
+        for k in stages[dev]:
+            left = bounds[k - 1] if k > 0 else None
+            right = bounds[k] if k + 1 < n else None
+            rows.append([*_stage_rows(X1, n, k),
+                         left[0].data_ptr() if left else 0, left[1].data_ptr() if left else 0,
+                         right[0].data_ptr() if right else 0,
+                         right[1].data_ptr() if right else 0,
+                         int(bool((left and left[2]) or (right and right[2]))), 0])
+        items = _items(stages[dev], PAIRS)
+        plan = pairstrips.slot_plan(
+            len(items), PAIRS, Y1, torch.cuda.get_device_properties(dev).multi_processor_count,
+            capacity(dev), lanes=shape.lanes, warps=shape.warps, cluster=shape.cluster,
+            slots=force.get("slots"))
+        slots = plan.strips // nstrips
+        item_rows = [max(0, rows[k][1] - rows[k][0]) for k, _ in items]
+        # the records between a slot's clusters hold every row of its items
+        table, records = pairstrips.strip_table(
+            plan, max(sum(item_rows[s::slots]) for s in range(slots)), dtype, dev)
+        args = [torch.from_numpy(table).to(dev), torch.tensor(rows, dtype=torch.int64).to(dev),
+                torch.from_numpy(items).to(dev)]
+        inputs = [t.to(dev).contiguous() for t in (absorb, rsx, rsy, ix, iy, trans)]
         out = lp if dev == last else torch.empty(PAIRS, dtype=dtype, device=dev)
-        g = torch.zeros(1, dtype=torch.int32)
+        keep.append((args, records, inputs, out))
         with torch.cuda.device(dev):
             code = getattr(lib, f"pppairforward_{suffix}")(
-                table.data_ptr(), len(rows[dev]), *(t.data_ptr() for t in inputs[dev]),
-                out.data_ptr(), PAIRS, X1, Y1, g.data_ptr(),
+                args[0].data_ptr(), plan.blocks, plan.lanes, plan.warps, plan.cluster,
+                args[1].data_ptr(), args[2].data_ptr(), len(items), slots,
+                *(t.data_ptr() for t in inputs), out.data_ptr(), X1, Y1,
                 torch.cuda.current_stream(dev).cuda_stream)
         _kernels.check(code, "pppairforward")
-        groups[str(dev)] = int(g[0])
         LAUNCHES += 1
+        layouts[str(dev)] = dict(plan.describe(), items=len(items), slots=slots)
     if len(order) > 1 or any(p != "device" for p in places):
         for dev in order:
             torch.cuda.synchronize(dev)
     LAST_LAUNCH.clear()
     LAST_LAUNCH.update(stages=n, rows=[_stage_rows(X1, n, k) for k in range(n)],
-                       groups=groups, devices=[str(d) for d in order], launches=len(order),
+                       devices=[str(d) for d in order], launches=len(order), layouts=layouts,
                        places=places,
                        boundary_bytes=sum(b[0].numel() * b[0].element_size() for b in bounds))
     return lp.to(absorb.device)
@@ -185,10 +246,10 @@ def pp_pair_forward_lp(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, mesh,
     Y+1], rootsub_x / ins_x [PAIRS, X+1], rootsub_y / ins_y [PAIRS, Y+1],
     trans [23]) with the rows in stages over the devices of `mesh`'s
     `axis`.  A mesh of CPU devices: the plain version; of CUDA devices:
-    kernel (g3)."""
+    kernel (g3), laid out by ops/pairstrips.py `slot_plan`."""
     _check(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans)
     devices = _torch_devices(_axis_devices(mesh, axis)[:, 0])
     if _on_cpu(devices + [absorb.device], "(g3)"):
         return pp_pair_forward_lp_plain(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans,
                                         len(devices))
-    return _kernel(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, devices)
+    return _kernel(absorb, rootsub_x, rootsub_y, ins_x, ins_y, trans, devices, {})

@@ -1356,6 +1356,50 @@ def test_sp_kernel_matches_plain(cuda, dtype, rtol, atol):
     np.testing.assert_allclose(g[live], r[live], rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+def test_sp_kernel_cluster_sizes_bit_equal_to_k1(cuda, cluster, n, dtype):
+    """Kernel (g1) with its strips in clusters of 1 (every edge a record in
+    device memory), 2 and 8 (edges through distributed shared memory) over
+    1 and 3 shards of 1500 lanes (12 strips), banded: cells bit-equal to
+    K1's, run 3 times."""
+    args, _ = _k1_args(1500, 4, dtype, cuda)
+    lanes = colforward.lanes_from_mask(args[4] == 0)
+    ref = colforward.col_forward_planes(*args, lanes=lanes)
+    for _ in range(3):
+        got = sp_colforward._planes(*args, lanes, [cuda] * n, cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    lay = sp_colforward.LAST_LAUNCH["layouts"][0]
+    assert lay["cluster"] == cluster and lay["warps"] == 4 and not lay["deep"]
+    assert (lay["cluster_edges"] > 0) == (cluster > 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,banded", [(1, False), (2, True), (4, False)])
+def test_sp_kernel_dag_past_the_ring_bit_equal_to_k1(cuda, n, banded, dtype):
+    """A DAG y whose in-edges reach 20 to 60 columns back, past the strip
+    edges' on-chip ring (sp_colforward.HALO): every edge keeps its records
+    in device memory too and the old in-edges' halo reads them; cells
+    bit-equal to K1's at 1, 2 and 4 shards, run 3 times."""
+    args, _ = _k1_args(900, 4, dtype, cuda, seed=5)
+    rng = np.random.default_rng(9)
+    j = np.arange(900)
+    y_src = args[0].cpu().numpy()
+    y_src[:, 1] = np.clip(j - 20 - rng.integers(0, 41, 900), 0, None)
+    y_src[:20, 1] = 900  # no second in-edge there
+    args = (torch.as_tensor(y_src, device=cuda),) + args[1:]
+    assert sp_colforward.deep_edges(args[0])
+    lanes = colforward.lanes_from_mask(args[4] == 0) if banded else None
+    ref = colforward.col_forward_planes(*args, lanes=lanes)
+    for _ in range(3):
+        got = sp_colforward.sp_col_forward_planes(*args, lanes, [cuda] * n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    assert all(lay["deep"] for lay in sp_colforward.LAST_LAUNCH["layouts"])
+
+
 def test_sp_kernel_rejects_ragged_shards(cuda):
     """A shard that is not whole strips, but the last, is refused."""
     args, _ = _k1_args(300, 1, torch.float64, cuda)
@@ -1695,6 +1739,31 @@ def test_sp_pair_batch_kernel_matches_k3(cuda):
     _lp_close(got, ref, 1e-9)
 
 
+def test_sp_pair_batch_past_capacity_in_waves(cuda):
+    """sp_pair_forward_batch with more pairs than one launch can hold (the
+    card's capacity at the widest strip, plus 9; 30 x 300 each, one shard):
+    the batch runs in waves, each resident at once, against K3 and the
+    plain version: 1e-9."""
+    from historian_tpu_torch.ops import pairstrips, sp_pairforward
+
+    cap = pairstrips.card_capacity("sppairforward", "f64", torch.cuda.current_device(), 4, 8, 1)
+    B = cap + 9
+    base = [_long6_pair(29, 299, torch.float64, cuda, offset=7 * k, pair=(k % 6, (k + 1) % 6))
+            for k in range(6)]
+    pairs = [base[k % 6] for k in range(B)]
+    batch = [torch.stack([p[i] for p in pairs]) for i in range(5)]
+    ref = pairforward.pair_forward_lp(*batch, pairs[0][6])
+    got = sp_pairforward.sp_pair_forward_batch(
+        *batch, pairs[0][5], pairs[0][6], mesh=_card_mesh(cuda, 1, ("dp", "sp"), (1, 1)))
+    waves = sp_pairforward.LAST_LAUNCH["waves"]
+    assert len(waves) >= 2 and sum(waves) == B
+    assert sp_pairforward.LAST_LAUNCH["launches"] == len(waves)
+    _lp_close(got, ref, 1e-9)
+    plain = torch.stack([sp_pairforward.sp_pair_forward_plain(*base[k][:5], base[0][5],
+                                                              base[0][6], 1) for k in range(6)])
+    _lp_close(got[:6], plain, 1e-9)
+
+
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-9)])
 def test_pp_pair_kernel_matches_k3(cuda, n, dtype, rtol):
@@ -1716,6 +1785,57 @@ def test_pp_pair_kernel_matches_k3(cuda, n, dtype, rtol):
         assert all(torch.equal(r, runs[0]) for r in runs)
         assert pp_pairforward.LAST_LAUNCH["launches"] == 1
         _lp_close(runs[0], ref, rtol)
+
+
+#: (g3) layouts (lanes, warps, cluster, slots) held against the plain
+#: version: one slot for every item (the items in turn), records at every
+#: edge, the rule's cluster, wide strips, blocks of 13 and 15 row warps
+PP_LAYOUTS = [(1, 1, 1, 1), (1, 2, 8, None), (1, 2, 4, 2), (2, 4, 8, 3), (4, 8, 8, None),
+              (1, 4, 16, None), (1, 13, 2, None), (1, 15, 1, 2)]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-9)])
+def test_pp_pair_strip_layouts_match_plain_and_k3(cuda, n, dtype, rtol):
+    """Kernel (g3) on strips at every layout of PP_LAYOUTS, n stages of the
+    card, 5 pairs of 70 x 700: against its plain version and K3, each
+    layout's two runs equal; the layout is the one forced."""
+    from historian_tpu_torch.parallel import pp_pairforward
+
+    pairs = [_long6_pair(70, 700, dtype, cuda, offset=30 * k, pair=(k, (k + 2) % 6))
+             for k in range(5)]
+    batch = [torch.stack([p[i] for p in pairs]) for i in range(5)]
+    ref = pairforward.pair_forward_lp(*batch, pairs[0][6])
+    plain = pp_pairforward.pp_pair_forward_lp_plain(*batch, pairs[0][6], n)
+    for lanes, warps, cluster, slots in PP_LAYOUTS:
+        force = {k: v for k, v in dict(lanes=lanes, warps=warps, cluster=cluster,
+                                       slots=slots).items() if v is not None}
+        runs = [pp_pairforward._kernel(*batch, pairs[0][6], [cuda] * n, force)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        lay = next(iter(pp_pairforward.LAST_LAUNCH["layouts"].values()))
+        assert (lay["lanes"], lay["warps"], lay["cluster"]) == (lanes, warps, cluster)
+        assert slots is None or lay["slots"] == slots
+        assert torch.equal(runs[0], runs[1])
+        _lp_close(runs[0], plain, rtol)
+        _lp_close(runs[0], ref, rtol)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_pp_pair_kernel_past_8192_columns(cuda, n):
+    """Kernel (g3) at Y + 1 = 8300 (past the one-block design's 8192), two
+    pairs of 40 rows from long8x12k, float64, against its plain version:
+    1e-9."""
+    from historian_tpu_torch.parallel import pp_pairforward
+
+    pairs = [_long6_pair(39, 8299, torch.float64, cuda, offset=o, pair=(a, b),
+                         data="long8x12k.fa") for o, a, b in ((0, 0, 1), (50, 2, 3))]
+    batch = [torch.stack([p[i] for p in pairs]) for i in range(5)]
+    assert batch[0].shape == (2, 40, 8300)
+    got = pp_pairforward.pp_pair_forward_lp(*batch, pairs[0][6],
+                                            mesh=_card_mesh(cuda, n, ("pp",)))
+    plain = pp_pairforward.pp_pair_forward_lp_plain(*batch, pairs[0][6], n)
+    _lp_close(got, plain, 1e-9)
 
 
 def test_pp_pair_kernel_host_boundaries(cuda, monkeypatch):

@@ -242,6 +242,56 @@ def test_shard_bounds_are_whole_strips():
     assert sp_colforward.shard_bounds(300, 3) == [(0, 128), (128, 256), (256, 300)]
 
 
+def test_sp_strip_layout_of_shards():
+    """Kernel (g1)'s blocks (a fake capacity): each shard a chain of whole
+    128-lane strips (its last shorter only in the last shard), in clusters
+    of up to 8 strips; its table's shard boundaries are the exchange
+    records given, its edges between clusters records of their own, and
+    with `cluster_records` (a y DAG past the ring) every edge has one."""
+    from historian_tpu_torch.ops import pairstrips as ps
+
+    cuts = [(a, b - a) for a, b in sp_colforward.shard_bounds(6085, 3)]
+    plan = sp_colforward.strip_layout(cuts, 132, lambda m, w, c: 1024)
+    assert (plan.lanes, plan.warps, plan.cluster, plan.width) == (1, 4, 8, 128)
+    assert plan.strips == 48 and plan.blocks % 8 == 0
+    for j, (a, n) in enumerate(cuts):
+        k = np.flatnonzero(plan.chain == j)
+        assert plan.c0[k[0]] == a and plan.nc[k].sum() == n
+        assert np.all(plan.nc[k[:-1]] == 128)
+    ends = {}
+    bufs = [sp_colforward._record_buffer("device", torch.device("cpu"), 20, torch.float64)
+            for _ in range(2)]
+    for d in range(3):
+        if d > 0:
+            ends[(d, "left")] = bufs[d - 1]
+        if d < 2:
+            ends[(d, "right")] = bufs[d]
+    for deep in (False, True):
+        table, records = ps.strip_table(plan, 20, torch.float64, torch.device("cpu"), ends,
+                                        cluster_records=deep)
+        live = plan.chain >= 0
+        edges = int(np.count_nonzero(plan.right[live] != ps.NONE))
+        assert len(records) == (edges if deep else int(np.count_nonzero(plan.right == ps.RECORD)))
+        for d in (1, 2):
+            first = np.flatnonzero(plan.chain == d)[0]
+            assert table[first, 3] == ps.RECORD and table[first, 5] == bufs[d - 1][0].data_ptr()
+            assert table[first - 1, 4] == ps.RECORD and table[first - 1, 7] == table[first, 5]
+        inner = np.flatnonzero(live & (plan.left == ps.CLUSTER_EDGE))
+        assert np.all((table[inner, 5] != 0) == deep)
+    with pytest.raises(ValueError):
+        sp_colforward.strip_layout(cuts, 132, lambda m, w, c: 40)
+
+
+def test_sp_deep_edges():
+    """An in-edge more than HALO columns back makes the y DAG deep."""
+    chain = torch.clamp(torch.arange(50, dtype=torch.int32) - 1, min=0)[:, None]
+    assert not sp_colforward.deep_edges(chain)
+    far = torch.cat([chain, torch.clamp(chain - sp_colforward.HALO, min=0)], dim=1)
+    assert sp_colforward.deep_edges(far)
+    pad = torch.cat([chain, torch.full_like(chain, 50)], dim=1)  # no in-edge: src >= j
+    assert not sp_colforward.deep_edges(pad)
+
+
 @pytest.mark.parametrize("sp", ["auto", "0", "1"])
 def test_sp_merge_wins_matches_jax(monkeypatch, sp):
     monkeypatch.setenv("HISTORIAN_SP", sp)

@@ -18,7 +18,9 @@ packages.
 - the plain version with each shard cut into strips (1, 2, 3, 8 strips at
   1 and 3 shards; the scans' carries composed strip by strip, as kernel
   (g2) hands them on) against the JAX function, and a few rows at 8300
-  columns (past the one-block design's 8192 a shard) on one shard.
+  columns (past the one-block design's 8192 a shard) on one shard;
+- the batch's waves on the card (ops/pairstrips.py `strip_waves`, a fake
+  capacity): every pair in one wave, each wave resident at once.
 """
 
 import os
@@ -137,3 +139,40 @@ def test_sp_pair_forward_past_8192_columns_matches_jax(strips):
     lp = float(sp_pairforward.sp_pair_forward_plain(*args, 1, strips))
     lp_jax = _jax_lp("8300", args, 1)
     assert abs(lp - lp_jax) < ATOL
+
+
+@pytest.mark.parametrize("groups,cap,force", [
+    ([[(0, 385)]] * 128, 100, {}),
+    ([[(0, 385)]] * 128, 1024, {}),
+    ([[(d * 43, 43) for d in range(4)]] * 40, 30, {}),
+    ([[(0, 6016)], [(0, 300)], [(0, 6016)], [(0, 64)]], 130, {}),
+    ([[(0, 385)]] * 50, 40, dict(lanes=1, warps=2, cluster=7)),
+], ids=["headline-cap100", "headline-fits", "4-shards", "mixed", "forced"])
+def test_strip_waves_fit_and_cover(groups, cap, force):
+    """(g2)'s batch in waves (a fake capacity): every group in exactly one
+    wave, the waves consecutive and in order, each wave's layout resident
+    at once, and no wave could take the next group."""
+    from historian_tpu_torch.ops import pairstrips as ps
+
+    capacity = lambda lanes, warps, cluster: cap  # noqa: E731
+    waves = ps.strip_waves("sppairforward", groups, 132, capacity, **force)
+    assert waves[0][0] == 0 and waves[-1][1] == len(groups)
+    assert all(a[1] == b[0] for a, b in zip(waves, waves[1:]))
+    for start, end in waves:
+        assert end > start
+        plan = ps.strip_plan("sppairforward", [c for g in groups[start:end] for c in g], 132,
+                             capacity, **force)
+        assert plan.blocks <= cap
+        if end < len(groups):
+            with pytest.raises(ValueError):
+                ps.strip_plan("sppairforward", [c for g in groups[start:end + 1] for c in g],
+                              132, capacity, **force)
+    if cap >= 1024:
+        assert waves == [(0, len(groups))]
+
+
+def test_strip_waves_raise_where_a_pair_cannot_be_resident():
+    from historian_tpu_torch.ops import pairstrips as ps
+
+    with pytest.raises(ValueError):
+        ps.strip_waves("sppairforward", [[(0, 6016)]], 132, lambda *a: 4)
