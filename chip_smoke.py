@@ -140,7 +140,7 @@ Phases, each fatal on failure (nothing is caught):
       mode and design, uploads and readbacks, peak device and host
       memory; then one proposal of each alignment move on its history
       from a seeded mt19937 (kernel (d) banded and full-mask, kernel (e)
-      Forward ring and wide, each fill held against fill.cpp), and kernel
+      Forward ring and strip, each fill held against fill.cpp), and kernel
       (d) at long6's banded node-align fill (the ring design) and a
       full-mask prune-and-regraft fill (the strip design), each against
       fill.cpp (1e-9, the bit-equal share printed) and the plain version
@@ -154,8 +154,15 @@ Phases, each fatal on failure (nothing is caught):
       cell; one thread a cell, the first design's); with `--parent DIR`,
       kernel (d) of that version and of this one at both fills, in turns
       (historian_tpu_torch/sibling_bench.py, roots.compare_roots), and
-      whether their cells are the same bits; kernel (e) Forward's ms at a
-      ring and a wide MCMC fill; then both routes of the node-align
+      whether their cells are the same bits; kernel (e) Forward at a ring
+      and a full-mask MCMC fill (the strip design), each against fill.cpp,
+      with its ms, us a diagonal, layout and ratio to the dependency
+      floor, and at the full mask the same inputs in Viterbi mode (bit
+      for bit against fill.cpp, timed), the plain version (timed) and the
+      bound; with `--parent DIR`, that fill's inputs saved under
+      build/bench_inputs/ and kernel (e) of that version and of this one
+      on them in turns (branch_bench.py, SHA-256 of the cells); then both
+      routes of the node-align
       proposal's SiblingMatrix cut at ~0.3-2e6 in-mask state-cells,
       banded and with a full mask (the sweep behind the route rule).
       Prints an {"mcmc": ...} JSON line;
@@ -207,8 +214,12 @@ Phases, each fatal on failure (nothing is caught):
       timed beside K4 with its first rows bit-equal to the cut's and
       lp_best <= K4's lp_end; kernel (d') against fill.cpp, kernel (d)
       (bit for bit) and its plain version, timed beside 16 fills on kernel
-      (d) and on fill.cpp; kernel (g2) at 1, 2, 4 and 8 shards against K4
-      (long6, f32; cut to 4095 columns in f64), the full pair in f64
+      (d) and on fill.cpp, its layout (clusters of strips) and us a
+      diagonal; with `--parent DIR`, kernel (d') of that version and of
+      this one on the 16 grids (pickled under build/bench_inputs/) in
+      turns (sibling_bench.py --batch, SHA-256 of the cells); kernel
+      (g2) at 1, 2, 4 and 8 shards against K4 (long6, f32; cut to 4095
+      columns in f64), the full pair in f64
       against the 8-shard run, and against its plain version on the
       first 300 rows at all columns (at 1, 4 and 8 shards), the batch
       against K3; kernels (f) and (g2) at seven strip layouts (every
@@ -232,8 +243,9 @@ CUDA.  A kernel's `launches` sums the main-path runs that drive it, each
 counted from 0: K1 in (e), (h) default, (j) long12 f32 and (l) long6 f32,
 K2 in (h) fused and (l) small6 fused, the guide kernel in (h) fused, (j)
 long12 f32 and (l) long6 f32, the walker in (e) and (j) long12 f32,
-kernel (e) in (l) long6 f32 and (n) long6 (the run and the direct
-proposals), kernel (d) and its plan kernel in (n) long6 (the same),
+kernel (e) in (l) long6 f32 and (n) long6's run, by design (the ring's
+line: (m)'s long6 Viterbi fill; the strips' line: (n)'s full-mask
+Forward fill), kernel (d) and its plan kernel in (n) long6's run,
 kernel (a) and its plan kernel in (o)'s long12 run on the automatic
 route, kernel (g1) in (p)'s small6 run on four shards, kernels (f), (d'),
 (g2) and (g3) in (q)'s main-path calls (their lines' ms, plain_ms and bound
@@ -2407,24 +2419,96 @@ def sibling_parent(parent: str, fills: dict) -> dict:
     return out
 
 
-def branch_forward_check(name: str, args) -> dict:
+def branch_forward_check(name: str, args, main: bool = False) -> dict:
     """Kernel (e) in Forward mode at an MCMC branch fill (layout, emit,
-    mask, ins, trans): against fill.cpp, and its ms (median of 5)."""
+    mask, ins, trans): against fill.cpp, its ms (median of 5), us a
+    diagonal, the design and its layout, and the ratio to the dependency
+    floor.  With `main` (the full-mask fill, the strip design's kernel
+    line) also the same inputs in Viterbi mode, against fill.cpp bit for
+    bit and timed, the plain version's ms and the kernel against it, and
+    the bound."""
     from historian_tpu_torch.ops import branchdp
 
     layout, emit, mask, ins, trans = args
     band = branchdp.upload_band(layout, emit, mask, ins, trans, torch.device("cuda"))
-    before = dict(branchdp.DESIGNS)
-    got = branchdp.branch_fill_band(band, False).cpu().numpy()
-    design = next(k for k in before if branchdp.DESIGNS[k] > before[k])
+    got = branchdp.branch_fill_band(band, False)
+    launch = dict(branchdp.LAST_LAUNCH)
     host, fill_cpp_ms = branch_host((emit, ins, mask, trans), False)
-    err = branch_err(f"{name} forward vs fill.cpp", got, host.reshape(-1, 3)[layout.flat_index()])
+    idx = layout.flat_index()
+    err = branch_err(f"{name} forward vs fill.cpp", got.cpu().numpy(), host.reshape(-1, 3)[idx])
+    del host
     ms = cuda_ms_median(lambda: branchdp.branch_fill_band(band, False))
     K = sum(emit.shape) - 1
+    step_ns = chain_step_ns(trans, False)
+    floor_ms = K * step_ns / 1e6
     print(f"(n) kernel (e) Forward at {name} {emit.shape[0]} x {emit.shape[1]} ({layout.n} band "
-          f"cells, {design} design): {ms:.3f} ms ({ms * 1e3 / K:.3f} us a diagonal), fill.cpp "
-          f"{fill_cpp_ms:.1f} ms, max abs err {err:.3e}", flush=True)
-    return dict(ms=ms, design=design, fill_cpp_ms=fill_cpp_ms, err=err)
+          f"cells, {launch['design']} design {launch}): {ms:.3f} ms ({ms * 1e3 / K:.4f} us a "
+          f"diagonal), {ms / floor_ms:.2f} x the dependency floor {floor_ms:.3f} ms ({K} x "
+          f"{step_ns:.2f} ns); fill.cpp {fill_cpp_ms:.1f} ms, max abs err {err:.3e}", flush=True)
+    out = dict(ms=ms, us_per_diagonal=ms * 1e3 / K, design=launch["design"], launch=launch,
+               fill_cpp_ms=fill_cpp_ms, err=err, dependency_floor_ms=floor_ms,
+               floor_ratio=ms / floor_ms)
+    if not main:
+        return out
+    plain, plain_ms = host_ms(lambda: branchdp.branch_fill_band_plain(band, False))
+    plain_err = branch_err(f"{name} forward vs plain", got, plain)
+    del plain, got
+    vit = branchdp.branch_fill_band(band, True).cpu().numpy()
+    host, vit_cpp_ms = branch_host((emit, ins, mask, trans), True)
+    if not np.array_equal(vit.view(np.uint64), host.reshape(-1, 3)[idx].view(np.uint64)):
+        raise AssertionError(f"(n) {name} viterbi: kernel (e) cells differ from fill.cpp's")
+    del vit, host
+    vit_ms = cuda_ms_median(lambda: branchdp.branch_fill_band(band, True))
+    vit_floor_ms = K * chain_step_ns(trans, True) / 1e6
+    bnd = branch_bound(layout, mask, False)
+    print(f"(n) kernel (e) Viterbi at {name}, the same inputs ({branchdp.LAST_LAUNCH}): "
+          f"{vit_ms:.3f} ms ({vit_ms * 1e3 / K:.4f} us a diagonal), {vit_ms / vit_floor_ms:.2f} x "
+          f"its dependency floor {vit_floor_ms:.3f} ms; bit-equal to fill.cpp ({vit_cpp_ms:.1f} "
+          f"ms); Forward's plain version {plain_ms:.1f} ms, max abs err {plain_err:.3e}; bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    out.update(viterbi_ms=vit_ms, viterbi_dependency_floor_ms=vit_floor_ms,
+               viterbi_fill_cpp_ms=vit_cpp_ms, viterbi_launch=dict(branchdp.LAST_LAUNCH),
+               plain_ms=plain_ms, plain_err=plain_err, **bnd)
+    return out
+
+
+#: where chip_smoke.py --parent leaves the inputs of its P C C P benches
+#: (build/ is not committed), for branch_bench.py and sibling_bench.py
+BENCH_INPUTS = os.path.join(REPO, "build", "bench_inputs")
+
+
+def branch_strip_parent(parent: str, args) -> dict:
+    """Kernel (e) of the checkout in `parent` and of this one at long6
+    `mcmc`'s full-mask Forward fill, both modes: its inputs saved to
+    BENCH_INPUTS/long6_full_branch.npz, then historian_tpu_torch/
+    branch_bench.py in fresh processes, parent, this, this, parent
+    (roots.compare_roots), with a SHA-256 of each mode's cells; returns
+    each root's runs and whether all bits agree."""
+    t_start = time.perf_counter()
+    from historian_tpu_torch.roots import compare_roots
+
+    _, emit, mask, ins, trans = args
+    os.makedirs(BENCH_INPUTS, exist_ok=True)
+    path = os.path.join(BENCH_INPUTS, "long6_full_branch.npz")
+    np.savez(path, match_emit=emit, ins_emit=ins, mask=mask, trans=trans)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        compare_roots(os.path.join(REPO, "historian_tpu_torch", "branch_bench.py"),
+                      ["--inputs", path, "--reps", "5"], [parent, REPO], 2, "branch_bench")
+    table = json.loads(buf.getvalue().splitlines()[-1])["compare"]
+    digests = set()
+    for root, runs in table.items():
+        tag = "parent" if root == os.path.abspath(parent) else "this"
+        for r in runs:
+            digests.add((r["viterbi_sha256"], r["forward_sha256"]))
+            print(f"(n) kernel (e) at long6's full-mask fill, {tag} ({root}): viterbi "
+                  f"{r['viterbi_ms']:.3f} ms, forward {r['forward_ms']:.3f} ms (kernel alone, "
+                  f"{r['design']} {r['forward_launch']}); wrapper {r['viterbi_wrapper_ms']:.3f} / "
+                  f"{r['forward_wrapper_ms']:.3f} ms", flush=True)
+    print(f"(n) kernel (e) at long6's full-mask fill: the parent's cells and this one's the same "
+          f"bits in both modes: {len(digests) == 1}; the comparison took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(runs=table, same_bits=len(digests) == 1)
 
 
 @contextlib.contextmanager
@@ -2469,7 +2553,7 @@ def direct_proposals(sampler, fills: list) -> list:
     """One proposal of each alignment move on the long6 chain's history from
     a seeded mt19937, so that kernel (d) banded (node-align) and full-mask
     (prune-and-regraft), and kernel (e) Forward in the ring (branch-align)
-    and the wide design (the full-mask branches) run at full width whatever
+    and the strip design (the full-mask branches) run at full width whatever
     the chain drew: each move's seed is the first of 1..8 whose proposal
     launches what the move is there for.  `fills`: watched_fills' list."""
     from historian_tpu_torch.ops import branchdp
@@ -2484,17 +2568,17 @@ def direct_proposals(sampler, fills: list) -> list:
             m = getattr(sampler, move)(history, lp, MT19937(seed))
             sec = time.perf_counter() - t0
             ring = branchdp.DESIGNS["ring"] - designs["ring"]
-            wide = branchdp.DESIGNS["wide"] - designs["wide"]
+            strip = branchdp.DESIGNS["strip"] - designs["strip"]
             sib = [f["full"] for f in fills[n:] if f["kind"] == "sibling" and f["route"] == "device"]
             done = {"_branch_align_move": ring > 0,
-                    "_node_align_move": not all(sib) and wide > 0,
-                    "_prune_regraft_move": any(sib) and wide > 0}[move]
+                    "_node_align_move": not all(sib) and strip > 0,
+                    "_prune_regraft_move": any(sib) and strip > 0}[move]
             print(f"(n) long6 {move.strip('_')} from seed {seed}: {sec:.2f} s, kernel (d) "
-                  f"{len(sib)} launches ({sum(sib)} full-mask), kernel (e) ring {ring} wide "
-                  f"{wide}, {'bypassed ' + m.comment if m.nullified else m.comment or 'proposed'}"
+                  f"{len(sib)} launches ({sum(sib)} full-mask), kernel (e) ring {ring} strip "
+                  f"{strip}, {'bypassed ' + m.comment if m.nullified else m.comment or 'proposed'}"
                   f", log accept {m.log_accept_prob:.3f}", flush=True)
             out.append(dict(move=move, seed=seed, seconds=sec, sibling=len(sib),
-                            sibling_full=sum(sib), ring=ring, wide=wide, nullified=m.nullified))
+                            sibling_full=sum(sib), ring=ring, strip=strip, nullified=m.nullified))
             if done:
                 break
         else:
@@ -2617,6 +2701,7 @@ def phase_mcmc(cli, long6_recon: str, parent: str | None) -> dict:
     if len(rows) != 11 or not math.isfinite(lp) or steps != 2 * 11:
         raise AssertionError(f"(n) long6 mcmc: {len(rows)} rows, LP {lp}, {steps} steps")
     if not (run_counts["siblingfill"] and run_counts["branch_modes"]["forward"]
+            and run_counts["branch_designs"]["strip"]
             and run_counts["siblingplan"] == run_counts["sibling_designs"]["ring"]):
         raise AssertionError(f"(n) long6 mcmc did not launch kernels (d) and (e): {run_counts}")
     seen = fill_summary(fills)
@@ -2658,10 +2743,12 @@ def phase_mcmc(cli, long6_recon: str, parent: str | None) -> dict:
     for name, args in long6_fills.items():
         checks[name] = sibling_kernel_check(
             name, args, SIBLING_STRIP_ROWS if name == "long6 prune-regraft" else ())
-    forward = {d: branch_forward_check(f"long6 {d} branch", long6_branch[d])
-               for d in ("ring", "wide")}
+    forward = {d: branch_forward_check(f"long6 {d} branch", long6_branch[d], d == "strip")
+               for d in ("ring", "strip")}
     routes = sibling_routes(sib_init[0][1:])  # the node-align proposal's, less self
     parent_runs = sibling_parent(parent, long6_fills) if parent else None
+    if parent:
+        forward["parent"] = branch_strip_parent(parent, long6_branch["strip"])
     del long6_fills
     main = checks["long6 node-align"]
     line = {"mcmc": dict(small=small, long6=dict(wall_s=wall, steps=steps, lp=lp, moves=moves,
@@ -2673,10 +2760,11 @@ def phase_mcmc(cli, long6_recon: str, parent: str | None) -> dict:
     print(json.dumps(line), flush=True)
     return dict(launches=run_counts["siblingfill"], plan_launches=run_counts["siblingplan"],
                 plan_ms=main["plan_kernel_ms"], plain_plan_ms=main["plain_plan_ms"],
-                plan_bound=main["plan_bound"], branch_launches=run_counts["branchfill"],
+                plan_bound=main["plan_bound"],
+                branch_launches=run_counts["branch_designs"], branch_strip=forward["strip"],
                 err=max(max(c["err"] for c in checks.values()), small["sibling_err"]),
-                branch_err=max(max(f["err"] for f in forward.values()), small["branch_err"],
-                               max(branch_errs)),
+                branch_err=max(forward["ring"]["err"], forward["strip"]["err"],
+                               small["branch_err"], max(branch_errs)),
                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
@@ -3548,7 +3636,39 @@ def phase_strips(long12: list, long6: list) -> dict:
     return summary
 
 
-def phase_pair_modules() -> dict:
+def batch_parent(parent: str, inputs: list) -> dict:
+    """Kernel (d') of the checkout in `parent` and of this one on the 16
+    grids: their batch pickled to BENCH_INPUTS/batch16.pkl, then
+    historian_tpu_torch/sibling_bench.py --batch in fresh processes,
+    parent, this, this, parent (roots.compare_roots), with a SHA-256 of
+    each version's cells and lp_end."""
+    import pickle
+
+    t_start = time.perf_counter()
+    from historian_tpu_torch.roots import compare_roots
+
+    os.makedirs(BENCH_INPUTS, exist_ok=True)
+    path = os.path.join(BENCH_INPUTS, "batch16.pkl")
+    with open(path, "wb") as f:
+        pickle.dump([t.cpu().numpy() for t in inputs], f)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        compare_roots(os.path.join(REPO, "historian_tpu_torch", "sibling_bench.py"),
+                      ["--batch", path, "--reps", "5"], [parent, REPO], 2, "sibling_bench")
+    table = json.loads(buf.getvalue().splitlines()[-1])["compare"]
+    digests = {r["cells_sha256"] for runs in table.values() for r in runs}
+    for root, runs in table.items():
+        tag = "parent" if root == os.path.abspath(parent) else "this"
+        for r in runs:
+            print(f"(q) (d') on the 16 grids, {tag} ({root}): {r['kernel_ms']:.3f} ms "
+                  f"({r['kernel_ms'] * 1e3 / r['diagonals']:.3f} us a diagonal; "
+                  f"{json.dumps(r['launch'])})", flush=True)
+    print(f"(q) (d'): the parent's cells and this one's the same bits: {len(digests) == 1}; the "
+          f"comparison took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(runs=table, same_bits=len(digests) == 1)
+
+
+def phase_pair_modules(parent: str | None = None) -> dict:
     """(q) The last four modules the JAX package has, each on its
     hand-written kernel: (f) the tropical pair DP, (d') the batched sibling
     fill, (g2) the sequence-parallel and (g3) the pipeline-parallel pair
@@ -3737,15 +3857,21 @@ def phase_pair_modules() -> dict:
                          fill_cpp_ms=host_ms_sum, fill_batch_wall_ms=batch_wall,
                          single_device_walls_ms=single_wall, err=err_d,
                          bit_equal_min=min(bit_equal), **bnd)
+    diagonals = max(x + y for x, y in sizes) - 1
     print(f"(q) (d') {K} grids ({sizes[0]} to {sizes[-1]}, padded to {tuple(inputs[2].shape[1:])}, "
-          f"{in_mask} in-mask cells) in one launch ({batch['threads']} threads a block, a "
-          f"block an item): {ms:.3f} ms; 16 single fills on kernel (d) {single_ms:.3f} ms, on "
+          f"{in_mask} in-mask cells) in one launch (clusters of {batch['cluster']} blocks an "
+          f"item, {batch['groups']} lane groups of {batch['lanes']} a block, {batch['turns']} "
+          f"rows a lane group): {ms:.3f} ms ({ms * 1e3 / diagonals:.3f} us a diagonal over "
+          f"{diagonals}); 16 single fills on kernel (d) {single_ms:.3f} ms, on "
           f"fill.cpp {host_ms_sum:.1f} ms; fill_batch wall {batch_wall:.1f} ms against 16 "
           f"device-route fills {single_wall:.1f} ms; plain {p_ms:.1f} ms; max abs err vs "
           f"fill.cpp {err_d:.3e} (bit-equal share >= {min(bit_equal):.6f}), bit-equal to "
           f"kernel (d); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
     out["siblingbatch"] = dict(ms=ms, plain_ms=p_ms, err=err_d, **bnd)
-    del cells, plain, cells_h, plain_h, singles, inputs
+    del cells, plain, cells_h, plain_h, singles
+    if parent:
+        summary["d' parent"] = batch_parent(parent, inputs)
+    del inputs
 
     # ---- (g2): 1, 2, 4, 8 shards against K4 and the plain version
     err_g2, sp_times = 0.0, {}
@@ -3919,8 +4045,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of historian_tpu_torch on one card.")
     ap.add_argument("--parent", help="a checkout of another version (e.g. the parent commit "
-                    "unpacked under build/): time its kernels (e), (d) and (a) beside this "
-                    "one's in (m), (n) and (o)")
+                    "unpacked under build/): time its kernels (e), (d), (a) and (d') beside "
+                    "this one's in (m), (n), (o) and (q)")
     opts = ap.parse_args(argv)
     from historian_tpu_torch import bench, cli
     from historian_tpu_torch.ops import _kernels, colforward, guidedp, pairforward, tracedp
@@ -3976,7 +4102,7 @@ def main(argv=None) -> int:
         elapsed("o")
         spf = phase_sp(cli, colforward, work, small6_cpu)
         elapsed("p")
-    pairs = phase_pair_modules()
+    pairs = phase_pair_modules(opts.parent)
     elapsed("q")
 
     kernels = [
@@ -4008,12 +4134,22 @@ def main(argv=None) -> int:
              ms=guide["ms"], plain_ms=guide["plain_ms"], bound_ms=guide["bound_ms"],
              bound_by=guide["bound_by"], library_ms=None),
     ]
+    # kernel (e)'s two designs: the ring at long6's first refine fill (m),
+    # the strips at long6 mcmc's full-mask Forward fill (n)
+    strip = mcmc["branch_strip"]
     kernels.append(dict(
         name="branchfill", route="cuda", source="historian_tpu_torch/csrc/branchfill.cu",
         replaces="historian_tpu/ops/branchdp.py:41",
-        launches=launches_l["f32"]["branchfill"] + mcmc["branch_launches"],
+        launches=launches_l["f32"]["branch_designs"]["ring"] + mcmc["branch_launches"]["ring"],
         max_abs_err=max(branch["err"], mcmc["branch_err"]), ms=branch["ms"],
         plain_ms=branch["plain_ms"], bound_ms=branch["bound_ms"], bound_by=branch["bound_by"],
+        library_ms=None))
+    kernels.append(dict(
+        name="branchfill_strip", route="cuda", source="historian_tpu_torch/csrc/branchfill.cu",
+        replaces="historian_tpu/ops/branchdp.py:41",
+        launches=launches_l["f32"]["branch_designs"]["strip"] + mcmc["branch_launches"]["strip"],
+        max_abs_err=max(strip["err"], strip["plain_err"]), ms=strip["ms"],
+        plain_ms=strip["plain_ms"], bound_ms=strip["bound_ms"], bound_by=strip["bound_by"],
         library_ms=None))
     kernels.append(dict(
         name="siblingfill", route="cuda", source="historian_tpu_torch/csrc/siblingfill.cu",

@@ -62,28 +62,62 @@
 // writes.  A cell's step has no branch (selects only, down to Forward's
 // log1p), so that a warp's lanes never split.
 //
-// Wide design (a diagonal wider than the ring's block, e.g. a full mask):
-// one block of up to 1024 threads strides over each diagonal's cells and
-// reads the neighbours back from the band it writes in device memory, one
-// block barrier a diagonal.  The wrapper chooses the design before the
-// launch and counts each (ops/branchdp.py DESIGNS).
+// Strip design (a diagonal wider than the ring's block: a full mask, a
+// wide envelope): a pipeline of row strips over many SMs, as kernel (d)'s
+// strip design (csrc/siblingfill.cu), with the handoff taken off the
+// diagonals' chain.  Block b owns rows [b H, (b + 1) H) of the band, a
+// thread a row and state group (one group for Viterbi, three for
+// Forward, as the ring's), and walks the diagonals that cross its strip,
+// keeping the strip's last two diagonals in shared memory (three planes
+// of a slot a row, and slot 0 for the row above the strip).  Each row
+// keeps its hull (band.cuh's positions, lo and hi from `off` and
+// `rowpos`), so the band's cells are the ring's, bit for bit.  A row's
+// packed position, mask byte, emission and ins[y] load three diagonals
+// ahead, through L1, and nothing reads them before their diagonal: a
+// warp's rows miss L1 on different diagonals, so a load read early would
+// stall the warp on most diagonals.  The barrier a diagonal is a named
+// barrier over the row threads and a publishing warp, which then stores
+// the count of diagonals done in shared memory (st.release.cta), so that
+// no row thread's release waits for its loads in flight.  The strip's
+// last row puts its cell of each diagonal in an `out` ring in shared
+// memory.  An io warp, on which no diagonal waits, carries the handoff:
+// it sends the `out` ring's cells to the exchange buffer in device memory
+// (a cell a column) and publishes a count with st.release.gpu, and it
+// polls the strip above's count (ld.acquire.gpu) and copies that strip's
+// last row into the `above` stage, up to `lead` diagonals ahead of the
+// row threads, with a count at CTA scope that the first row alone reads.
+// Each pass moves every diagonal that is ready, so its fences and L2
+// round trips cost a pass, not a diagonal.  The strips
+// run in step a handoff apart, and the fill takes about (X + Y) diagonals'
+// time plus, at each strip boundary, the handoff's longest latency.  The
+// launch is cooperative, so every strip's predecessor is resident; where
+// strips outnumber the resident blocks, block b takes strips b, b + G, ...
+// in order.  Every poll is bounded and ends in __trap().
+//
+// The wrapper chooses the design before the launch and counts each
+// (ops/branchdp.py DESIGNS, `strip_plan`).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "band.cuh"
+#include "sync.cuh"
 
 namespace {
 
 using namespace band;
+using namespace hsync;
 
 constexpr double kBNeg = -1e30;  // ops/branchdp.py NEG
 constexpr double kLog2 = 0.693147180559945309417232121458176568;  // fill.cpp LOG2
-constexpr int kMaxThreads = 1024;
 constexpr int kRingMaxCells = 256;  // ops/branchdp.py RING_MAX_CELLS
 constexpr int kRingMaxThreads = 3 * kRingMaxCells;  // three state groups (Forward)
 constexpr int kLead = 12;           // diagonals the records come in ahead
 constexpr int kStages = 16;         // the records' stage: a power of two > kLead
+constexpr int kStripMaxRows = 256;  // ops/branchdp.py STRIP_MAX_ROWS
+constexpr int kStripMaxLead = 254;  // STRIP_MAX_LEAD: the stage holds lead + 2 diagonals
+constexpr long long kPollLimit = 1ll << 26;  // polls of a count before __trap()
 
 struct Cell3 {
   double m, i, d;
@@ -165,20 +199,6 @@ __device__ __forceinline__ void store(double* cells, int pos, const Cell3& c) {
   o[0] = c.m;
   o[1] = c.i;
   o[2] = c.d;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The block's barrier: the warp's for one warp, else named barrier 1 over
@@ -310,39 +330,248 @@ __global__ void __launch_bounds__(kRingMaxThreads) branchfill_ring(
   }
 }
 
-template <bool VIT>
-__global__ void __launch_bounds__(kMaxThreads) branchfill_wide(
-    const double* __restrict__ emit, const uint8_t* __restrict__ mask,
-    const double* __restrict__ ins, const double* __restrict__ trans8,
-    const int* __restrict__ rowpos, const int* __restrict__ off, const int2* __restrict__ diag,
-    double* cells, int sx, int sy) {
-  const int X = sx - 1, Y = sy - 1, K = sx + sy - 1;
-  const int offX = off[X];
+// ----------------------------------------------------------- strip design
+struct StripArgs {
+  const double* emit;
+  const uint8_t* mask;
+  const double *ins, *trans8;
+  const int *rowpos, *off;
+  double* cells;
+  double* exch;        // [strips][sy][3]: each strip's last row, by column
+  unsigned* progress;  // [strips]: strip b's last row is published for diagonals < progress[b]
+  int sx, sy, H, strips, lead;
+};
+
+// The slots of the stage and of the `out` ring: a power of two no smaller
+// than lead + 2 (the two diagonals the first row reads, and the lead) nor
+// than 64, so that one pass of the io warp may move many diagonals.
+__host__ __device__ __forceinline__ int stage_slots(int lead) {
+  int s = 64;
+  while (s < lead + 2) s <<= 1;
+  return s;
+}
+
+// The counts the row threads and the io warp share (shared memory).
+struct StripCounts {
+  int done;     // the row threads have finished the diagonals < done
+  int in_prog;  // `above` holds the row above's diagonals < in_prog
+  int sent;     // `out` is sent on for the diagonals < sent
+};
+
+size_t strip_smem_bytes(int H, int lead) {
+  return sizeof(Cell3) * (3 * (H + 1) + 2 * stage_slots(lead)) + sizeof(StripCounts);
+}
+
+__device__ __forceinline__ int ld_acquire_cta(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_cta(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(smem_addr(p)), "r"(v) : "memory");
+}
+
+// Wait until the shared count *p reaches want; returns what it saw.
+__device__ __forceinline__ int wait_count(const int* p, int want) {
+  int v = ld_acquire_cta(p);
+  for (long long n = 0; v < want; ++n) {
+    if (n >= kPollLimit) __trap();
+    v = ld_acquire_cta(p);
+  }
+  return v;
+}
+
+// Row x's band cell on diagonal k: its packed position, or -1 outside the
+// band or the grid, its mask byte, its emission and ins[y] (each loaded
+// only by the state group that reads it), as loaded: nothing reads them
+// before the diagonal that uses them, so a load in flight stalls no one.
+struct RowCell {
+  int pos, mask;
+  double e, ins;
+};
+
+// The strip design's fill: G = 1 (Viterbi, whole cells) or 3 (Forward,
+// group g computing state g) groups of H row threads, then the publishing
+// warp and the io warp.
+template <bool VIT, bool SPLIT>
+__global__ void __launch_bounds__(3 * kStripMaxRows + 64) branchfill_strip(StripArgs a) {
+  constexpr int G = SPLIT ? 3 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = a.H, X = a.sx - 1, Y = a.sy - 1, S = stage_slots(a.lead);
+  const int tid = threadIdx.x, rows_threads = G * H;
+  const bool pub = tid >= rows_threads && tid < rows_threads + 32;
+  const int g = tid / H, i = tid - g * H;  // a row thread's state group and row in the strip
+  const int lane = tid & 31;
+  Cell3* planes = reinterpret_cast<Cell3*>(smem);  // [3][H + 1]: slot s, row x0 + s - 1
+  Cell3* above = planes + 3 * (H + 1);             // [S]: the row above, by diagonal
+  Cell3* out = above + S;                          // [S]: the strip's last row, by diagonal
+  StripCounts* cnt = reinterpret_cast<StripCounts*>(out + S);
+  const Cell3 neg{kBNeg, kBNeg, kBNeg};
   double tr[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) tr[j] = trans8[j];
-  const Cell3 neg{kBNeg, kBNeg, kBNeg};
-  auto at = [&](int kind, int x, int y) -> Cell3 {
-    if (kind == kNone) return neg;
-    const double* c = cells + static_cast<int64_t>(pos_of(kind, x, y, rowpos, off, offX)) * 3;
-    return Cell3{c[0], c[1], c[2]};
-  };
-  for (int k = 0; k < K; ++k) {
-    const int2 r = diag[k];
-    const int2 r1 = k >= 1 ? diag[k - 1] : r;
-    const int2 r2 = k >= 2 ? diag[k - 2] : r;
-    const int n = diag_cells(k, r, X, Y);
-    for (int t = static_cast<int>(threadIdx.x); t < n; t += blockDim.x) {
-      int x = 0;
-      const int kind = cell_at(t, k, r, X, Y, x);
-      const int y = k - x;
-      const int pos = pos_of(kind, x, y, rowpos, off, offX);
-      Cell3 p = neg, q = neg, u = neg;
-      if (x >= 1 && y >= 1) p = at(kind_of(x - 1, y - 1, r2, X, Y), x - 1, y - 1);
-      if (y >= 1) q = at(kind_of(x, y - 1, r1, X, Y), x, y - 1);
-      if (x >= 1) u = at(kind_of(x - 1, y, r1, X, Y), x - 1, y);
-      store(cells, pos,
-            cell_value<VIT>(x > 0, y > 0, mask[pos] != 0, emit[pos], ins[y], p, q, u, tr));
+  for (int j = 0; j < 8; ++j) tr[j] = a.trans8[j];
+  const int offX = a.off[X];
+  for (int b = blockIdx.x; b < a.strips; b += gridDim.x) {
+    const int x0 = b * H, xl = min(x0 + H - 1, X), k0 = x0, k1 = xl + Y;
+    const bool has_above = b > 0, has_below = b + 1 < a.strips;
+    for (int u = tid; u < 3 * (H + 1) + 2 * S; u += blockDim.x) planes[u] = neg;
+    if (tid == 0) {
+      cnt->done = k0;
+      cnt->in_prog = has_above ? k0 - 1 : INT_MAX;  // the top strip's row above is BNEG
+      cnt->sent = has_below ? k0 : INT_MAX;
+    }
+    __syncthreads();
+    if (pub) {
+      for (int k = k0; k <= k1; ++k) {
+        block_sync(rows_threads + 32);
+        if (lane == 0) st_release_cta(&cnt->done, k + 1);
+      }
+    } else if (tid < rows_threads) {
+      // this thread's row and its band
+      const int x = x0 + i;
+      const bool row = x <= xl;
+      int o0 = 0, oY = 0, rp = 0, lo = 1, hi = 0;
+      if (row) {
+        o0 = a.off[x];
+        oY = a.off[x + 1] - 1;
+        rp = a.rowpos[x];
+        lo = o0 + 1 - rp;
+        hi = lo + (oY - o0 - (Y >= 1 ? 1 : 0)) - 1;
+      }
+      auto cell_of = [&](int k) -> RowCell {
+        const int y = k - x;
+        RowCell c{-1, 0, 0.0, 0.0};
+        if (!row || y < 0 || y > Y) return c;
+        const bool inner = x > 0 && x < X && y > 0 && y < Y;
+        if (inner && (y < lo || y > hi)) return c;
+        c.pos = x == 0 ? y : x == X ? offX + y : y == 0 ? o0 : y == Y ? oY : rp + y;
+        c.mask = __ldg(a.mask + c.pos);
+        if (!SPLIT || g == 0) c.e = __ldg(a.emit + c.pos);
+        if (!SPLIT || g == 1) c.ins = __ldg(a.ins + y);
+        return c;
+      };
+      const bool last = i == xl - x0 && has_below;
+      int have = has_above ? k0 - 1 : INT_MAX, sent = has_below ? k0 : INT_MAX;
+      // diagonal k from its cell `cur`
+      auto diagonal = [&](int k, const RowCell& cur) {
+        if (i == 0 && have < k) have = wait_count(&cnt->in_prog, k);
+        const Cell3* p1 = planes + ((k + 2) % 3) * (H + 1);  // diagonal k - 1
+        const Cell3* p2 = planes + ((k + 1) % 3) * (H + 1);  // diagonal k - 2
+        Cell3* dst = planes + (k % 3) * (H + 1) + i + 1;
+        const bool live = cur.pos >= 0, in_env = cur.mask != 0;
+        const bool x_in = x > 0, y_in = k - x > 0;
+        if (!SPLIT) {
+          const Cell3 p = i == 0 ? above[(k - 2) & (S - 1)] : p2[i];
+          const Cell3 u = i == 0 ? above[(k - 1) & (S - 1)] : p1[i];
+          const Cell3 v = cell_value<VIT>(x_in, y_in, in_env, cur.e, cur.ins, p, p1[i + 1], u, tr);
+          *dst = live ? v : neg;
+          if (live) store(a.cells, cur.pos, v);
+          if (last) {
+            if (sent <= k - S) sent = wait_count(&cnt->sent, k - S + 1);
+            out[k & (S - 1)] = live ? v : neg;
+          }
+        } else {
+          double v;
+          if (g == 0) {
+            const Cell3 p = i == 0 ? above[(k - 2) & (S - 1)] : p2[i];
+            v = m_value<VIT>(x_in, y_in, in_env, cur.e, p, tr);
+          } else if (g == 1) {
+            v = i_value<VIT>(y_in, in_env, cur.ins, p1[i + 1], tr);
+          } else {
+            const Cell3 u = i == 0 ? above[(k - 1) & (S - 1)] : p1[i];
+            v = d_value<VIT>(in_env, u, tr);
+          }
+          (&dst->m)[g] = live ? v : kBNeg;
+          if (live) a.cells[static_cast<int64_t>(cur.pos) * 3 + g] = v;
+          if (last) {
+            if (sent <= k - S) sent = wait_count(&cnt->sent, k - S + 1);
+            (&out[k & (S - 1)].m)[g] = live ? v : kBNeg;
+          }
+        }
+        block_sync(rows_threads + 32);
+      };
+      // four cells in registers, each loaded three diagonals before its use
+      // and read only then: unrolled, so that no register move waits on a
+      // load in flight
+      RowCell c0 = cell_of(k0), c1 = cell_of(k0 + 1), c2 = cell_of(k0 + 2), c3;
+      for (int k = k0; k <= k1; k += 4) {
+        c3 = cell_of(k + 3);
+        diagonal(k, c0);
+        if (k + 1 > k1) break;
+        c0 = cell_of(k + 4);
+        diagonal(k + 1, c1);
+        if (k + 2 > k1) break;
+        c1 = cell_of(k + 5);
+        diagonal(k + 2, c2);
+        if (k + 3 > k1) break;
+        c2 = cell_of(k + 6);
+        diagonal(k + 3, c3);
+      }
+    } else {
+      // the io warp: the row above in, the last row out, as the note says
+      const int lastA = x0 - 1 + Y;  // the row above's last diagonal on the grid
+      int got = k0 - 1, sent = k0, known = 0;
+      bool in_open = has_above, out_open = has_below;
+      long long idle = 0;
+      while (in_open || out_open) {
+        const int done = __reduce_min_sync(0xffffffffu, ld_acquire_cta(&cnt->done));
+        bool moved = false;
+        if (in_open) {
+          int lim = min(k1, done + a.lead);  // stage the diagonals < lim
+          if (got <= lastA && known <= got)
+            known = static_cast<int>(__reduce_min_sync(
+                0xffffffffu, ld_acquire_gpu(a.progress + b - 1)));
+          if (got <= lastA && known <= lastA) lim = min(lim, known);
+          const int n = lim - got;
+          if (n > 0) {
+            for (int t = lane; t < n; t += 32) {
+              const int d = got + t, y = d - (x0 - 1);
+              Cell3 v = neg;
+              if (y <= Y) {
+                const double* src = a.exch + (static_cast<int64_t>(b - 1) * a.sy + y) * 3;
+                v = Cell3{__ldcg(src), __ldcg(src + 1), __ldcg(src + 2)};
+              }
+              above[d & (S - 1)] = v;
+            }
+            __syncwarp();
+            got += n;
+            if (lane == 0) st_release_cta(&cnt->in_prog, got);
+            moved = true;
+          }
+          in_open = got < k1;
+        }
+        if (out_open) {
+          const int n = done - sent;
+          if (n > 0) {
+            for (int t = lane; t < n; t += 32) {
+              const int d = sent + t, y = d - xl;
+              if (y >= 0 && y <= Y) {
+                const Cell3 v = out[d & (S - 1)];
+                double* dst = a.exch + (static_cast<int64_t>(b) * a.sy + y) * 3;
+                __stcg(dst, v.m);
+                __stcg(dst + 1, v.i);
+                __stcg(dst + 2, v.d);
+              }
+            }
+            __syncwarp();
+            sent += n;
+            if (lane == 0) {
+              __threadfence();
+              st_release_gpu(a.progress + b, static_cast<unsigned>(sent));
+              st_release_cta(&cnt->sent, sent);
+            }
+            moved = true;
+          }
+          out_open = sent <= k1;
+        }
+        if (moved) {
+          idle = 0;
+        } else {
+          if (++idle > kPollLimit) __trap();
+          __nanosleep(32);
+        }
+      }
     }
     __syncthreads();
   }
@@ -372,17 +601,22 @@ __global__ void branchfill_chain(const double* __restrict__ trans8, int steps, d
 // (`threads` a multiple of 32 no larger than kRingMaxCells and no fewer
 // than any diagonal's cells; `ring_rows` a power of two no smaller than
 // any diagonal's hull rows; `plan` scratch of (sx + sy - 1) * threads * 32
-// bytes), design 1 the wide one (`threads` a multiple of 32, at most 1024;
-// `plan` unused).  Returns the launches' cudaGetLastError().
+// bytes), design 1 the strips (`strip_rows` a multiple of 32 at most
+// kStripMaxRows, `lead` 1 to kStripMaxLead, `blocks` at most
+// branchfill_capacity_f64's; `exch` scratch of ceil(sx / strip_rows) * sy
+// * 3 doubles, `progress` [ceil(sx / strip_rows)] zero).  Returns the
+// launches' error.
 extern "C" int branchfill_f64(const double* emit, const uint8_t* mask, const double* ins,
                               const double* trans8, const int* rowpos, const int* off,
-                              const int* diag, double* cells, void* plan, int sx, int sy,
-                              int viterbi, int design, int threads, int ring_rows, void* stream) {
+                              const int* diag, double* cells, void* plan, double* exch,
+                              unsigned* progress, int sx, int sy, int viterbi, int design,
+                              int threads, int ring_rows, int strip_rows, int lead, int blocks,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int2* dg = reinterpret_cast<const int2*>(diag);
-  if (threads < 32 || threads % 32) return int(cudaErrorInvalidValue);
   if (design == 0) {
-    if (threads > kRingMaxCells || ring_rows < 1 || (ring_rows & (ring_rows - 1)) || !plan)
+    if (threads < 32 || threads % 32 || threads > kRingMaxCells || ring_rows < 1 ||
+        (ring_rows & (ring_rows - 1)) || !plan)
       return int(cudaErrorInvalidValue);
     const int K = sx + sy - 1;
     Rec* recs = static_cast<Rec*>(plan);
@@ -403,19 +637,42 @@ extern "C" int branchfill_f64(const double* emit, const uint8_t* mask, const dou
       branchfill_ring<false, true><<<1, 3 * threads, bytes, s>>>(recs, trans8, cells, K,
                                                                  ring_rows, threads);
     }
-  } else if (design == 1) {
-    if (threads > kMaxThreads) return int(cudaErrorInvalidValue);
-    if (viterbi) {
-      branchfill_wide<true><<<1, threads, 0, s>>>(emit, mask, ins, trans8, rowpos, off, dg, cells,
-                                                  sx, sy);
-    } else {
-      branchfill_wide<false><<<1, threads, 0, s>>>(emit, mask, ins, trans8, rowpos, off, dg,
-                                                   cells, sx, sy);
-    }
-  } else {
-    return int(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (design != 1 || strip_rows < 32 || strip_rows % 32 || strip_rows > kStripMaxRows ||
+      lead < 1 || lead > kStripMaxLead || blocks < 1 || !exch || !progress)
+    return int(cudaErrorInvalidValue);
+  StripArgs a{emit, mask, ins, trans8, rowpos, off, cells, exch, progress,
+              sx, sy, strip_rows, (sx + strip_rows - 1) / strip_rows, lead};
+  if (blocks > a.strips) return int(cudaErrorInvalidValue);
+  const int nthreads = (viterbi ? 1 : 3) * strip_rows + 64;
+  const size_t bytes = strip_smem_bytes(strip_rows, lead);
+  void* kernel = viterbi ? reinterpret_cast<void*>(branchfill_strip<true, false>)
+                         : reinterpret_cast<void*>(branchfill_strip<false, true>);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e) return static_cast<int>(e);
+  void* args[] = {&a};
+  e = blocks == 1 ? cudaLaunchKernel(kernel, dim3(1), dim3(nthreads), args, bytes, s)
+                  : cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(nthreads), args,
+                                                bytes, s);
+  return e ? static_cast<int>(e) : static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the strip design (`strip_rows` rows, `lead`, Viterbi or
+// Forward) that can be resident at once on this card: the most a launch
+// takes.  0 where the query fails.
+extern "C" int branchfill_capacity_f64(int strip_rows, int lead, int viterbi) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const int nthreads = (viterbi ? 1 : 3) * strip_rows + 64;
+  const size_t bytes = strip_smem_bytes(strip_rows, lead);
+  void* kernel = viterbi ? reinterpret_cast<void*>(branchfill_strip<true, false>)
+                         : reinterpret_cast<void*>(branchfill_strip<false, true>);
+  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes)) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nthreads, bytes))
+    return 0;
+  return sms * per_sm;
 }
 
 // `steps` dependent Delete steps in one thread (the dependency floor's

@@ -109,27 +109,17 @@ namespace colfill {
 
 using namespace logspace;
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
 //: polls of a counter before a wait gives up (each poll is an L2 round
 //: trip, so this is tens of seconds, far beyond any fill)
 constexpr long long kMaxPolls = 1LL << 26;
 
 // Wait until *p >= want; returns the value seen.  Traps when it never comes.
 __device__ __forceinline__ int wait_at_least(const int* p, int want) {
-  int v = ld_acquire(p);
+  int v = hsync::ld_acquire_gpu(p);
   for (long long n = 0; v < want; ++n) {
     if (n >= kMaxPolls) __trap();
     if (n >= 32) __nanosleep(64);
-    v = ld_acquire(p);
+    v = hsync::ld_acquire_gpu(p);
   }
   return v;
 }
@@ -268,7 +258,7 @@ __device__ __forceinline__ void column_fill(
         if constexpr (Edge::kIo) {
           pairstep::st_release_cta(&edge.ls->done, j + 1);
         } else {
-          st_release(progress + s, j + 1);
+          hsync::st_release_gpu(progress + s, j + 1);
         }
       }
       continue;
@@ -500,7 +490,7 @@ __device__ __forceinline__ void column_fill(
       __syncthreads();  // column j is final for every later column of the strip
       if (tid == 0) {
         __threadfence();
-        st_release(progress + s, j + 1);
+        hsync::st_release_gpu(progress + s, j + 1);
       }
     }
   }

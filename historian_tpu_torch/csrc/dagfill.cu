@@ -79,10 +79,12 @@
 
 #include "band.cuh"
 #include "logspace.cuh"
+#include "sync.cuh"
 
 namespace {
 
 using namespace band;
+using namespace hsync;
 
 enum { IMM, IMD, IDM, IMI, IIW };
 constexpr int kStates = 5;
@@ -235,20 +237,6 @@ __device__ __forceinline__ bool cell_state(const Forms& f, const Rec& rec, int k
   if (k == IMM && (flags & kOrigin)) acc = 0.0;
   out = acc;
   return true;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct FillArgs {

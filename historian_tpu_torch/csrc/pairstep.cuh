@@ -53,9 +53,11 @@
 #include <type_traits>
 
 #include "logspace.cuh"
+#include "sync.cuh"
 
 namespace pairstep {
 
+using namespace hsync;
 using logspace::cmax;
 using logspace::kNeg;
 
@@ -177,10 +179,6 @@ struct RowX {
   bool start, x_ready;
   unsigned in;  // bit k: the thread's lane k is in the mask (JaxRules)
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // The handoff's shared-memory accesses are all volatile asm, so the
 // compiler keeps their order and needs no memory clobber: the transitions
@@ -491,20 +489,14 @@ int lanes_per_thread(int n) {
 
 // ------------------------------------------ exchange between blocks (global)
 __device__ __forceinline__ int ld_acquire(const int* p, bool sys) {
-  int v;
-  if (sys) {
-    asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  } else {
-    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  }
-  return v;
+  return sys ? ld_acquire_sys(p) : ld_acquire_gpu(p);
 }
 
 __device__ __forceinline__ void st_release(int* p, int v, bool sys) {
   if (sys) {
-    asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+    st_release_sys(p, v);
   } else {
-    asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+    st_release_gpu(p, v);
   }
 }
 
@@ -618,46 +610,6 @@ struct EdgeSmem {
 template <typename T>
 __device__ __forceinline__ void strip_init(EdgeSmem<T>& es) {
   if (threadIdx.x == 0) es.in_prog = es.in_remote = es.out_prog = es.out_sent = es.right_ack = 0;
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster (release, then acquire).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// The shared::cluster address of `p` (this block's shared memory) in the
-// block of the cluster with rank `rank`.
-__device__ __forceinline__ unsigned remote_addr(const void* p, unsigned rank) {
-  unsigned a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  return a;
-}
-
-__device__ __forceinline__ void st_remote(unsigned a, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_remote(unsigned a, double v) {
-  asm volatile("st.shared::cluster.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_release_remote(unsigned a, int v) {
-  asm volatile("st.release.cluster.shared::cluster.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
-}
-
-// A counter of this block's shared memory that another block of the
-// cluster stores into.
-__device__ __forceinline__ int ld_acquire_cluster(const int* p) {
-  int v;
-  asm volatile("ld.acquire.cluster.shared::cta.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p))
-               : "memory");
-  return v;
 }
 
 // Warp 0's left neighbour in a strip block: the chain's edge (GridEdge's

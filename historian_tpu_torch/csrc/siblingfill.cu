@@ -87,10 +87,12 @@
 
 #include "band.cuh"
 #include "logspace.cuh"
+#include "sync.cuh"
 
 namespace {
 
 using namespace band;
+using namespace hsync;
 using logspace::lse2;
 
 constexpr int kStates = 11;
@@ -324,30 +326,6 @@ __device__ __forceinline__ void put(double* dst, const Lane& ln, const Out& o, b
   if (ln.j < 3) dst[ln.sP] = in ? o.P : -INFINITY;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
 // The block's barrier: the warp's for one warp, else the block's.
 __device__ __forceinline__ void block_sync(int threads) {
   if (threads == 32) {
@@ -544,7 +522,7 @@ __global__ void __launch_bounds__(kStripMaxThreads) siblingfill_strip(StripArgs 
         } else {
           long long spins = 0;
           while (seen <= static_cast<unsigned>(d)) {
-            seen = ld_acquire(a.progress + b - 1);
+            seen = ld_acquire_gpu(a.progress + b - 1);
             if (seen > static_cast<unsigned>(d)) break;
             if (++spins > kSpinLimit) __trap();
             __nanosleep(32);
@@ -593,12 +571,12 @@ __global__ void __launch_bounds__(kStripMaxThreads) siblingfill_strip(StripArgs 
         fetch(k + kExLead - 1);
         land(k);
       } else if (publisher && lane == 0 && b + 1 < a.strips) {
-        st_release(a.progress + b, static_cast<unsigned>(k));  // diagonals < k done
+        st_release_gpu(a.progress + b, static_cast<unsigned>(k));  // diagonals < k done
       }
       __syncthreads();
     }
     if (publisher && lane == 0 && b + 1 < a.strips)
-      st_release(a.progress + b, static_cast<unsigned>(k1 + 1));
+      st_release_gpu(a.progress + b, static_cast<unsigned>(k1 + 1));
     if (tid == 0 && xl == X)
       *a.lp_end = lp_end_of(planes + (k1 % 3) * plane + (X - x0 + 1) * kPitch, T);
     if (fetcher) cp_wait<0>();
@@ -652,70 +630,190 @@ __global__ void siblingfill_chain_split(const double* __restrict__ t144, int ste
 // ----------------------------------------------------- the batch, (d')
 // Kernel (d'): K sibling fills in one launch (replaces
 // historian_tpu/ops/siblingdp.py::sibling_forward_batch, a `vmap` of the
-// XLA row scan over grids padded to one shape).  A block an item, a lane
-// group a cell (`sib_lanes`, so each cell is computed as kernel (d)
-// computes it, in fill.cpp's order): the block walks the item's
-// diagonals x + y = k up to its own corner `ends`, the cells of a
-// diagonal spread over its lane groups (in turns where the diagonal is
-// wider than the block), one barrier a diagonal.  The neighbours are read
-// from the cells already written (this item's grid in device memory,
-// past L1: another thread of the block wrote them before the barrier);
-// one outside the grid reads a shared guard of -inf, one outside the mask
-// reads the -inf that was written there.  Cells past the item's corner
-// (the batch's padding) are -inf.  Emissions at or below -1e29 (the JAX
-// package's NEG for -inf) are read as -inf, as fill.cpp takes them.
-// Bounded, as kernel (d), by the chain of a cell a diagonal; the block's
-// diagonals meet no other block's, so the K items run side by side.
+// XLA row scan over grids padded to one shape).  A thread block cluster of
+// C blocks an item, block c a strip of H rows [c H, (c + 1) H) of the
+// padded grid, a lane group a row (`sib_lanes`, so each cell is computed
+// as kernel (d) computes it, in fill.cpp's order; a grid of more rows than
+// a cluster's lane groups gives each R rows, one after another, R turns).
+// The cluster walks the item's diagonals x + y = k up to its own corner
+// `ends` in step, one cluster barrier a diagonal.  Each block keeps its
+// strip's last two diagonals in shared memory (three planes of a slot a
+// row, slot 0 the row above the strip), so no neighbour is read from
+// device memory: the strip's last row's lane group stores its cell of
+// each diagonal straight into slot 0 of the next block of the cluster
+// (distributed shared memory), which the barrier publishes.  Where a
+// strip's planes outgrow a block's shared memory (grids of more than
+// ~6400 rows), the same planes lie in device memory (kDev; `ring`), one
+// run of slots an item, so that the next block's slot 0 is this block's
+// last slot and the barrier publishes it as it is.  A row's match
+// emission, mask byte and r_emit[y - 1] load three diagonals ahead (in one
+// turn) and are read only on their diagonal.  A neighbour outside the grid reads the -inf the
+// planes start with, one outside the mask the -inf written there.  Cells
+// past the item's corner (the batch's padding) are -inf, written by their
+// row's lane group in the same walk, a cell a diagonal, the rest after
+// it.  Emissions at or below -1e29 (the JAX package's NEG for -inf) are
+// read as -inf, as fill.cpp takes them.  Bounded, as kernel (d), by the
+// chain of a cell a diagonal, plus the cluster barrier; the clusters meet
+// no other, so the K items run side by side.
+constexpr int kBatchMaxGroups = 160;  // ops/siblingdp.py BATCH_MAX_GROUPS
+
 __device__ __forceinline__ double inf_below(double v) { return v <= -1e29 ? -INFINITY : v; }
 
-__global__ void __launch_bounds__(kRingMaxThreads) siblingbatch(
+// The cluster barrier a diagonal: the block's own barrier orders its
+// shared memory, the arrive is relaxed (a release would wait for every
+// thread's global loads and stores in flight), and the wait acquires what
+// the strips' last rows released into other blocks (`put_remote`'s
+// fence).
+__device__ __forceinline__ void diagonal_sync() {
+  __syncthreads();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\tbarrier.cluster.wait.aligned;"
+               ::: "memory");
+}
+
+// The lane's states into another block's slot (`put`'s, through `a`, the
+// slot's shared::cluster address), released to the cluster.  The lane's
+// last load went out before this diagonal's cell step, a chain of
+// log-sum-exps before the fence, so the fence waits for little more than
+// these stores.
+__device__ __forceinline__ void put_remote(unsigned a, const Lane& ln, const Out& o, bool in) {
+  st_remote(a + 8 * ln.sL, in ? o.L : -INFINITY);
+  st_remote(a + 8 * ln.sW, in ? o.W : -INFINITY);
+  if (ln.j < 3) st_remote(a + 8 * ln.sP, in ? o.P : -INFINITY);
+  asm volatile("fence.acq_rel.cluster;" ::: "memory");
+}
+
+size_t batch_smem_bytes(int H) { return sizeof(double) * kPitch * 3 * (H + 1); }
+
+// Row x's cell of diagonal k: in the item's grid, its mask byte and the
+// emission lane j adds from it (the match emission on lane 0, r_emit[y - 1]
+// on lanes 1 and 2), as loaded: nothing reads them before the diagonal
+// that uses them, so a load in flight stalls no one.
+struct BatchCell {
+  int live, mask;
+  double e;
+};
+
+template <bool kDev>
+__global__ void __launch_bounds__(kLanes * kBatchMaxGroups) siblingbatch(
     const double* __restrict__ l_emit, const double* __restrict__ r_emit,
     const double* __restrict__ emit, const uint8_t* __restrict__ mask,
     const double* __restrict__ t144, const int* __restrict__ ends, double* cells,
-    double* lp_end, int sx, int sy) {
-  __shared__ double guard[kPitch];
-  const int item = blockIdx.x, tid = threadIdx.x, threads = blockDim.x;
-  const int q = tid / kLanes, j = tid % kLanes, width = threads / kLanes;
+    double* lp_end, double* ring, int sx, int sy, int R) {
+  // the planes, slot s (row x0 + s - 1) of plane p at pl[p * plane + s * kPitch]:
+  // [3][H + 1][kPitch] in shared memory, or the block's run of its item's
+  // [3][C H + 1][kPitch] in device memory (kDev)
+  extern __shared__ __align__(16) double sm[];
+  const unsigned rank = cluster_rank(), csize = cluster_blocks();
+  const int W = blockDim.x / kLanes, H = W * R;  // lane groups, rows of the strip
+  const int item = blockIdx.x / csize, tid = threadIdx.x;
+  const int q = tid / kLanes, j = tid % kLanes;
   const int X = ends[2 * item], Y = ends[2 * item + 1];  // the item's corner
+  const int x0 = static_cast<int>(rank) * H;
+  const int plane = ((kDev ? static_cast<int>(csize) * H : H) + 1) * kPitch;
+  double* pl = kDev ? ring + size_t(3) * plane * item + size_t(x0) * kPitch : sm;
   const double* T144 = t144 + 144 * item;
   const Lane ln = make_lane(j, T144);
   const size_t grid = size_t(sx) * sy;
   double* out = cells + grid * kStates * item;
   const double* em = emit + grid * item;
   const uint8_t* mk = mask + grid * item;
-  const double* le = l_emit + size_t(sx - 1) * item;
+  const double* lem = l_emit + size_t(sx - 1) * item;
   const double* re = r_emit + size_t(sy - 1) * item;
-  for (int u = tid; u < kPitch; u += threads) guard[u] = -INFINITY;
-  for (size_t c = tid; c < grid; c += threads) {
-    if (int(c / sy) > X || int(c % sy) > Y) {
-#pragma unroll
-      for (int s = 0; s < kStates; ++s) out[c * kStates + s] = -INFINITY;
+  for (int u = tid; u < 3 * (H + 1) * kPitch; u += blockDim.x)
+    pl[u / ((H + 1) * kPitch) * plane + u % ((H + 1) * kPitch)] = -INFINITY;
+  // the next block's planes, where this strip's last row goes to slot 0
+  const bool has_next = rank + 1 < csize;
+  const unsigned next = has_next && !kDev ? remote_addr(pl, rank + 1) : 0u;
+  auto le_of = [&](int x) { return x >= 1 && x <= X ? inf_below(__ldg(lem + x - 1)) : 0.0; };
+  auto cell_of = [&](int x, int k) -> BatchCell {
+    const int y = k - x;
+    BatchCell c{0, 0, 0.0};
+    if (x > X || y < 0 || y > Y) return c;
+    c.live = 1;
+    c.mask = __ldg(mk + size_t(x) * sy + y);
+    if (j == 0) {
+      c.e = __ldg(em + size_t(x) * sy + y);
+    } else if (j < 3 && y >= 1) {
+      c.e = __ldg(re + y - 1);
+    }
+    return c;
+  };
+  // the padding of row x: (x, Y + 1 .. sy - 1) on a row of the item, the
+  // whole row past it (none past the padded grid); its cell t
+  auto pad_cell = [&](int x, int t) {
+    const int pad = x >= sx ? 0 : x > X ? sy : sy - 1 - Y;
+    if (t < pad) {
+      double* c = out + (size_t(x) * sy + (x > X ? 0 : Y + 1) + t) * kStates;
+      for (int s = j; s < kStates; s += kLanes) c[s] = -INFINITY;
+    }
+  };
+  // slot i's row (x0 + i) on diagonal k, from its cell c and l_emit le
+  auto step = [&](int i, int k, const BatchCell& c, double le) {
+    const int x = x0 + i;
+    const double* p1 = pl + ((k + 2) % 3) * plane;  // diagonal k - 1
+    const double* p2 = pl + ((k + 1) % 3) * plane;  // diagonal k - 2
+    // (x-1, y) and (x-1, y-1) in slot i, (x, y-1) in slot i + 1
+    const double* nL = j == 0 ? p2 + i * kPitch : p1 + (j == 2 ? i + 1 : i) * kPitch;
+    const double* nP = p1 + (j == 0 ? i : i + 1) * kPitch;
+    const double e = inf_below(c.e);
+    const double eL = (j == 0 || j == 2) ? e : le;
+    const double eP = (j == 1 || j == 2) ? e : le;
+    const Out o = sib_lanes(ln, nL, nP, eL, eP, x == 0 && k == 0, kFull);
+    const bool in = c.live && c.mask;
+    put(pl + (k % 3) * plane + (i + 1) * kPitch, ln, o, in);
+    if (i == H - 1 && has_next) {
+      if (kDev) {
+        asm volatile("fence.acq_rel.cluster;" ::: "memory");  // the slot put above
+      } else {
+        put_remote(next + static_cast<unsigned>((k % 3) * plane * sizeof(double)), ln, o, in);
+      }
+    }
+    if (c.live) put(out + (size_t(x) * sy + (k - x)) * kStates, ln, o, in);
+    pad_cell(x, k);
+  };
+  cluster_sync();  // every plane of the cluster is -inf before any slot 0 is written
+  const int K = X + Y + 1;
+  if (R == 1) {
+    // four cells in registers, each loaded three diagonals before its use
+    // and read only then (unrolled, so that no register move waits on a
+    // load in flight); a load is a diagonal's chain old at the last row's
+    // fence
+    const int x = x0 + q;
+    const double le = le_of(x);
+    BatchCell c0 = cell_of(x, 0), c1 = cell_of(x, 1), c2 = cell_of(x, 2), c3;
+    for (int k = 0; k < K; k += 4) {
+      c3 = cell_of(x, k + 3);
+      step(q, k, c0, le);
+      diagonal_sync();
+      if (k + 1 >= K) break;
+      c0 = cell_of(x, k + 4);
+      step(q, k + 1, c1, le);
+      diagonal_sync();
+      if (k + 2 >= K) break;
+      c1 = cell_of(x, k + 5);
+      step(q, k + 2, c2, le);
+      diagonal_sync();
+      if (k + 3 >= K) break;
+      c2 = cell_of(x, k + 6);
+      step(q, k + 3, c3, le);
+      diagonal_sync();
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      for (int t = 0; t < R; ++t) {
+        const int x = x0 + q + t * W;
+        step(q + t * W, k, cell_of(x, k), le_of(x));
+      }
+      diagonal_sync();
     }
   }
-  __syncthreads();
-  for (int k = 0; k <= X + Y; ++k) {
-    const int xa = max(0, k - Y), n = min(k, X) - xa + 1;
-    for (int base = 0; base < n; base += width) {  // the same turns in every thread
-      const int t = base + q;
-      const bool cell = t < n;
-      const int x = xa + (cell ? t : 0), y = k - x;
-      const double* l = cell && x >= 1 ? out + (size_t(x - 1) * sy + y) * kStates : guard;
-      const double* r = cell && y >= 1 ? out + (size_t(x) * sy + y - 1) * kStates : guard;
-      const double* lr =
-          cell && x >= 1 && y >= 1 ? out + (size_t(x - 1) * sy + y - 1) * kStates : guard;
-      const double me = cell ? inf_below(em[size_t(x) * sy + y]) : 0.0;
-      const double lee = cell && x >= 1 ? inf_below(le[x - 1]) : 0.0;
-      const double ren = cell && y >= 1 ? inf_below(re[y - 1]) : 0.0;
-      const double* nL = j == 0 ? lr : (j == 2 ? r : l);
-      const double* nP = j == 0 ? l : (j < 3 ? r : guard);
-      const double eL = j == 0 ? me : j == 2 ? ren : lee;
-      const double eP = j == 0 ? lee : ren;
-      const Out o = sib_lanes(ln, nL, nP, eL, eP, cell && k == 0, kFull);
-      if (cell) put(out + (size_t(x) * sy + y) * kStates, ln, o, mk[size_t(x) * sy + y] != 0);
-    }
-    __syncthreads();
+  for (int t = 0; t < R; ++t) {
+    const int x = x0 + q + t * W;
+    for (int c = K; c < sy; ++c) pad_cell(x, c);
   }
-  if (tid == 0) lp_end[item] = lp_end_of(out + (size_t(X) * sy + Y) * kStates, Trans{T144});
+  // the loop's last cluster barrier ended every store into another block
+  if (tid == 0 && X >= x0 && X < x0 + H)
+    lp_end[item] = lp_end_of(pl + ((K - 1) % 3) * plane + (X - x0 + 1) * kPitch, Trans{T144});
 }
 
 }  // namespace
@@ -826,16 +924,55 @@ extern "C" int siblingfill_chain_f64(const double* t144, int steps, int split, d
 // Kernel (d'): K items' fills into cells [K, sx, sy, 11] and lp_end [K],
 // from l_emit [K, sx - 1], r_emit [K, sy - 1], emit and mask [K, sx, sy]
 // (bytes), t144 [K, 144] (as siblingfill_f64 takes them) and each item's
-// corner `ends` [K, 2] (x, y), a block of 4 `width` threads an item
-// (width a multiple of 8, at most kRingMaxCells).  Returns the launch's
-// error.
+// corner `ends` [K, 2] (x, y): a cluster of `cluster` blocks an item (1,
+// 2, 4 or 8), each of `groups` lane groups (4 threads each; a multiple of
+// 8 at most kBatchMaxGroups) and `turns` rows a lane group, cluster *
+// groups * turns >= sx.  `ring` null: the planes in shared memory
+// (batch_smem_bytes, at most the card's opt-in limit); else in `ring`,
+// K * 3 * (cluster * groups * turns + 1) * kPitch doubles of device
+// memory.  Returns the launch's error.
 extern "C" int siblingbatch_f64(const double* l_emit, const double* r_emit, const double* emit,
                                 const uint8_t* mask, const double* t144, const int* ends,
-                                double* cells, double* lp_end, int K, int sx, int sy, int width,
-                                void* stream) {
-  if (K < 1 || sx < 1 || sy < 1 || width < 8 || width > kRingMaxCells || width % 8)
+                                double* cells, double* lp_end, double* ring, int K, int sx,
+                                int sy, int groups, int turns, int cluster, void* stream) {
+  if (K < 1 || sx < 1 || sy < 1 || groups < 8 || groups > kBatchMaxGroups || groups % 8 ||
+      turns < 1 || (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      static_cast<long long>(cluster) * groups * turns < sx)
     return int(cudaErrorInvalidValue);
-  siblingbatch<<<K, kLanes * width, 0, static_cast<cudaStream_t>(stream)>>>(
-      l_emit, r_emit, emit, mask, t144, ends, cells, lp_end, sx, sy);
-  return static_cast<int>(cudaGetLastError());
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+    return int(cudaErrorInvalidValue);
+  const size_t bytes = ring ? 0 : batch_smem_bytes(groups * turns);
+  if (bytes > static_cast<size_t>(limit)) return int(cudaErrorInvalidValue);
+  auto kernel = siblingbatch<false>;
+  if (ring) kernel = siblingbatch<true>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(K * cluster);
+  cfg.blockDim = dim3(kLanes * groups);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, l_emit, r_emit, emit, mask, t144, ends, cells, lp_end,
+                         ring, sx, sy, turns);
+  return e ? static_cast<int>(e) : static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory a block of this card may take (its opt-in limit), 0
+// if the card cannot be asked.
+extern "C" int smem_optin() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+    return 0;
+  return limit;
 }

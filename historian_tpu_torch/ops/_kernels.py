@@ -56,9 +56,12 @@ _SIGNATURES = {
     "pairforward_lp_tiled": [_P] * 7 + [_I] * 4 + [_P],
     # tiled, Y1, out[5] (lanes a thread, warps, registers, local bytes, static smem)
     "pairforward_attrs": [_I, _I, _P],
-    # emit, mask, ins, trans8, rowpos, off, diag, cells, plan, sx, sy, viterbi,
-    # design, threads, ring_rows, stream
-    "branchfill": [_P] * 9 + [_I] * 6 + [_P],
+    # emit, mask, ins, trans8, rowpos, off, diag, cells, plan, exch, progress,
+    # sx, sy, viterbi, design, threads, ring_rows, strip_rows, lead, blocks,
+    # stream
+    "branchfill": [_P] * 11 + [_I] * 9 + [_P],
+    # strip_rows, lead, viterbi -> blocks of the strip design resident at once
+    "branchfill_capacity": [_I] * 3,
     # trans8, steps, viterbi, out, stream: the dependency floor's step
     "branchfill_chain": [_P, _I, _I, _P, _P],
     # emit, mask, l_emit, r_emit, rowpos, off, diag, plan, sx, sy, width,
@@ -111,17 +114,21 @@ _SIGNATURES = {
     "pppairforward": [_P] + [_I] * 4 + [_P, _P, _I, _I] + [_P] * 7 + [_I] * 2 + [_P],
     # lanes, warps, cluster -> blocks of kernel (g3) resident at once
     "pppairforward_capacity": [_I] * 3,
-    # l_emit, r_emit, emit, mask, t144, ends, cells, lp_end, K, sx, sy, width,
-    # stream: kernel (d'), K sibling fills in one launch
-    "siblingbatch": [_P] * 8 + [_I] * 4 + [_P],
+    # l_emit, r_emit, emit, mask, t144, ends, cells, lp_end, ring, K, sx, sy,
+    # groups, turns, cluster, stream: kernel (d'), K sibling fills in one
+    # launch
+    "siblingbatch": [_P] * 9 + [_I] * 6 + [_P],
+    # -> the shared memory a block of the card may take (its opt-in limit)
+    "smem_optin": [],
 }
 #: the dtypes each kernel is built for, where not both
-_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_chain", "siblingplan",
+_DTYPES = {name: ("f64",) for name in ("branchfill", "branchfill_capacity",
+                                       "branchfill_chain", "siblingplan",
                                        "siblingfill", "siblingfill_capacity",
                                        "siblingfill_chain", "dagfill",
                                        "dagfill_capacity", "dagfill_chain", "dagplan_count",
                                        "dagplan_records", "siblingbatch")}
-_DTYPES["spcolforward_peer"] = ("",)
+_DTYPES["spcolforward_peer"] = _DTYPES["smem_optin"] = ("",)
 
 _LIB: ctypes.CDLL | None = None
 
@@ -186,3 +193,21 @@ def lib() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {code}")
+
+
+_SMEM: dict = {}
+
+
+def smem_limit(dev) -> int:
+    """The shared memory a block of CUDA device `dev` may take (its opt-in
+    limit), asked of the card once."""
+    import torch
+
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMEM:
+        with torch.cuda.device(index):
+            _SMEM[index] = lib().smem_optin()
+        if _SMEM[index] <= 0:
+            raise RuntimeError(f"CUDA device {index}: its shared memory limit cannot be read")
+    return _SMEM[index]

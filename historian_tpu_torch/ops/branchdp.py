@@ -13,8 +13,10 @@ interior columns and its column Y, packed row after row.
 `branch_fill_band` is the band's entry: the hand-written CUDA kernel
 csrc/branchfill.cu for CUDA tensors (float64), which keeps the host
 route's per-cell order (csrc/fill.cpp `branch_fill`), so its Viterbi
-cells equal the host's bit for bit; `branch_fill_band_plain`, the plain
-full fill gathered at the band, for CPU tensors.  `upload_band` packs a
+cells equal the host's bit for bit, in one of two designs (DESIGNS): the
+ring, one block, where a diagonal fits it, else the strips, a pipeline of
+row strips over many SMs (`strip_plan`); `branch_fill_band_plain`, the
+plain full fill gathered at the band, for CPU tensors.  `upload_band` packs a
 host grid's band into one pinned buffer and copies it once;
 `read_band` copies the filled band back once, and `BandCells` answers
 the host traceback's cell reads from it (a cell outside the band is NEG
@@ -41,20 +43,34 @@ MATCH, INSERT, DELETE = 0, 1, 2
 
 #: kernel launches made by `branch_fill_band` (never by the plain version)
 LAUNCHES = 0
-#: those launches by design (csrc/branchfill.cu): "ring", the previous two
-#: diagonals in shared memory, for a band whose diagonals hold at most
-#: RING_MAX_CELLS cells; "wide", the neighbours from device memory, for the
-#: rest (a full mask)
-DESIGNS = {"ring": 0, "wide": 0}
+#: those launches by design (csrc/branchfill.cu): "ring", one block with
+#: the previous two diagonals in shared memory, for a band whose diagonals
+#: hold at most RING_MAX_CELLS cells; "strip", a pipeline of row strips
+#: over many SMs, for the rest (a full mask, a wide envelope)
+DESIGNS = {"ring": 0, "strip": 0}
 #: those launches by mode: the refiner's Viterbi, the sampler's Forward
 MODES = {"viterbi": 0, "forward": 0}
-#: the wide design's largest block (csrc/branchfill.cu kMaxThreads)
-MAX_THREADS = 1024
+#: the last launch's design and shape: the ring's threads and slots, or
+#: the strip plan (`strip_plan`)
+LAST_LAUNCH: dict = {}
 #: the ring design's largest block, one thread a cell of a diagonal
 #: (csrc/branchfill.cu kRingMaxCells)
 RING_MAX_CELLS = 256
 #: the ring design's plan record (csrc/branchfill.cu Rec)
 PLAN_RECORD_BYTES = 32
+#: the strip design's rows a strip (a multiple of 32) and its lead, the
+#: diagonals of the row above its io warp may stage ahead (csrc/branchfill.cu
+#: kStripMaxRows, kStripMaxLead)
+STRIP_MAX_ROWS = 256
+STRIP_MAX_LEAD = 254
+#: the strip design's layout by mode, (rows a strip, lead): the fastest of
+#: `branch_bench.py --sweep` (rows 32-192 x lead 2-64) at long6 `mcmc`'s
+#: full-mask fill (5997 x 5807) on an H100 80GB HBM3 at 700 W: Viterbi
+#: 6.475 ms, Forward 15.400 (128 rows 16.034, 64 rows 17.300)
+STRIP_RULE = {"viterbi": (64, 16), "forward": (96, 8)}
+#: the strip design's resident blocks by (device, rows, lead, mode), asked
+#: of the card once each
+_CAPACITY: dict = {}
 #: one entry a band upload (`upload_band` on the card): bytes, the copy's
 #: ms (CUDA events) and the host's ms packing the band into pinned memory
 UPLOADS: list = []
@@ -176,7 +192,23 @@ class BandLayout:
         return idx
 
     def design(self) -> str:
-        return "ring" if self.widest <= RING_MAX_CELLS else "wide"
+        return "ring" if self.widest <= RING_MAX_CELLS else "strip"
+
+
+def strip_plan(X1: int, rows: int, capacity: int, lead: int) -> dict:
+    """The strip design's launch for a grid of X1 rows: strips of `rows`
+    rows (the last one partial where `rows` does not divide X1), as many
+    blocks as strips but at most `capacity` (the blocks resident at once;
+    block b then takes strips b, b + blocks, ... in order), and `lead`."""
+    if rows % 32 or not 32 <= rows <= STRIP_MAX_ROWS:
+        raise ValueError(f"strips of {rows} rows: a multiple of 32 up to {STRIP_MAX_ROWS}")
+    if not 1 <= lead <= STRIP_MAX_LEAD:
+        raise ValueError(f"a strip lead of {lead}: 1 to {STRIP_MAX_LEAD}")
+    if capacity < 1:
+        raise RuntimeError("branchfill: the card holds no strip block at once")
+    strips = -(-X1 // rows)
+    return dict(strips=strips, rows=rows, last_rows=X1 - (strips - 1) * rows,
+                blocks=min(strips, capacity), lead=lead)
 
 
 def band_layout(lo: np.ndarray, hi: np.ndarray, X1: int, Y1: int) -> BandLayout:
@@ -318,8 +350,17 @@ def branch_fill_band(inp: BandInputs, viterbi: bool) -> torch.Tensor:
     """Kernel (e) on the band: its cells [n, 3] (M, I, D), a hull cell
     outside the mask NEG.  The plain version for CPU tensors; for CUDA
     tensors (float64 only) the kernel, in the ring design where the
-    fullest diagonal fits its block, else in the wide design (DESIGNS);
-    any other device raises."""
+    fullest diagonal fits its block, else in the strip design (DESIGNS;
+    its rows and lead by STRIP_RULE); any other device raises."""
+    return _fill_band(inp, viterbi)
+
+
+def _fill_band(inp: BandInputs, viterbi: bool, design: str | None = None,
+               strip_rows: int | None = None, lead: int | None = None,
+               blocks: int | None = None) -> torch.Tensor:
+    """`branch_fill_band`, where `design`, `strip_rows`, `lead` and `blocks`
+    (at most the card's resident capacity) force a layout: the seam tests
+    and benches take (the strips take any band)."""
     global LAUNCHES
     lay = inp.layout
     dev = inp.emit.device
@@ -332,27 +373,55 @@ def branch_fill_band(inp: BandInputs, viterbi: bool) -> torch.Tensor:
             raise ValueError(f"the branch fill kernel takes float64, not {t.dtype}")
     from historian_tpu_torch.ops import _kernels
 
-    design = lay.design()
-    threads = -(-lay.widest // 32) * 32
-    if design == "wide":
-        threads = min(MAX_THREADS, threads)
-    ring_rows = 1 << max(0, lay.span - 1).bit_length()
+    lib = _kernels.lib()
+    mode = "viterbi" if viterbi else "forward"
+    design = design or lay.design()
     X1, Y1 = lay.shape
     cells = torch.empty((lay.n, 3), dtype=torch.float64, device=dev)
-    # the ring design's plan: a 32-byte record a cell slot of each diagonal
-    plan = (torch.empty((X1 + Y1 - 1) * threads * PLAN_RECORD_BYTES, dtype=torch.uint8,
-                        device=dev) if design == "ring" else None)
+    plan = exch = progress = None
+    threads = ring_rows = 0
+    rows, lead_ = STRIP_RULE[mode]
+    rows, lead_ = strip_rows or rows, lead or lead_
+    if design == "ring":
+        if lay.widest > RING_MAX_CELLS:
+            raise ValueError(f"the ring design takes diagonals of at most {RING_MAX_CELLS} "
+                             f"cells, not {lay.widest}")
+        threads = -(-lay.widest // 32) * 32
+        ring_rows = 1 << max(0, lay.span - 1).bit_length()
+        # the plan: a 32-byte record a cell slot of each diagonal
+        plan = torch.empty((X1 + Y1 - 1) * threads * PLAN_RECORD_BYTES, dtype=torch.uint8,
+                           device=dev)
+        launch = dict(design="ring", threads=threads, ring_rows=ring_rows)
+    elif design == "strip":
+        with torch.cuda.device(dev):
+            key = (torch.cuda.current_device(), rows, lead_, mode)
+            if key not in _CAPACITY:
+                _CAPACITY[key] = lib.branchfill_capacity_f64(rows, lead_, int(bool(viterbi)))
+        launch = dict(design="strip", **strip_plan(X1, rows, _CAPACITY[key], lead_))
+        if blocks is not None:
+            if not 1 <= blocks <= launch["blocks"]:
+                raise ValueError(f"{blocks} strip blocks: 1 to {launch['blocks']}")
+            launch["blocks"] = blocks
+        exch = torch.empty(launch["strips"] * Y1 * 3, dtype=torch.float64, device=dev)
+        progress = torch.zeros(launch["strips"], dtype=torch.int32, device=dev)
+    else:
+        raise ValueError(f"no branch fill design {design!r}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _kernels.lib().branchfill_f64(
+        code = lib.branchfill_f64(
             inp.emit.data_ptr(), inp.mask.data_ptr(), inp.ins.data_ptr(), inp.trans.data_ptr(),
             inp.rowpos.data_ptr(), inp.off.data_ptr(), inp.diag.data_ptr(), cells.data_ptr(),
-            None if plan is None else plan.data_ptr(), X1, Y1, int(bool(viterbi)),
-            int(design == "wide"), threads, ring_rows, stream)
+            None if plan is None else plan.data_ptr(),
+            None if exch is None else exch.data_ptr(),
+            None if progress is None else progress.data_ptr(), X1, Y1, int(bool(viterbi)),
+            int(design == "strip"), threads, ring_rows, rows, lead_, launch.get("blocks", 1),
+            stream)
     _kernels.check(code, "branchfill")
     LAUNCHES += 1
     DESIGNS[design] += 1
-    MODES["viterbi" if viterbi else "forward"] += 1
+    MODES[mode] += 1
+    LAST_LAUNCH.clear()
+    LAST_LAUNCH.update(launch, mode=mode)
     return cells
 
 

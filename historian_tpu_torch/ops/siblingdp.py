@@ -30,8 +30,10 @@ lp_end back once.
 `sibling_forward_batch` fills K grids of one padded shape at once, each to
 its own corner: the plain version `sibling_forward_batch_plain` runs
 `sibling_forward` an item at a time; for CUDA tensors kernel (d')
-(csrc/siblingfill.cu `siblingbatch`, a block an item, a lane group a
-cell of a diagonal, kernel (d)'s cell step) fills them in one launch.
+(csrc/siblingfill.cu `siblingbatch`: a thread block cluster an item, its
+rows in strips of a block, a lane group a row on kernel (d)'s cell step,
+the last two diagonals in shared memory, or in device memory where a
+strip's outgrow it, `batch_layout`) fills them in one launch.
 """
 
 from __future__ import annotations
@@ -83,8 +85,8 @@ UPLOADS: list = []
 LAST_LAUNCH: dict = {}
 #: launches of kernel (d'), the batch (`sibling_forward_batch` on the card)
 BATCH_LAUNCHES = 0
-#: the last batch launch: items, the grid, lanes a cell, cell slots and
-#: threads a block (a block an item)
+#: the last batch launch: items, the grid, lanes a cell, and
+#: `batch_layout`'s cluster, lane groups, turns, rows a block and ring
 LAST_BATCH: dict = {}
 #: lanes a cell (csrc/siblingfill.cu kLanes)
 LANES = 4
@@ -94,6 +96,21 @@ RING_MAX_CELLS = 128
 #: STRIP_MAX_ROWS = kStripMaxRows)
 STRIP_ROWS = 64
 STRIP_MAX_ROWS = 64
+#: kernel (d')'s lane groups a block at most (csrc/siblingfill.cu
+#: kBatchMaxGroups) and doubles a plane slot (kPitch)
+BATCH_MAX_GROUPS = 160
+BATCH_PITCH = 12
+#: kernel (d')'s rule: the fewest blocks a cluster (1, 2, 4, 8) whose
+#: strips of at most BATCH_ROWS rows hold an item's rows.  On bench.py:566's
+#: 16 grids (305 rows), `sibling_bench.py --batch --sweep` on an H100 80GB
+#: HBM3 at 700 W: the one mirrored sweep (1, 2, 4, 8, 8, 4, 2, 1 in one
+#: process) put clusters of 4 (80-row strips) ahead of 8 in both halves,
+#: 2.713 / 2.958 ms against 3.010 / 3.156; single passes in four other
+#: calls put 8 ahead in three (8 / 4: 3.058 / 3.105, 3.118 / 3.265,
+#: 2.747 / 3.088) and 4 ahead in one (2.657 against 2.882): the two trade
+#: places by up to 11 % between calls.  2 (3.16-3.41) and 1 (two rows a lane group in
+#: turns, 5.53-6.10) trail
+BATCH_ROWS = 80
 #: the ring design's plan record (csrc/siblingfill.cu Rec): match
 #: emission, l_emit, r_emit (float64), band position (int32), the ring
 #: slots of the cell and of (x-1, y), (x, y-1), (x-1, y-1) (uint16),
@@ -620,6 +637,29 @@ def _check_batch(l_emit, r_emit, match_emit, mask, trans, ends) -> None:
         raise ValueError(f"ends outside the grids [{X1}, {Y1}]")
 
 
+def batch_layout(sx: int, smem: int, cluster: int | None = None) -> dict:
+    """Kernel (d')'s launch for grids of sx rows on a card whose blocks may
+    take `smem` bytes of shared memory: a thread block cluster of
+    `cluster` blocks an item (by default the fewest of 1, 2, 4, 8 whose
+    strips of BATCH_ROWS rows hold sx, else 8), each block a strip of
+    `rows` = `groups` x `turns` rows: `groups` lane groups (a multiple of
+    8, at most BATCH_MAX_GROUPS) of `turns` rows each (1 unless the
+    strip's rows outnumber a block's lane groups).  `ring` says where the
+    strip's planes (three diagonals of a slot a row, and the row above)
+    lie: in shared memory where `smem` holds them, else in device memory."""
+    if cluster is None:
+        cluster = next((c for c in (1, 2, 4, 8) if c * BATCH_ROWS >= sx), 8)
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"kernel (d') takes clusters of 1, 2, 4 or 8 blocks, not {cluster}")
+    per = -(-sx // cluster)
+    turns = -(-per // BATCH_MAX_GROUPS)
+    groups = -(-(-(-per // turns)) // 8) * 8
+    rows = groups * turns
+    fits = 8 * BATCH_PITCH * 3 * (rows + 1) <= smem
+    return dict(cluster=cluster, groups=groups, turns=turns, rows=rows,
+                ring="shared" if fits else "device")
+
+
 def sibling_forward_batch(l_emit, r_emit, match_emit, mask, trans, ends) -> tuple:
     """K sibling fills at once, the JAX package's `sibling_forward_batch`:
     l_emit [K, X], r_emit [K, Y], match_emit and mask [K, X+1, Y+1], trans
@@ -628,9 +668,16 @@ def sibling_forward_batch(l_emit, r_emit, match_emit, mask, trans, ends) -> tupl
     read at each item's corner); inside an item's corner the cells are its
     own fill's, a cell no path reaches at or below -1e29.  The plain
     version for CPU tensors; for CUDA tensors (float64) kernel (d') in one
-    launch, which fills each item up to its corner (-inf past it, and
-    where fill.cpp has -inf) in fill.cpp's per-cell order; any other
-    device raises."""
+    launch (`batch_layout`), which fills each item up to its corner (-inf
+    past it, and where fill.cpp has -inf) in fill.cpp's per-cell order; any
+    other device raises."""
+    return _forward_batch(l_emit, r_emit, match_emit, mask, trans, ends)
+
+
+def _forward_batch(l_emit, r_emit, match_emit, mask, trans, ends,
+                   cluster: int | None = None) -> tuple:
+    """`sibling_forward_batch`, where `cluster` forces kernel (d')'s blocks
+    an item: the seam tests and benches take."""
     global BATCH_LAUNCHES
     _check_batch(l_emit, r_emit, match_emit, mask, trans, ends)
     dev = match_emit.device
@@ -645,23 +692,25 @@ def sibling_forward_batch(l_emit, r_emit, match_emit, mask, trans, ends) -> tupl
     from historian_tpu_torch.ops import _kernels
 
     K, X1, Y1 = match_emit.shape
-    e = ends.cpu()
-    widest = int(torch.minimum(e[:, 0], e[:, 1]).max()) + 1
-    width = min(RING_MAX_CELLS, max(8, -(-widest // 8) * 8))
+    lay = batch_layout(X1, _kernels.smem_limit(dev), cluster)
     args = [t.contiguous() for t in (l_emit, r_emit, match_emit)] + [
         mask.contiguous().view(torch.uint8), unpack_tables(trans),
         ends.to(torch.int32).contiguous()]
     cells = torch.empty((K, X1, Y1, N_STATES), dtype=torch.float64, device=dev)
     lp_end = torch.empty(K, dtype=torch.float64, device=dev)
+    ring = None
+    if lay["ring"] == "device":
+        ring = torch.empty(K * 3 * (lay["cluster"] * lay["rows"] + 1) * BATCH_PITCH,
+                           dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         code = _kernels.lib().siblingbatch_f64(
-            *(t.data_ptr() for t in args), cells.data_ptr(), lp_end.data_ptr(), K, X1, Y1,
-            width, torch.cuda.current_stream(dev).cuda_stream)
+            *(t.data_ptr() for t in args), cells.data_ptr(), lp_end.data_ptr(),
+            None if ring is None else ring.data_ptr(), K, X1, Y1, lay["groups"], lay["turns"],
+            lay["cluster"], torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(code, "siblingbatch")
     BATCH_LAUNCHES += 1
     LAST_BATCH.clear()
-    LAST_BATCH.update(items=K, grid=(X1, Y1), lanes=LANES, width=width,
-                      threads=LANES * width)
+    LAST_BATCH.update(items=K, grid=(X1, Y1), lanes=LANES, threads=LANES * lay["groups"], **lay)
     return cells, lp_end
 
 

@@ -233,3 +233,160 @@ def test_upload_band_on_the_cpu():
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
     assert got.mask.shape == (lay.n,) and got.rowpos.dtype == torch.int32
     assert np.array_equal(got.diag.numpy(), lay.diag)
+
+
+# ----------------------------------------------- the strip design's plan and dataflow
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+def test_plain_matches_jax_full_mask_past_the_ring(viterbi):
+    """A full mask (an uninitialised envelope) whose fullest diagonal holds
+    more cells than the ring design's block: the layout picks the strip
+    design, and the plain version equals the JAX package's fill (1e-12
+    relative) and fill.cpp's."""
+    emit, ins, mask, trans = inputs(300, 280, -1, seed=11)
+    lay = branchdp.band_layout(*hull(mask), 300, 280)
+    assert lay.widest > branchdp.RING_MAX_CELLS and lay.design() == "strip"
+    assert branchdp.band_layout(*hull(inputs(300, 280, 6)[2]), 300, 280).design() == "ring"
+    fill = jax_branchdp.branch_viterbi if viterbi else jax_branchdp.branch_forward
+    ref = np.asarray(fill(emit, ins, mask, trans))
+    got = plain(emit, ins, mask, trans, viterbi)
+    assert close(got, ref)
+    assert close(got, native_fill(get_native(), emit, ins, mask, trans, viterbi))
+
+
+#: (X1, rows, capacity, lead) -> (strips, last strip's rows, blocks)
+STRIP_PLANS = {(20, 64, 132, 8): (1, 20, 1),        # X smaller than one strip
+               (64, 64, 132, 8): (1, 64, 1),
+               (5997, 64, 132, 8): (94, 45, 94),    # a partial last strip
+               (1000, 32, 4, 1): (32, 8, 4),        # more strips than blocks
+               (257, 256, 1, 62): (2, 1, 1)}
+
+
+@pytest.mark.parametrize("case", list(STRIP_PLANS), ids=[str(c) for c in STRIP_PLANS])
+def test_strip_plan(case):
+    """`strip_plan`: strips of `rows` rows over the grid's rows, the last
+    partial where `rows` does not divide them, as many blocks as strips
+    but at most the card's resident capacity, the lead carried."""
+    X1, rows, capacity, lead = case
+    plan = branchdp.strip_plan(X1, rows, capacity, lead)
+    strips, last, blocks = STRIP_PLANS[case]
+    assert plan == dict(strips=strips, rows=rows, last_rows=last, blocks=blocks, lead=lead)
+    assert (strips - 1) * rows + last == X1
+
+
+@pytest.mark.parametrize("bad", [(100, 48, 10, 8), (100, 288, 10, 8), (100, 64, 10, 0),
+                                 (100, 64, 10, 255)])
+def test_strip_plan_rejects(bad):
+    with pytest.raises(ValueError):
+        branchdp.strip_plan(*bad)
+    with pytest.raises(RuntimeError, match="no strip block"):
+        branchdp.strip_plan(100, 64, 0, 8)
+
+
+LOG2 = float(np.log(2.0))
+
+
+@np.errstate(over="ignore", invalid="ignore")
+def red2(a, b, viterbi):
+    """csrc/branchfill.cu red2 over arrays: max (the first operand on ties)
+    or fill.cpp's lse2 in its select form."""
+    if viterbi:
+        return np.where(a > b, a, b)
+    d = a - b
+    up = d > 0
+    t = np.where(up, -d, d)
+    r = np.where(up, a, b) + np.where(t < -708.0, 0.0, np.log1p(np.exp(np.maximum(t, -708.0))))
+    return np.where(a == b, a + LOG2, np.where(up | (d <= 0), r, a + b))
+
+
+def cell_values(p, q, u, x_in, y_in, in_env, e, ins_y, tr, viterbi):
+    """csrc/branchfill.cu's m_value, i_value and d_value over arrays of
+    cells ([n, 3] neighbours p (x-1, y-1), q (x, y-1), u (x-1, y))."""
+    neg = branchdp.NEG
+    mr = red2(red2(p[:, 0] + tr[0], p[:, 1] + tr[3], viterbi), p[:, 2] + tr[6], viterbi)
+    m = np.where(~in_env, neg, np.where(~y_in, np.where(x_in, neg, 0.0),
+                                        np.where(x_in, mr, neg) + e))
+    i = np.where(in_env & y_in, red2(q[:, 0] + tr[1], q[:, 1] + tr[4], viterbi) + ins_y, neg)
+    d = np.where(in_env, red2(u[:, 2] + tr[7], red2(u[:, 0] + tr[2], u[:, 1] + tr[5], viterbi),
+                              viterbi), neg)
+    return np.stack([m, i, d], 1)
+
+
+def strip_walk(inp, H, viterbi):
+    """The strip design's fill (csrc/branchfill.cu `branchfill_strip`):
+    strips of H rows, each walking the diagonals that cross it with a
+    thread a row, its last two diagonals in planes of H + 1 slots (slot 0
+    the row above the strip, slot i + 1 row i), the row above read only
+    from the strip above's exchange (its last row's cells by column) and
+    each row's band from `off` and `rowpos` as the kernel takes them; the
+    band [n, 3]."""
+    lay = inp.layout
+    X1, Y1 = lay.shape
+    X, Y = X1 - 1, Y1 - 1
+    off, rowpos = lay.off, lay.rowpos
+    emit, mask = inp.emit.numpy(), inp.mask.numpy()
+    ins, tr = inp.ins.numpy(), inp.trans.numpy()
+    neg = branchdp.NEG
+    strips = -(-X1 // H)
+    exch = np.full((strips, Y1, 3), np.nan)
+    band = np.full((lay.n, 3), np.nan)
+    for b in range(strips):
+        x0, xl = b * H, min(b * H + H - 1, X)
+        x = np.arange(x0, x0 + H)
+        row = x <= xl
+        xr = np.minimum(x, X)
+        o0, oY, rp = off[xr], off[xr + 1] - 1, rowpos[xr]
+        lo = o0 + 1 - rp
+        hi = lo + (oY - o0 - int(Y >= 1)) - 1
+        planes = np.full((3, H + 1, 3), neg)
+
+        def above(d):  # the row above's cell of diagonal d: the stage, from the exchange
+            y = d - (x0 - 1)
+            return exch[b - 1][y] if b > 0 and 0 <= y <= Y else np.full(3, neg)
+
+        for k in range(x0, xl + Y + 1):
+            y = k - x
+            inner = (x > 0) & (x < X) & (y > 0) & (y < Y)
+            live = row & (y >= 0) & (y <= Y) & (~inner | ((y >= lo) & (y <= hi)))
+            pos = np.where(x == 0, y, np.where(x == X, off[X] + y, np.where(
+                y == 0, o0, np.where(y == Y, oY, rp + y))))
+            pos = np.where(live, pos, 0)
+            p1, p2 = planes[(k - 1) % 3], planes[(k - 2) % 3]
+            p, u = p2[:H].copy(), p1[:H].copy()
+            p[0], u[0] = above(k - 2), above(k - 1)
+            v = cell_values(p, p1[1:], u, x > 0, y > 0, live & (mask[pos] != 0),
+                            np.where(live, emit[pos], 0.0),
+                            np.where(live, ins[np.clip(y, 0, Y)], 0.0), tr, viterbi)
+            v = np.where(live[:, None], v, neg)
+            planes[k % 3][1:] = v
+            band[pos[live]] = v[live]
+            last = xl - x0
+            if b + 1 < strips and 0 <= k - xl <= Y:
+                exch[b][k - xl] = v[last]
+    return band
+
+
+#: (X1, Y1, band, H): a full mask in strips with a partial last one, X
+#: smaller than one strip, a banded and a holed mask, strips of one row's
+#: worth of threads
+WALKS = [(100, 90, -1, 32), (20, 50, -1, 32), (130, 97, 6, 32), (70, 61, -2, 32),
+         (97, 64, -1, 64)]
+
+
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+@pytest.mark.parametrize("case", WALKS, ids=[f"{a}x{b}b{c}h{d}" for a, b, c, d in WALKS])
+def test_strip_walk_matches_fill_cpp(case, viterbi):
+    """The strip design's dataflow (`strip_walk`, each band cell written
+    once, the row above a strip only through its exchange) against
+    csrc/fill.cpp at the band: Viterbi bit for bit, Forward within 1e-12
+    relative (numpy's exp and log1p against glibc's)."""
+    X1, Y1, band, H = case
+    emit, ins, mask, trans = inputs(X1, Y1, band, seed=X1 + Y1)
+    lay, inp = band_of(emit, ins, mask, trans)
+    got = strip_walk(inp, H, viterbi)
+    ref = native_fill(get_native(), emit, ins, mask, trans, viterbi).reshape(-1, 3)
+    ref = ref[lay.flat_index()]
+    assert not np.isnan(got).any()
+    if viterbi:
+        assert np.array_equal(got.view(np.uint64), ref.view(np.uint64))
+    else:
+        assert close(got, ref)

@@ -914,7 +914,7 @@ def test_branchfill_band_readback(cuda):
 @pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
 def test_branchfill_full_mask_wider_than_the_ring(cuda, viterbi):
     """A full mask (an uninitialised envelope) whose diagonals hold more
-    cells than the ring design's block: the wrapper picks the wide design
+    cells than the ring design's block: the wrapper picks the strip design
     before the launch and counts it, and the cells equal fill.cpp's
     (Viterbi bit for bit, Forward to 1e-12 relative)."""
     from historian_tpu_torch.ops import branchdp
@@ -922,16 +922,86 @@ def test_branchfill_full_mask_wider_than_the_ring(cuda, viterbi):
     emit, ins, mask, trans = _branch_inputs(900, 700, -1, seed=6)
     hull = (t.numpy() for t in branchdp.interior_hull(torch.as_tensor(mask)))
     lay = branchdp.band_layout(*hull, 900, 700)
-    assert lay.widest > branchdp.RING_MAX_CELLS and lay.design() == "wide"
-    wides = branchdp.DESIGNS["wide"]
+    assert lay.widest > branchdp.RING_MAX_CELLS and lay.design() == "strip"
+    strips = branchdp.DESIGNS["strip"]
     t = [torch.as_tensor(a, device=cuda) for a in (emit, ins, mask, trans)]
     g = branchdp.branch_fill(*t, viterbi).cpu().numpy()
-    assert branchdp.DESIGNS["wide"] == wides + 1
+    assert branchdp.DESIGNS["strip"] == strips + 1
+    assert branchdp.LAST_LAUNCH["design"] == "strip"
     host = _host_fill(emit, ins, mask, trans, viterbi)
     if viterbi:
         assert np.array_equal(g.view(np.uint64), host.view(np.uint64))
     else:
         assert np.all(np.abs(g - host) <= 1e-12 * np.maximum(1.0, np.abs(host)))
+
+
+def _band_on_card(X1, Y1, band, seed, dev):
+    from historian_tpu_torch.ops import branchdp
+
+    emit, ins, mask, trans = _branch_inputs(X1, Y1, band, seed=seed)
+    hull = (t.numpy() for t in branchdp.interior_hull(torch.as_tensor(mask)))
+    lay = branchdp.band_layout(*hull, X1, Y1)
+    return lay, branchdp.upload_band(lay, emit, mask, ins, trans, dev), (emit, ins, mask, trans)
+
+
+#: the strip design's (rows, lead): one warp's rows with the shortest
+#: lead, the rule's, the widest strips with the longest lead
+STRIP_LAYOUTS = [(32, 1), (64, 8), (128, 16), (256, 254)]
+
+
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+@pytest.mark.parametrize("layout", STRIP_LAYOUTS, ids=[f"{r}r{lead}" for r, lead in STRIP_LAYOUTS])
+def test_branchfill_strip_matches_ring_bits(cuda, layout, viterbi):
+    """On a band both designs take (a ring of eight warps: 236 cells on
+    its widest diagonal), the strip design's cells equal the ring design's
+    bit for bit in both modes, at each layout, three runs alike."""
+    from historian_tpu_torch.ops import branchdp
+
+    lay, inp, _ = _band_on_card(700, 650, 180, 7, cuda)
+    assert lay.design() == "ring"
+    ring = branchdp._fill_band(inp, viterbi, design="ring").cpu().numpy()
+    rows, lead = layout
+    for _ in range(3):
+        got = branchdp._fill_band(inp, viterbi, design="strip", strip_rows=rows,
+                                  lead=lead).cpu().numpy()
+        assert branchdp.LAST_LAUNCH["rows"] == rows and branchdp.LAST_LAUNCH["lead"] == lead
+        assert np.array_equal(got.view(np.uint64), ring.view(np.uint64))
+
+
+#: (rows, lead, blocks) at a 1000 x 600 full mask: more strips than blocks
+#: (32 strips on 3 blocks, and on one), a partial last strip (1000 = 10 x 96
+#: + 40; 15 x 64 + 40)
+STRIP_CASES = [(32, 4, 3), (32, 2, 1), (96, 2, None), (64, 8, None)]
+
+
+@pytest.mark.parametrize("viterbi", [True, False], ids=["viterbi", "forward"])
+@pytest.mark.parametrize("case", STRIP_CASES,
+                         ids=[f"{r}r{lead}l{b}b" for r, lead, b in STRIP_CASES])
+def test_branchfill_strip_layouts_match_fill_cpp(cuda, case, viterbi):
+    """The strip design at a full mask with a partial last strip and with
+    more strips than resident blocks (block b takes strips b, b + G, ...):
+    Viterbi bit for bit equal to fill.cpp, Forward within 1e-12 relative
+    and equal, bit for bit, at every layout; three runs alike."""
+    from historian_tpu_torch.ops import branchdp
+
+    lay, inp, host_args = _band_on_card(1000, 600, -1, 8, cuda)
+    rows, lead, blocks = case
+    host = _host_fill(*host_args, viterbi).reshape(-1, 3)[lay.flat_index()]
+    first = None
+    for _ in range(3):
+        got = branchdp._fill_band(inp, viterbi, strip_rows=rows, lead=lead,
+                                  blocks=blocks).cpu().numpy()
+        launch = branchdp.LAST_LAUNCH
+        assert launch["design"] == "strip" and launch["strips"] == -(-1000 // rows)
+        assert blocks is None or launch["blocks"] == blocks
+        first = got if first is None else first
+        assert np.array_equal(got.view(np.uint64), first.view(np.uint64))
+    if viterbi:
+        assert np.array_equal(first.view(np.uint64), host.view(np.uint64))
+    else:
+        assert np.all(np.abs(first - host) <= 1e-12 * np.maximum(1.0, np.abs(host)))
+        rule = branchdp.branch_fill_band(inp, False).cpu().numpy()
+        assert np.array_equal(first.view(np.uint64), rule.view(np.uint64))
 
 
 def test_branchfill_rejects_float32(cuda):
@@ -1098,7 +1168,9 @@ def test_siblingfill_rejects_float32(cuda):
 def test_branch_matrix_full_envelope_takes_the_wide_design(cuda):
     """An MCMC branch fill under an uninitialised envelope (the full mask
     of a node-align or prune-and-regraft move) on the card: kernel (e) in
-    Forward mode in the wide design, cells within 1e-9 of fill.cpp's."""
+    Forward mode in its design for diagonals wider than the ring (the
+    strip design since it replaced the wide one), cells within 1e-9 of
+    fill.cpp's."""
     from historian_tpu_torch import device
     from historian_tpu_torch.core.alignpath import GuideAlignmentEnvelope
     from historian_tpu_torch.engine import branchmatrix
@@ -1118,9 +1190,9 @@ def test_branch_matrix_full_envelope_takes_the_wide_design(cuda):
     device.select("gpu")
     os.environ["HISTORIAN_DEVICE_BRANCH"] = "1"
     try:
-        wides = branchdp.DESIGNS["wide"]
+        strips = branchdp.DESIGNS["strip"]
         dev = branchmatrix.BranchMatrix(*args)
-        assert branchdp.DESIGNS["wide"] == wides + 1
+        assert branchdp.DESIGNS["strip"] == strips + 1
         os.environ["HISTORIAN_DEVICE_BRANCH"] = "0"
         host = branchmatrix.BranchMatrix(*args)
     finally:
@@ -1620,6 +1692,66 @@ def test_sibling_batch_kernel_matches_host_and_single_fills(cuda):
         assert np.array_equal(p <= -1e29, ~live)
         assert np.all(np.abs(got[live] - p[live]) <= 1e-9 * np.abs(p[live]))
         assert abs(lp_end[k] - plain_lp[k]) <= 1e-9 * abs(plain_lp[k])
+
+
+#: items whose diagonals pass 256 cells, with unequal corners
+SIBLING_BATCH_WIDE = [(300, 262, -1), (265, 300, 40), (20, 7, -1)]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_sibling_batch_clusters_match_kernel_d(cuda, cluster):
+    """Kernel (d') at each cluster size (1: two rows a lane group, in
+    turns; 2, 4, 8: strips handing their last row through distributed
+    shared memory): each item's cells and lp_end bit-equal to kernel (d)'s
+    fill of that item alone, -inf past the corner; three runs alike."""
+    from historian_tpu_torch.ops import siblingdp
+
+    arrays, cases = _sibling_batch(SIBLING_BATCH_WIDE)
+    t = [torch.as_tensor(a, device=cuda) for a in arrays]
+    runs = [siblingdp._forward_batch(*t, cluster=cluster) for _ in range(3)]
+    assert siblingdp.LAST_BATCH["cluster"] == cluster and siblingdp.LAST_BATCH["ring"] == "shared"
+    assert siblingdp.LAST_BATCH["turns"] == (2 if cluster == 1 else 1)
+    for c, lp in runs[1:]:
+        assert torch.equal(c, runs[0][0]) and torch.equal(lp, runs[0][1])
+    cells, lp_end = (v.cpu().numpy() for v in runs[0])
+    for k, ((X, Y, _), ((me, mk, le, re, tmat), lay)) in enumerate(zip(SIBLING_BATCH_WIDE,
+                                                                       cases)):
+        got = cells[k, : X + 1, : Y + 1]
+        band, blp = siblingdp.sibling_fill_band(
+            siblingdp.upload_band(lay, me, mk, le, re, tmat, cuda))
+        assert np.array_equal(got.reshape(-1, 11)[lay.flat_index()], band.cpu().numpy()), k
+        assert lp_end[k] == blp.item()
+        assert np.all(cells[k, X + 1:] == -np.inf) and np.all(cells[k, :, Y + 1:] == -np.inf)
+
+
+#: grids whose strips outgrow a block's shared memory (more than ~6450
+#: rows at clusters of 8), with unequal corners
+SIBLING_BATCH_TALL = {7000: [(7000, 24, -1), (6500, 31, -2)],
+                      11000: [(11000, 20, -1), (10400, 26, 3)]}
+
+
+@pytest.mark.parametrize("rows", list(SIBLING_BATCH_TALL))
+def test_sibling_batch_past_shared_memory_matches_kernel_d(cuda, rows):
+    """Kernel (d') on grids of 7000 and 11000 rows (clusters of 8, several
+    rows a lane group in turns, the strips' planes in device memory): each
+    item's cells and lp_end bit-equal to kernel (d)'s fill of that item
+    alone, -inf past the corner; two runs alike."""
+    from historian_tpu_torch.ops import siblingdp
+
+    items = SIBLING_BATCH_TALL[rows]
+    arrays, cases = _sibling_batch(items)
+    t = [torch.as_tensor(a, device=cuda) for a in arrays]
+    runs = [siblingdp.sibling_forward_batch(*t) for _ in range(2)]
+    assert siblingdp.LAST_BATCH["ring"] == "device" and siblingdp.LAST_BATCH["turns"] > 1
+    assert torch.equal(runs[1][0], runs[0][0]) and torch.equal(runs[1][1], runs[0][1])
+    cells, lp_end = (v.cpu().numpy() for v in runs[0])
+    for k, ((X, Y, _), ((me, mk, le, re, tmat), lay)) in enumerate(zip(items, cases)):
+        got = cells[k, : X + 1, : Y + 1]
+        band, blp = siblingdp.sibling_fill_band(
+            siblingdp.upload_band(lay, me, mk, le, re, tmat, cuda))
+        assert np.array_equal(got.reshape(-1, 11)[lay.flat_index()], band.cpu().numpy()), k
+        assert lp_end[k] == blp.item()
+        assert np.all(cells[k, X + 1:] == -np.inf) and np.all(cells[k, :, Y + 1:] == -np.inf)
 
 
 def test_sibling_batch_kernel_rejects_float32(cuda):

@@ -14,6 +14,10 @@
   the port's own per-matrix fills (csrc/fill.cpp): cells within 1e-9
   relative (-inf at the same cells), lp_end within 1e-6; mixed grid
   sizes in the batch.
+- A batch whose widest diagonal holds more than 256 cells (kernel (d')'s
+  strips of a cluster on the card), with unequal corners: against the
+  JAX package's batch and each item's own fill (csrc/fill.cpp); and
+  `batch_layout`, the kernel's clusters, lane groups and turns.
 - `fill_batch([])` returns True.
 """
 
@@ -26,24 +30,25 @@ import torch
 from historian_tpu.ops import siblingdp as jax_sib
 from historian_tpu_torch import device
 from historian_tpu_torch.ops import siblingdp
+from historian_tpu_torch.sampler.sibling import native_fill
 from tests.test_torch_siblingdp import fill_inputs
 
 ITEMS = [(30, 41, 5), (44, 37, None), (17, 25, None)]
 
 
-def _batch():
-    """Padded batch inputs (numpy) of ITEMS: NEG for -inf, as fill_batch
-    builds them."""
-    K = len(ITEMS)
-    X1 = max(x for x, _, _ in ITEMS) + 1
-    Y1 = max(y for _, y, _ in ITEMS) + 1
+def _batch(items=ITEMS):
+    """Padded batch inputs (numpy) of `items` (X, Y, band): NEG for -inf,
+    as fill_batch builds them."""
+    K = len(items)
+    X1 = max(x for x, _, _ in items) + 1
+    Y1 = max(y for _, y, _ in items) + 1
     l_emit = np.full((K, X1 - 1), -1e30)
     r_emit = np.full((K, Y1 - 1), -1e30)
     match = np.full((K, X1, Y1), -1e30)
     mask = np.zeros((K, X1, Y1), bool)
     trans = np.empty((K, 35))
     ends = np.empty((K, 2), np.int32)
-    for k, (X, Y, band) in enumerate(ITEMS):
+    for k, (X, Y, band) in enumerate(items):
         le, re, me, mk, tmat = fill_inputs(X, Y, band, seed=10 + k)
         l_emit[k, :X], r_emit[k, :Y] = le, re
         match[k, : X + 1, : Y + 1] = np.where(np.isfinite(me), me, -1e30)
@@ -67,6 +72,60 @@ def test_sibling_forward_batch_matches_jax():
         assert np.all(cells[k, X + 1:] <= -1e29) and np.all(cells[k, :, Y + 1:] <= -1e29)
     assert np.all(j_lp > -1e29)
     np.testing.assert_allclose(lp_end, j_lp, rtol=1e-12, atol=0)
+
+
+#: two items past 256 cells a diagonal, with unequal corners
+WIDE_ITEMS = [(300, 262, None), (265, 300, 40)]
+
+
+def test_sibling_forward_batch_wide_matches_jax_and_single_fills():
+    """Items whose diagonals hold up to 263 and 266 cells: inside each
+    corner the JAX function's NEG pattern and values (1e-12 relative) and
+    fill.cpp's (-inf at the same cells, 1e-9 relative: the row scan's
+    drift); lp_end likewise; NEG past the corner."""
+    arrays = _batch(WIDE_ITEMS)
+    cells, lp_end = (v.numpy() for v in siblingdp.sibling_forward_batch(
+        *(torch.from_numpy(a) for a in arrays)))
+    j_cells, j_lp = (np.asarray(v) for v in jax_sib.sibling_forward_batch(*arrays))
+    for k, (X, Y, band) in enumerate(WIDE_ITEMS):
+        got, ref = cells[k, : X + 1, : Y + 1], j_cells[k, : X + 1, : Y + 1]
+        live = ref > -1e29
+        assert np.array_equal(got > -1e29, live)
+        np.testing.assert_allclose(got[live], ref[live], rtol=1e-12, atol=0)
+        assert np.all(cells[k, X + 1:] <= -1e29) and np.all(cells[k, :, Y + 1:] <= -1e29)
+        host, host_lp = native_fill(*fill_inputs(X, Y, band, seed=10 + k))
+        _same(np.where(got <= -1e29, -np.inf, got), host, lp_end[k], host_lp)
+    np.testing.assert_allclose(lp_end, j_lp, rtol=1e-12, atol=0)
+
+
+#: an H100's opt-in shared memory a block
+H100_SMEM = 232448
+#: sx -> kernel (d')'s layout by default and at a forced cluster on an H100
+LAYOUTS = {(40, None): dict(cluster=1, groups=40, turns=1, rows=40, ring="shared"),
+           (161, None): dict(cluster=4, groups=48, turns=1, rows=48, ring="shared"),
+           (306, None): dict(cluster=4, groups=80, turns=1, rows=80, ring="shared"),
+           (306, 2): dict(cluster=2, groups=160, turns=1, rows=160, ring="shared"),
+           (306, 1): dict(cluster=1, groups=160, turns=2, rows=320, ring="shared"),
+           (306, 8): dict(cluster=8, groups=40, turns=1, rows=40, ring="shared"),
+           (3000, None): dict(cluster=8, groups=128, turns=3, rows=384, ring="shared"),
+           (6000, None): dict(cluster=8, groups=152, turns=5, rows=760, ring="shared"),
+           (7001, None): dict(cluster=8, groups=152, turns=6, rows=912, ring="device"),
+           (11001, None): dict(cluster=8, groups=160, turns=9, rows=1440, ring="device")}
+
+
+@pytest.mark.parametrize("case", list(LAYOUTS), ids=[str(c) for c in LAYOUTS])
+def test_batch_layout(case):
+    """`batch_layout`: the fewest blocks a cluster whose strips of
+    BATCH_ROWS rows hold the grid's rows, a lane group a row (turns only
+    past a cluster's lane groups), whole warps of lane groups; every row
+    has a slot; the strip's planes in shared memory while a block's
+    shared memory holds them, past that in device memory (any rows)."""
+    sx, cluster = case
+    lay = siblingdp.batch_layout(sx, H100_SMEM, cluster)
+    assert lay == LAYOUTS[case]
+    assert lay["cluster"] * lay["rows"] >= sx and lay["groups"] % 8 == 0
+    with pytest.raises(ValueError, match="clusters"):
+        siblingdp.batch_layout(300, H100_SMEM, 3)
 
 
 def _proposal_mats(pkg: str, defer: bool) -> list:
